@@ -6,15 +6,18 @@ counterpart of the module of the same path there, with the same public
 names and the same array layouts (``[H, W]`` planes, quaternions in wxyz
 order), so the two packages can be held to each other by tests.
 
-This slice covers the odometry configuration of the main path:
-preprocessing (with the bilateral depth filter as a CUDA kernel), the image
-pyramid, coarse-to-fine pairwise tracking against the base keyframe, and the
-front end and CLI that drive them. Keyframe bundle adjustment, the surfel
-map and loop closure are later slices and are refused with
-``NotImplementedError`` where a configuration asks for them.
+The port covers the main path with loop detection off: preprocessing
+(with the bilateral depth filter as a CUDA kernel), the image pyramid,
+coarse-to-fine pairwise tracking against the base keyframe, the keyframe
+store and surfel map, the alternating keyframe bundle adjustment (with the
+image gather as a CUDA kernel), trajectory deformation, the point-cloud
+export, and the front end and CLI that drive them. Loop closure and the
+other later slices are refused with ``NotImplementedError`` where a
+configuration asks for them.
 
-The package imports ``torch`` and never ``jax``; its one import from
-``badslam_tpu`` is the jax-free ``badslam_tpu.config``.
+The package imports ``torch`` and never ``jax``, and nothing of
+``badslam_tpu``: it carries its own copy of what it needs from there
+(``config.py``).
 """
 
 __version__ = "0.1.0"

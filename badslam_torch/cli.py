@@ -3,7 +3,7 @@
 Run as
 
     python -m badslam_torch <dataset_dir> --device cuda \\
-        --max_num_ba_iterations_per_keyframe 0 --enable_loop_detection false
+        --enable_loop_detection false --export_point_cloud map.ply
 
 The flags mirror ``badslam_tpu.cli``: every ``BadSlamConfig`` field is a
 flag of the same name, type and default. ``--device`` picks the device
@@ -18,22 +18,21 @@ import dataclasses
 import json
 import sys
 
-from badslam_tpu.config import BadSlamConfig
+from badslam_torch.config import BadSlamConfig
 
-# Output and mode flags of badslam_tpu.cli that this slice does not do yet,
+# Output and mode flags of badslam_tpu.cli that the port does not do yet,
 # each with the later slice that brings it.
 _LATER_FLAGS = {
     "live": "live input comes with the IO slice",
-    "export_point_cloud": "the surfel map comes with the keyframe + BA slice",
-    "save_state": "state snapshots come with the keyframe + BA slice",
-    "load_state": "state snapshots come with the keyframe + BA slice",
-    "export_calibration": "self-calibration comes with the keyframe + BA slice",
+    "save_state": "state snapshots (io/state.py) come with the state slice",
+    "load_state": "state snapshots (io/state.py) come with the state slice",
+    "export_calibration": "self-calibration comes with the self-calibration slice",
     "export_viewer": "the map viewer comes with the IO slice",
     "live_viewer_dir": "the map viewer comes with the IO slice",
-    "save_timings": "per-BA-run timings come with the keyframe + BA slice",
+    "save_timings": "per-BA-run timing rows come with the port's benchmark",
 }
 _LATER_SWITCHES = {
-    "final_ba": "final BA comes with the keyframe + BA slice",
+    "final_ba": "final BA (fixed keyframe windows) comes with the final-BA slice",
     "autotune": "the port has no tuned variants to pick between",
 }
 
@@ -45,7 +44,7 @@ def _bool(s: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="badslam_torch",
-        description="Direct RGB-D SLAM in PyTorch + CUDA (odometry slice)",
+        description="Direct RGB-D SLAM in PyTorch + CUDA",
     )
     p.add_argument("dataset", nargs="?", default=None,
                    help="TUM/ETH3D-format dataset directory")
@@ -71,9 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     p.add_argument("--export_poses", default=None,
                    help="write the final trajectory in TUM format to this path")
+    p.add_argument("--export_point_cloud", default=None,
+                   help="write the final surfel map as a binary PLY to this path")
     p.add_argument("--export_frame_times", default=None,
-                   help="write per-frame times (ms; CUDA events on a GPU) as "
-                        "JSON to this path")
+                   help="write per-frame times (ms; CUDA events on a GPU), the "
+                        "keyframe frames, the frames that drained queued BA "
+                        "iterations, the iterations of each BA call and "
+                        "the final keyframe and surfel counts as JSON to this "
+                        "path")
     p.add_argument("--profile", default=None,
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
@@ -108,7 +112,8 @@ def resolve_device(name: str):
 def _profiled_run(slam, out_dir: str, progress: bool) -> None:
     """slam.run() under torch.profiler; writes the key_averages table and a
     JSON summary: per span (upload, preprocess, pyramid, track, duel,
-    gn_iteration/width<W>) its count and host ms, and the number of device
+    gn_iteration/width<W>, ba, ba_drain, the BA stages ba/<stage>,
+    trajectory_deformation) its count and host ms, and the number of device
     kernel launches, their device ms, and the host-side synchronizations."""
     import os
     import time
@@ -131,8 +136,9 @@ def _profiled_run(slam, out_dir: str, progress: bool) -> None:
     spans = {e.key: {"count": e.count, "host_ms": e.cpu_time_total / 1000.0}
              for e in events
              if e.device_type.name == "CPU"
-             and (e.key in ("upload", "preprocess", "pyramid", "track", "duel")
-                  or e.key.startswith("gn_iteration/"))}
+             and (e.key in ("upload", "preprocess", "pyramid", "track", "duel",
+                            "ba", "ba_drain", "trajectory_deformation")
+                  or e.key.startswith(("gn_iteration/", "ba/")))}
     kernels = [e for e in events
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     syncs = sum(e.count for e in events
@@ -187,11 +193,19 @@ def main(argv=None) -> int:
     if args.export_poses:
         slam.export_trajectory(args.export_poses)
         print(f"poses written to {args.export_poses}")
+    if args.export_point_cloud:
+        slam.export_point_cloud(args.export_point_cloud)
+        print(f"point cloud written to {args.export_point_cloud}")
     if args.export_frame_times:
+        ba = slam.direct_ba
         with open(args.export_frame_times, "w") as f:
             json.dump({"device": str(device),
-                       "frame_ms": [[i, ms] for i, ms in slam.frame_times_ms]},
-                      f)
+                       "frame_ms": [[i, ms] for i, ms in slam.frame_times_ms],
+                       "keyframe_frames": slam.keyframe_frames,
+                       "ba_drain_frames": slam.ba_drain_frames,
+                       "ba_iterations": ba.iterations_run,
+                       "keyframes": ba.keyframes.live_count,
+                       "surfels": ba.surfel_count}, f)
     if not args.quiet:
         ms = sorted(ms for _, ms in slam.frame_times_ms[1:])
         if ms:

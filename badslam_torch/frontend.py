@@ -1,21 +1,26 @@
-"""BadSlam front end for the odometry slice: the per-frame pipeline.
+"""BadSlam front end: the per-frame pipeline and the keyframe BA around it.
 
 Counterpart of ``badslam_tpu/frontend.py`` for the configuration without
-keyframe bundle adjustment and loop closure
-(``max_num_ba_iterations_per_keyframe = 0``, ``enable_loop_detection =
-false``): preprocess -> pyramid -> constant-motion prediction -> pairwise
-tracking against the base keyframe -> trajectory and history bookkeeping,
-with every ``keyframe_interval``-th frame becoming the new base keyframe.
-The trajectory is then pure direct RGB-D odometry.
+loop closure (``enable_loop_detection = false``): preprocess -> pyramid ->
+constant-motion prediction -> pairwise tracking against the base keyframe
+-> trajectory and history bookkeeping. Every ``keyframe_interval``-th frame
+becomes a keyframe of ``DirectBA`` and the new base keyframe; the first
+keyframe bootstraps the surfel map. With
+``max_num_ba_iterations_per_keyframe > 0`` each later keyframe runs the
+alternating bundle adjustment: with ``parallel_ba`` (the default) two
+iterations at once and the rest queued, drained two per frame (the
+reference's BA thread); after every BA call the whole trajectory is
+deformed along with the keyframes.
 
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
-depth-deformation parameters) lives on that device; the tracker reads one
-flag per Gauss-Newton iteration back to the host.
+map and the keyframes) lives on that device; the tracker and BA read one
+flag per Gauss-Newton or BA iteration back to the host.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import List, Optional, Tuple
 
@@ -23,23 +28,24 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from badslam_tpu.config import BadSlamConfig
+from badslam_torch.ba.scheme import DirectBA
+from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
 from badslam_torch.io.dataset import RGBDVideo, save_tum_trajectory
+from badslam_torch.io.ply import save_ply
 from badslam_torch.io.preload import PreLoadThread
+from badslam_torch.loop.trajectory import deform_trajectory
 from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
 from badslam_torch.ops.pyramid import build_pyramid
 from badslam_torch.tracking.pairwise import track_frame_pairwise
+
+_log = logging.getLogger("badslam_torch")
 
 
 def check_supported(config: BadSlamConfig) -> None:
     """Raise NotImplementedError naming each setting of this configuration
     that the port does not do yet, with the later slice that brings it."""
     out = []
-    if config.max_num_ba_iterations_per_keyframe > 0:
-        out.append("keyframe bundle adjustment (max_num_ba_iterations_per_"
-                   "keyframe > 0) comes with the keyframe + BA slice; run "
-                   "with --max_num_ba_iterations_per_keyframe 0")
     if config.enable_loop_detection:
         out.append("loop detection comes with the loop-closure slice; run "
                    "with --enable_loop_detection false")
@@ -52,14 +58,12 @@ def check_supported(config: BadSlamConfig) -> None:
                    "preprocessing slice that ports the median filter")
     if config.optimize_intrinsics:
         out.append("optimize_intrinsics (self-calibration) comes with the "
-                   "keyframe + BA slice")
+                   "self-calibration slice")
+    if config.use_pcg:
+        out.append("use_pcg (the PCG BA solver) comes with the PCG slice; the "
+                   "alternating solver runs without it")
     if out:
         raise NotImplementedError("badslam_torch: " + "; ".join(out))
-
-
-def cfactor_shape(height: int, width: int, cell_size: int) -> Tuple[int, int]:
-    """Depth-deformation grid: ceil-div of the image by the cell size."""
-    return ((height - 1) // cell_size + 1, (width - 1) // cell_size + 1)
 
 
 def _identity_hist(device: torch.device):
@@ -88,18 +92,19 @@ def predict_pose(hist_q: torch.Tensor, hist_t: torch.Tensor, n: int):
 
 
 class BadSlam:
-    """Owns the odometry state and processes frames one at a time."""
+    """Owns the SLAM state and processes frames one at a time."""
 
     def __init__(self, config: BadSlamConfig, video: RGBDVideo,
-                 device: torch.device | str):
+                 device: torch.device | str,
+                 surfel_capacity: Optional[int] = None):
         check_supported(config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                f"not available")
-        # Full float32 everywhere: the tracker's H/b reduction is a matmul,
-        # which the JAX package runs at Precision.HIGHEST; TF32 would keep
-        # only ~3 decimal digits.
+        # Full float32 everywhere: the tracker's and BA's H/b reductions are
+        # matmuls, which the JAX package runs at Precision.HIGHEST; TF32
+        # would keep only ~3 decimal digits.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -108,20 +113,13 @@ class BadSlam:
         self.cam = video.camera
         self.cams_pyramid = tuple(
             self.cam.pyramid_level(i) for i in range(config.num_scales))
-
-        # Depth-deformation parameters (identity: a = 0, cfactor = 0). The
-        # deformation runs on every frame all the same, as in the JAX path.
-        self.depth_a = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.depth_cfactor = torch.zeros(
-            cfactor_shape(self.cam.height, self.cam.width,
-                          config.sparse_surfel_cell_size),
-            dtype=torch.float32, device=self.device)
+        self.direct_ba = DirectBA(self.cam, config, surfel_capacity,
+                                  device=self.device)
 
         # Base keyframe state.
         self.base_kf_id: Optional[int] = None
         self.base_kf_global_T_frame = se3.identity(self.device)
         self.base_kf_pyramid = None
-        self.keyframe_frame_indices: List[int] = []
         # Relative pose history vs the base keyframe: [3, 4]/[3, 3], oldest
         # first, plus the host-known number of valid rows.
         self._hist_q, self._hist_t = _identity_hist(self.device)
@@ -132,11 +130,23 @@ class BadSlam:
         ident = se3.identity(self.device, (n_frames,))
         self.traj_q, self.traj_t = ident.q, ident.t
         self.has_pose = np.zeros(n_frames, bool)
+        # Parallel BA: iterations queued at a keyframe and drained two per
+        # frame (the reference's BA-thread queue, bad_slam.h:301-325).
+        self.queued_ba_iterations = 0
+        self.bundle_adjustment_counter = 0
         # (frame index, milliseconds) of each frame's process_frame call, on
-        # the device's clock for CUDA (filled in at the end of run()).
+        # the device's clock for CUDA (filled in at the end of run()), the
+        # frames that were keyframes and those that drained queued BA.
         self.frame_times_ms: List[Tuple[int, float]] = []
+        self.keyframe_frames: List[int] = []
+        self.ba_drain_frames: List[int] = []
 
     # ------------------------------------------------------------------
+
+    def frame_pose(self, frame_index: int) -> Optional[se3.SE3]:
+        if not self.has_pose[frame_index]:
+            return None
+        return se3.SE3(self.traj_q[frame_index], self.traj_t[frame_index])
 
     def preprocess(self, frame_index: int) -> Tuple[ProcessedFrame, tuple]:
         """Load, upload and preprocess one frame; returns (frame, pyramid)."""
@@ -145,6 +155,7 @@ class BadSlam:
             depth = torch.from_numpy(
                 self.video.depth_u16(frame_index).astype(np.int32)).to(self.device)
             rgb = torch.from_numpy(self.video.color_u8(frame_index)).to(self.device)
+        params = self.direct_ba.depth_params
         with record_function("preprocess"):
             frame = preprocess_frame(
                 self.cam, depth, rgb,
@@ -152,8 +163,8 @@ class BadSlam:
                 sigma_xy=c.bilateral_filter_sigma_xy,
                 radius_factor=c.bilateral_filter_radius_factor,
                 sigma_inv_depth=c.bilateral_filter_sigma_inv_depth,
-                a=self.depth_a,
-                cfactor=self.depth_cfactor,
+                a=params.a,
+                cfactor=params.cfactor,
                 cell_size=c.sparse_surfel_cell_size,
                 raw_to_float_depth=c.raw_to_float_depth,
             )
@@ -181,7 +192,9 @@ class BadSlam:
         return se3.SE3(result.q, result.t)
 
     def process_frame(self, frame_index: int) -> se3.SE3:
-        """Full per-frame pipeline. Returns the frame's global_T_frame."""
+        """Full per-frame pipeline (ProcessFrame, bad_slam.cc:174-283).
+        Returns the frame's global_T_frame (after BA's trajectory
+        deformation on a keyframe that ran BA)."""
         c = self.config
         is_first = self.base_kf_id is None
         frame, pyramid = self.preprocess(frame_index)
@@ -210,24 +223,136 @@ class BadSlam:
         self._hist_n += 1
         self.video.set_pose(frame_index, global_T_frame)
 
-        # Keyframe policy: every keyframe_interval-th processed frame, plus
-        # always the first.
+        # Drain queued BA iterations between keyframes (parallel BA).
+        if self.queued_ba_iterations > 0:
+            n = min(self.queued_ba_iterations, 2)
+            with record_function("ba_drain"):
+                old = self._remember_keyframe_poses()
+                self.direct_ba.bundle_adjustment(
+                    max_iterations=n, do_surfel_updates=c.do_surfel_updates,
+                    increase_ba_iteration_count=False)
+                self.queued_ba_iterations -= n
+                self._apply_ba_pose_updates(*old)
+            self.ba_drain_frames.append(frame_index)
+
+        # Keyframe policy: every keyframe_interval-th processed frame
+        # (bad_slam.cc:202-204), plus always the first.
         frames_processed = frame_index - c.start_frame
         if is_first or frames_processed % c.keyframe_interval == 0:
+            self._keyframe_budget_guard()
             self.create_keyframe(frame_index, frame, pyramid, global_T_frame)
+            if c.max_num_ba_iterations_per_keyframe > 0 and not is_first:
+                self.bundle_adjustment_counter += 1
+                with record_function("ba"):
+                    old = self._remember_keyframe_poses()
+                    if c.parallel_ba:
+                        # Two iterations now, the rest queued.
+                        self.direct_ba.bundle_adjustment(
+                            max_iterations=2,
+                            do_surfel_updates=c.do_surfel_updates)
+                        self.queued_ba_iterations += max(
+                            0, c.max_num_ba_iterations_per_keyframe - 2)
+                    else:
+                        self.direct_ba.bundle_adjustment(
+                            max_iterations=c.max_num_ba_iterations_per_keyframe,
+                            do_surfel_updates=c.do_surfel_updates)
+                    self._apply_ba_pose_updates(*old)
+                # BA moved the keyframes: return the deformed pose.
+                return self.frame_pose(frame_index)
         return global_T_frame
 
+    def _keyframe_budget_guard(self) -> None:
+        """Merge redundant keyframes when the store nears
+        max_keyframe_count or free device memory falls under
+        min_free_gpu_memory_mb (bad_slam.cc:962-972)."""
+        c = self.config
+        ks = self.direct_ba.keyframes
+        low_memory = False
+        if (c.min_free_gpu_memory_mb > 0 and ks.live_count > 4
+                and self.device.type == "cuda"):
+            free_bytes, _ = torch.cuda.mem_get_info(self.device)
+            low_memory = free_bytes / 2**20 < c.min_free_gpu_memory_mb
+        if low_memory or ks.live_count >= c.max_keyframe_count - 2:
+            freed = ks.merge_redundant_keyframes(4)
+            if not freed and ks.live_count >= c.max_keyframe_count:
+                _log.warning("keyframe budget exceeded (%d live >= %d) and no "
+                             "keyframe was mergeable", ks.live_count,
+                             c.max_keyframe_count)
+
     def create_keyframe(self, frame_index, frame, pyramid, global_T_frame) -> int:
-        """Make the frame the new base keyframe; resets the motion history.
-        (Keyframes join no map in this slice: there is no BA to use one.)"""
-        kf_id = len(self.keyframe_frame_indices)
-        self.keyframe_frame_indices.append(frame_index)
+        """Add the frame to DirectBA's keyframes and make it the new base
+        keyframe (CreateKeyframe, bad_slam.cc:957-1101); the first keyframe
+        bootstraps the map without the observation filter."""
+        kf_id = self.direct_ba.add_keyframe(frame, global_T_frame, frame_index)
+        if self.base_kf_id is None:
+            self.direct_ba.create_surfels_for_keyframe(
+                kf_id, filter_new_surfels=False)
+        self.keyframe_frames.append(frame_index)
         self.base_kf_id = kf_id
         self.base_kf_global_T_frame = global_T_frame
         self.base_kf_pyramid = pyramid
         self._hist_q, self._hist_t = _identity_hist(self.device)
         self._hist_n = 1
         return kf_id
+
+    # ------------------------------------------------------------------
+    # Trajectory deformation after BA
+    # ------------------------------------------------------------------
+
+    def _remember_keyframe_poses(self):
+        """The keyframe poses before BA (RememberKeyframePoses,
+        trajectory_deformation.cc:33-58). BA updates the store in place, so
+        this is a copy."""
+        ks = self.direct_ba.keyframes
+        return ks.q.clone(), ks.t.clone()
+
+    def _bracket_arrays(self):
+        """Per frame: the bracketing keyframe slots, the interpolation
+        fraction and the frame's own keyframe slot (or -1), from the live
+        keyframes' dataset frame indices (host arithmetic)."""
+        ks = self.direct_ba.keyframes
+        pairs = sorted(
+            (f, s) for s, f in enumerate(ks.frame_indices[: ks.count])
+            if f >= 0 and s not in ks.free_slot_set)
+        n_frames = self.traj_q.shape[0]
+        kf_frames = np.array([p[0] for p in pairs], np.int64)
+        kf_slots = np.array([p[1] for p in pairs], np.int64)
+        nk = len(pairs)
+        fi = np.arange(n_frames, dtype=np.int64)
+        j = np.searchsorted(kf_frames, fi, side="right")
+        prev_i = np.clip(j - 1, 0, nk - 1)
+        next_i = np.clip(j, 0, nk - 1)
+        interior = (j > 0) & (j < nk)
+        # Off both ends: extrapolate through the nearest keyframe (alpha 0,
+        # prev == next); inside: the fraction between the two.
+        denom = np.maximum(kf_frames[next_i] - kf_frames[prev_i], 1)
+        alpha = np.where(interior, (fi - kf_frames[prev_i]) / denom, 0.0)
+        end = np.where(j == 0, 0, nk - 1)
+        prev_slot = kf_slots[np.where(interior, prev_i, end)]
+        next_slot = kf_slots[np.where(interior, next_i, end)]
+        kf_slot = np.full(n_frames, -1, np.int64)
+        in_range = kf_frames < n_frames
+        kf_slot[kf_frames[in_range]] = kf_slots[in_range]
+
+        def dev(x, dtype=torch.int64):
+            return torch.as_tensor(x, dtype=dtype).to(self.device)
+
+        return (dev(prev_slot), dev(next_slot), dev(alpha, torch.float32),
+                dev(kf_slot))
+
+    def _apply_ba_pose_updates(self, old_kq, old_kt) -> None:
+        """After every BA call: deform the whole trajectory along with the
+        keyframes (bad_slam.cc:529-534 -> trajectory_deformation.cc:61-130)
+        and re-read the base keyframe's pose."""
+        ks = self.direct_ba.keyframes
+        if ks.count == 0:
+            return
+        with record_function("trajectory_deformation"):
+            prev_slot, next_slot, alpha, kf_slot = self._bracket_arrays()
+            self.traj_q, self.traj_t = deform_trajectory(
+                self.traj_q, self.traj_t, old_kq, old_kt, ks.q, ks.t,
+                prev_slot, next_slot, alpha, kf_slot)
+            self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
 
     def run(self, start: Optional[int] = None, end: Optional[int] = None,
             progress: bool = False) -> None:
@@ -288,3 +413,7 @@ class BadSlam:
         poses = [se3.SE3(q[i], t[i]) if self.has_pose[i] else None
                  for i in range(len(q))]
         save_tum_trajectory(path, self.video.timestamps, poses)
+
+    def export_point_cloud(self, path: str) -> None:
+        """The valid surfels as a binary PLY (positions, normals, colors)."""
+        save_ply(path, *self.direct_ba.export_point_cloud())

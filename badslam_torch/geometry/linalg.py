@@ -43,3 +43,23 @@ def solve_psd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def rotate3(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotation(s) R [..., 3, 3] applied to vectors v [..., N, 3], written
+    out per component as in the JAX package (no matmul, so no TF32). The
+    leading dimensions of R broadcast against those of v before N, so one
+    [3, 3] rotates any [..., 3] stack and [C, 3, 3] rotates [N, 3] into
+    [C, N, 3]."""
+    x, y, z = v.unbind(-1)
+    r = R[..., None, :, :]
+    return torch.stack([
+        r[..., 0, 0] * x + r[..., 0, 1] * y + r[..., 0, 2] * z,
+        r[..., 1, 0] * x + r[..., 1, 1] * y + r[..., 1, 2] * z,
+        r[..., 2, 0] * x + r[..., 2, 1] * y + r[..., 2, 2] * z,
+    ], dim=-1)
+
+
+def transform3(R: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R v + t, with t [..., 3] batched as R."""
+    return rotate3(R, v) + t[..., None, :]

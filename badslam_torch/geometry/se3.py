@@ -49,7 +49,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # Negation, not a product with a constant tensor: building that constant
+    # is a host-to-device copy on every call.
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -64,6 +66,21 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def slerp(qa: torch.Tensor, qb: torch.Tensor, f) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions (Eigen's
+    Quaternion::slerp semantics, as in the JAX package). `f` broadcasts
+    against [..., 4]."""
+    d = torch.sum(qa * qb, dim=-1, keepdim=True)
+    qb = torch.where(d < 0, -qb, qb)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    close = d > 0.9995
+    safe_sin = torch.where(close, 1.0, torch.sin(theta))
+    wa = torch.where(close, 1.0 - f, torch.sin((1.0 - f) * theta) / safe_sin)
+    wb = torch.where(close, f, torch.sin(f * theta) / safe_sin)
+    return quat_normalize(wa * qa + wb * qb)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

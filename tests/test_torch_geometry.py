@@ -106,12 +106,18 @@ def test_camera_pyramid_level():
 
 
 def test_import_badslam_torch_leaves_jax_out():
+    """The port and chip_smoke.py import neither jax nor any module of the
+    JAX package (badslam_tpu), not even its jax-free ones."""
     code = (
         "import sys\n"
         "import badslam_torch, badslam_torch.cli, badslam_torch.frontend\n"
+        "import badslam_torch.ba.scheme, badslam_torch.probe_gather\n"
         "import badslam_torch.synthetic, badslam_torch.convert\n"
         "import badslam_torch.ops.kernels\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"
+        "assert not tpu, tpu\n"
         "assert 'triton' not in sys.modules\n"
     )
     import os
@@ -120,3 +126,27 @@ def test_import_badslam_torch_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_config_matches_jax_config():
+    """badslam_torch.config is a copy of badslam_tpu.config: the same field
+    names, in the same order, with the same types and defaults, and the
+    same derived values. A new flag in the JAX package fails here."""
+    import dataclasses
+
+    from badslam_tpu.config import BadSlamConfig as JConfig
+    from badslam_torch.config import BadSlamConfig as TConfig
+
+    def spec(cls):
+        out = []
+        for f in dataclasses.fields(cls):
+            default = (f.default_factory() if f.default_factory is not dataclasses.MISSING
+                       else f.default)
+            out.append((f.name, str(f.type), default))
+        return out
+
+    assert spec(TConfig) == spec(JConfig)
+    j, t = JConfig(), TConfig()
+    for n in range(0, 40):
+        assert t.min_observation_count_at(n) == j.min_observation_count_at(n)
+    assert t.pyramid_sizes(480, 640) == j.pyramid_sizes(480, 640)

@@ -1,13 +1,17 @@
-"""The odometry slice end to end: badslam_torch.cli against badslam_tpu.cli
-on one synthetic sequence, plus the port's PNG IO and numpy renderer
-against what the JAX package reads and renders.
+"""The port end to end: badslam_torch.cli against badslam_tpu.cli on one
+synthetic sequence, odometry alone and with keyframe bundle adjustment,
+plus the port's PNG IO and numpy renderer against what the JAX package
+reads and renders.
 
 Tolerances:
   * trajectories: t atol 1e-4 m, q atol 1e-4, per frame. Both CLIs run the
-    same odometry in float32; the residual sums are taken in another order,
-    which moves each Gauss-Newton minimum by far less than that.
+    same odometry and BA in float32; the residual sums are taken in another
+    order, which moves each Gauss-Newton minimum by far less than that
+    (measured after BA: 1.4e-6 m, 6.3e-7 in q).
   * ATE of both against ground truth: below 1e-3 m (tests/test_e2e.py's
     bound for the full system).
+  * exported point clouds: point counts within 1% (surfel creation and
+    deletion are threshold tests on float values).
   * PNG decoding and the renderer: exact.
 """
 
@@ -65,6 +69,56 @@ def test_cli_trajectory_matches_jax_cli(tmp_path):
     assert tsyn.ate_rmse(pt, gt) < 1e-3
     assert tsyn.ate_rmse(pj, gt) < 1e-3
     assert abs(tsyn.ate_rmse(pt, gt) - jsyn.ate_rmse(pt, gt)) < 1e-12
+
+
+BA_FLAGS = ["--num_scales", "4", "--keyframe_interval", "6",
+            "--max_num_ba_iterations_per_keyframe", "4",
+            "--enable_loop_detection", "false", "--fps_restriction", "0",
+            "--max_surfel_count", str(1 << 14), "--quiet"]
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--keyframe_interval", "2", "--max_keyframe_count", "5"],
+], ids=["interval6", "keyframe_budget"])
+def test_ba_cli_matches_jax_cli(tmp_path, extra):
+    """The default main path with loop detection off: keyframes every 6
+    frames, parallel BA (two iterations at a keyframe, the rest drained
+    two per frame), trajectory deformation and the point-cloud export.
+    `keyframe_budget`: a keyframe every 2 frames against a budget of 5, so
+    the guard merges redundant keyframes and the deformation brackets
+    frames by the live keyframes only."""
+    from badslam_tpu.io.ply import load_ply
+
+    data = str(tmp_path / "seq")
+    cam = tsyn.default_camera(160, 120)
+    scene = tsyn.random_plane_scene(np.random.default_rng(5), 6)
+    gt = tsyn.smooth_trajectory(FRAMES)
+    tsyn.write_tum_dataset(data, cam, scene, gt)
+
+    out = {k: (str(tmp_path / f"{k}.txt"), str(tmp_path / f"{k}.ply"))
+           for k in ("jax", "torch")}
+    times = str(tmp_path / "times.json")
+    assert jax_main([data, *BA_FLAGS, *extra, "--export_poses", out["jax"][0],
+                     "--export_point_cloud", out["jax"][1]]) == 0
+    assert torch_main([data, "--device", "cpu", *BA_FLAGS, *extra,
+                       "--export_poses", out["torch"][0],
+                       "--export_point_cloud", out["torch"][1],
+                       "--export_frame_times", times]) == 0
+    with open(times) as f:
+        summary = json.load(f)
+    if extra:
+        assert summary["keyframes"] < len(summary["keyframe_frames"]) == 7
+
+    qj, tj, pj = _trajectory(out["jax"][0])
+    qt, tt, pt = _trajectory(out["torch"][0])
+    assert len(pt) == len(pj) == FRAMES
+    np.testing.assert_allclose(tt, tj, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(qt, qj, atol=1e-4, rtol=0)
+    assert tsyn.ate_rmse(pt, gt) < 1e-3
+    assert tsyn.ate_rmse(pj, gt) < 1e-3
+    nj, nt = len(load_ply(out["jax"][1])), len(load_ply(out["torch"][1]))
+    assert nj > 500 and abs(nt - nj) <= 0.01 * nj, (nt, nj)
 
 
 def test_motion_model_matches_jax():
@@ -140,13 +194,12 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
 
 
 @pytest.mark.parametrize("argv, what", [
-    (["--max_num_ba_iterations_per_keyframe", "10", "--enable_loop_detection", "false"],
-     "bundle adjustment"),
+    (["--max_num_ba_iterations_per_keyframe", "10", "--use_pcg", "true"], "PCG"),
     (["--enable_loop_detection", "true"], "loop detection"),
     (["--pyramid_level_for_depth", "1"], "input pyramid"),
     (["--median_filter_and_densify_iterations", "1"], "median"),
     (["--optimize_intrinsics", "true"], "optimize_intrinsics"),
-    (["--export_point_cloud", "x.ply"], "surfel map"),
+    (["--export_point_cloud", "x.ply", "--export_viewer", "v"], "map viewer"),
     (["--save_state", "s.npz"], "snapshots"),
     (["--load_state", "s.npz"], "snapshots"),
     (["--final_ba"], "final BA"),
