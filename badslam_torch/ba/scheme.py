@@ -51,10 +51,13 @@ COVISIBLE_ACTIVE = kfs.COVISIBLE_ACTIVE
 class DirectBA:
     def __init__(self, cam, config: Optional[BadSlamConfig] = None,
                  surfel_capacity: Optional[int] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.config = config or BadSlamConfig()
         self.cam = cam
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but CUDA is "
+                               f"not available")
         cap = surfel_capacity or self.config.max_surfel_count
         self.surfels = sf.empty_map(cap, self.device)
         self.keyframes = KeyframeStore(cam, self.device,

@@ -130,6 +130,23 @@ def _bilateral_fn():
     return fn
 
 
+def bilateral_launch_info(height: int, width: int, radius: int) -> Dict[str, int]:
+    """How K1's launch at this shape and radius fills the current card: its
+    grid, block, shared memory, registers and local (spill) bytes per
+    thread, blocks resident per SM and the card's SM count."""
+    fn = _library("bilateral.cu").badslam_bilateral_launch_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    err = fn(height, width, radius, info)
+    if err != 0:
+        raise RuntimeError(f"bilateral launch info failed: CUDA error {err}")
+    keys = ("grid_x", "grid_y", "threads", "shared_bytes", "registers",
+            "local_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, info))
+
+
 def build() -> None:
     """Build and load every kernel library now (otherwise done at first
     use): one nvcc per source, all started together."""
@@ -141,8 +158,8 @@ def build() -> None:
             future.result()
 
 
-# Largest radius whose tile + halo fits the default 48 KB of shared memory
-# with room to spare: (32 + 2r)(8 + 2r) floats.
+# Largest radius the kernel takes; its tile + halo, (32 + 2 * 16) x
+# (16 + 2 * 16) floats, is 12 KB of the default 48 KB of shared memory.
 _MAX_RADIUS = 16
 
 

@@ -9,11 +9,14 @@ failure, so any failure exits non-zero before the last line is printed):
    and power limit; turns TF32 off.
 2. Build: builds every CUDA source of badslam_torch/csrc with nvcc, one
    nvcc per source, all started together; prints each one's seconds and
-   what ptxas says about its kernels.
+   what ptxas says about its kernels (entry, registers, spills).
 3. Kernels against their plain PyTorch versions on the card, with the
-   tolerance stated: K1 (bilateral filter) at 480x640 and 67x160, atol
-   1e-5; K2 (image gather) on the probe's 480x640 field and batched
-   [4, 480, 640] x [4, 200000], int32 and int64 indices, with out-of-range
+   tolerance stated: K1 (bilateral filter) on random depth at 480x640 and
+   67x160 and on a rendered 480x640 frame (the main path's input), atol
+   1e-5, each with its grid's registers, spills and waves, and at radius 0
+   (the launch, staging and stores alone); K2 (image gather) on the probe's
+   480x640 field and batched [4, 480, 640] x [4, 200000], int32 and int64
+   indices, with out-of-range
    and negative flat indices, exact (NaN where the plain version gives
    NaN); K3 (one-hot gather) at 480x640, exact. For each: max abs error,
    device time per call (a CUDA graph of 50 calls), eager call latency,
@@ -118,7 +121,7 @@ def phase_build() -> None:
     for source in sorted(kernels.build_seconds):
         print(f"build: {source} in {kernels.build_seconds[source]:.2f} s (nvcc)")
         for line in kernels.build_logs.get(source, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {source}: {line.strip()}")
 
 
@@ -153,14 +156,46 @@ def _timings(kernel, plain, library=None) -> dict:
     return out
 
 
-def _k1(max_depth: float = 2.5) -> dict:
+def _random_depth(seed: int, shape, max_depth: float) -> torch.Tensor:
+    """0.5-3 m, 15% invalid, 5% beyond the cutoff."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.5, 3.0, shape).astype(np.float32)
+    d[rng.uniform(size=shape) < 0.15] = 0.0
+    d[rng.uniform(size=shape) < 0.05] = max_depth + 2.0
+    return torch.from_numpy(d).cuda()
+
+
+def _rendered_depth() -> torch.Tensor:
+    """What the main path gives K1: the slice's scene (seed 7) rendered at
+    VGA, raw u16 depth scaled to metres; smooth, almost all valid."""
+    cam = synthetic.default_camera(WIDTH, HEIGHT)
+    scene = synthetic.random_plane_scene(np.random.default_rng(7), 6)
+    depth, _ = synthetic.render_scene(cam, scene, synthetic.pose(tx=0.01, rz=0.02))
+    raw = torch.from_numpy(np.clip(depth * 5000.0, 0, 65535).astype(np.int32))
+    return (raw.to(torch.float32) * (1.0 / 5000.0)).cuda()
+
+
+def _k1_launch(h: int, w: int, radius: int) -> str:
+    """K1's grid against the card: registers and local (spill) bytes per
+    thread, blocks resident per SM, waves (blocks over SMs x resident
+    blocks) and the balance over SMs (mean over most blocks per SM)."""
+    i = kernels.bilateral_launch_info(h, w, radius)
+    blocks = i["grid_x"] * i["grid_y"]
+    waves = blocks / (i["sms"] * i["blocks_per_sm"])
+    balance = blocks / (i["sms"] * -(-blocks // i["sms"]))
+    return (f"grid {i['grid_x']}x{i['grid_y']} = {blocks} blocks of {i['threads']} "
+            f"threads, {i['shared_bytes']} B shared, {i['registers']} registers, "
+            f"{i['local_bytes']} B local (spills) per thread, {i['blocks_per_sm']} "
+            f"blocks resident per SM on {i['sms']} SMs: {waves:.3f} waves, balance "
+            f"{balance:.3f}")
+
+
+def _k1() -> dict:
     result = {}
-    for seed, shape in ((0, (HEIGHT, WIDTH)), (1, (67, 160))):
-        rng = np.random.default_rng(seed)
-        d = rng.uniform(0.5, 3.0, shape).astype(np.float32)
-        d[rng.uniform(size=shape) < 0.15] = 0.0
-        d[rng.uniform(size=shape) < 0.05] = max_depth + 2.0
-        depth = torch.from_numpy(d).cuda()
+    for what, max_depth, depth in (
+            (f"random {HEIGHT}x{WIDTH}", 2.5, _random_depth(0, (HEIGHT, WIDTH), 2.5)),
+            ("random 67x160", 2.5, _random_depth(1, (67, 160), 2.5)),
+            (f"rendered {HEIGHT}x{WIDTH}", 3.0, _rendered_depth())):
         out = kernels.bilateral_filter_and_cutoff_cuda(depth, max_depth)
         ref = bilateral_filter_and_cutoff(depth, max_depth)
         torch.cuda.synchronize()
@@ -168,16 +203,22 @@ def _k1(max_depth: float = 2.5) -> dict:
         t = _timings(lambda: kernels.bilateral_filter_and_cutoff_cuda(depth, max_depth),
                      lambda: bilateral_filter_and_cutoff(depth, max_depth))
         b = _bound(8.0 * depth.numel(), _k1_ops(depth, max_depth, 3))
-        print(f"K1 bilateral {shape[0]}x{shape[1]}: max_abs_err {err:.3e} (atol "
+        valid = float((depth > 0).float().mean())
+        print(f"K1 bilateral {what} ({valid:.3f} valid): max_abs_err {err:.3e} (atol "
               f"{KERNEL_ATOL}); device time per call (CUDA graph of 50, median of "
               f"5) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager call "
               f"latency (median of 50) kernel {t['call_ms']:.4f} ms, plain "
               f"{t['plain_call_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms "
-              f"({b['bound_by']}); no single PyTorch call computes it")
+              f"({b['bound_by']}); no single PyTorch call computes it; "
+              f"{_k1_launch(*depth.shape, 3)}")
         if not err <= KERNEL_ATOL:
-            raise AssertionError(f"K1 disagrees with its plain version at {shape}: {err}")
-        if shape == (HEIGHT, WIDTH):
+            raise AssertionError(f"K1 disagrees with its plain version on {what}: {err}")
+        if not result:  # the row: the random VGA input, as in earlier runs
             result = {"max_abs_err": err, **t, **b}
+            # Radius 0 (one tap): the launch, the staging and the stores alone.
+            fixed = device_ms(lambda: kernels.bilateral_filter_and_cutoff_cuda(
+                depth, max_depth, 0.2, 2.0))
+            print(f"K1 bilateral {what} at radius 0: device time per call {fixed:.4f} ms")
     return result
 
 

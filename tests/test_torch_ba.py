@@ -286,3 +286,18 @@ def test_bundle_adjustment_recovers_perturbation_like_jax():
         tse3, tk.pose(kf0), tk.pose(kf1),
         *(convert.pose_from_numpy(g.q, g.t, DEV) for g in gt))
     assert terr < jerr0 / 5, (jerr0, terr)
+
+
+def test_direct_ba_defaults_to_cuda():
+    """DirectBA, like every entry point of the port, targets the card unless
+    the caller asks for the CPU, and never falls back to it."""
+    from badslam_torch.ba.scheme import DirectBA
+    from badslam_torch.config import BadSlamConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    cam = convert.camera_from_numpy(jsyn.default_camera(32, 24))
+    config = BadSlamConfig(max_surfel_count=1 << 10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DirectBA(cam, config)
+    assert DirectBA(cam, config, device="cpu").surfels.pos.device.type == "cpu"

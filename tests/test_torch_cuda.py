@@ -9,9 +9,10 @@ no JAX, so on a GPU machine without JAX it runs on its own:
 
 Tolerances:
   * K2 and K3 vs plain version: exact (a gather computes nothing).
-  * K1 vs plain version: atol 1e-5 (depths of 0.5-3 m; IEEE division
-    and expf in both, sums in the same order, so only FMA contraction and
-    exp rounding differ).
+  * K1 vs plain version: atol 1e-5 (depths of 0.5-3 m; sums in the same
+    order and IEEE reciprocals in both; the kernel's exponential is
+    ex2.approx, within 2 ulp, which tests/test_torch_bilateral.py shows
+    moves the output by ~1e-6 at most).
   * preprocess on CUDA vs CPU: atol 1e-5 on depths, 1e-4 on normals (the
     normals amplify the depths' ~1e-6 differences, as against JAX).
   * tracked pose on CUDA vs CPU: atol 1e-4, the slice's hold.
@@ -62,11 +63,36 @@ def test_bilateral_kernel_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_bilateral_kernel_radius_and_sigma(cuda):
-    d = torch.from_numpy(_depth(3, (50, 90), 4.0)).to(cuda)
-    for sigma_xy, radius_factor, sigma_inv in ((1.0, 2.0, 0.01), (2.5, 2.0, 0.005)):
-        out = kernels.bilateral_filter_and_cutoff_cuda(d, 4.0, sigma_xy, radius_factor, sigma_inv)
-        ref = bilateral_filter_and_cutoff(d, 4.0, sigma_xy, radius_factor, sigma_inv)
-        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    """Radii 2-5 (3 is the unrolled instance, the others the run-time-radius
+    one) on ragged shapes: heights that are not a multiple of the 2 rows per
+    thread or the 16-row tile, widths that are not a multiple of the
+    32-column tile, rows that are 16-byte aligned (width % 4 == 0) and
+    rows that are not (scalar loads only)."""
+    for shape in ((50, 90), (37, 68), (3, 44)):
+        d = torch.from_numpy(_depth(sum(shape), shape, 4.0)).to(cuda)
+        for sigma_xy, radius_factor, sigma_inv in ((1.0, 2.0, 0.01), (1.5, 2.0, 0.005),
+                                                   (2.0, 2.0, 0.005), (2.5, 2.0, 0.005)):
+            out = kernels.bilateral_filter_and_cutoff_cuda(d, 4.0, sigma_xy, radius_factor, sigma_inv)
+            ref = bilateral_filter_and_cutoff(d, 4.0, sigma_xy, radius_factor, sigma_inv)
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilateral_kernel_on_rendered_frame(cuda):
+    """The input the main path gives K1: a rendered VGA frame, raw u16
+    depth scaled to metres, smooth and almost all valid."""
+    cam = synthetic.default_camera(640, 480)
+    scene = synthetic.random_plane_scene(np.random.default_rng(7), 6)
+    depth, _ = synthetic.render_scene(cam, scene, synthetic.pose(tx=0.01, rz=0.02))
+    raw = torch.from_numpy(np.clip(depth * 5000.0, 0, 65535).astype(np.int32))
+    d = (raw.to(torch.float32) * (1.0 / 5000.0)).to(cuda)
+    out = kernels.bilateral_filter(d, 3.0)
+    ref = bilateral_filter_and_cutoff(d, 3.0)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float((ref > 0).float().mean()) > 0.9
+    info = kernels.bilateral_launch_info(480, 640, 3)
+    assert (info["grid_x"], info["grid_y"], info["threads"]) == (20, 30, 256)
+    assert info["registers"] > 0 and info["blocks_per_sm"] > 0 and info["sms"] > 0
 
 
 @pytest.mark.cuda
