@@ -18,9 +18,8 @@ the most surfels this call can create: entries beyond are invalid, so the
 result is that of the whole capacity.
 
 Not here: the multi-device branches, the staged profiling path, the
-pow-2 keyframe and surfel buckets (they bound XLA recompiles), fixed
-keyframe windows (the final BA), and the intrinsics step (self-calibration
-is a later slice).
+pow-2 keyframe and surfel buckets (they bound XLA recompiles), and the
+intrinsics step (self-calibration is a later slice).
 """
 
 from __future__ import annotations
@@ -224,10 +223,14 @@ class DirectBA:
         stopping early when no keyframe is ACTIVE. Returns the number of
         iterations run.
 
-        `activate_all` (default: config.disable_deactivation) re-activates
-        every valid keyframe at the start of each iteration, the
-        reference's default (bad_slam.cc:268-269 ->
-        direct_ba_alternating.cc:355-372). With
+        `activate_all` (default: config.disable_deactivation without a
+        window) re-activates every valid keyframe at the start of each
+        iteration, the reference's default (bad_slam.cc:268-269 ->
+        direct_ba_alternating.cc:355-372). With `active_keyframe_window`
+        (lo, hi), the final BA's fixed window (main.cc:765-789), each
+        iteration activates the valid slots lo..hi and their covisible
+        keyframes, and all `max_iterations` run (the JAX package's host
+        loop, which has no early exit without sync_convergence_checks). With
         `increase_ba_iteration_count` false (the parallel-BA drain) the
         scheme-end tasks of the previous epoch run first when the epoch has
         changed, and none run at the end."""
@@ -235,16 +238,13 @@ class DirectBA:
             raise NotImplementedError(
                 "badslam_torch: intrinsics optimization comes with the "
                 "self-calibration slice")
-        if active_keyframe_window is not None:
-            raise NotImplementedError(
-                "badslam_torch: fixed keyframe windows (the final BA) come "
-                "with the final-BA slice")
         ks = self.keyframes
         k = ks.count
         if k == 0:
             return 0
+        fixed_window = active_keyframe_window is not None
         if activate_all is None:
-            activate_all = self.config.disable_deactivation
+            activate_all = self.config.disable_deactivation and not fixed_window
 
         # Each valid keyframe creates surfels at most once per epoch: those
         # not yet active in this one bound what the call can create.
@@ -266,8 +266,11 @@ class DirectBA:
             # activate-all window every valid keyframe enters it active.
             ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
         iterations = 0
-        while iterations < max_iterations and bool(
-                (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any()):
+        while iterations < max_iterations and (fixed_window or bool(
+                (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
+            if fixed_window:
+                ks.set_activation_window(*active_keyframe_window)
+                ks.propagate_covisible_active()
             smap = self._iteration(smap, activate_all, optimize_geometry,
                                    do_surfel_updates, optimize_poses)
             iterations += 1

@@ -3,7 +3,8 @@
 Run as
 
     python -m badslam_torch <dataset_dir> --device cuda \\
-        --enable_loop_detection false --export_point_cloud map.ply
+        --enable_loop_detection false --export_point_cloud map.ply \\
+        [--final_ba] [--save_state s.npz | --load_state s.npz]
 
 The flags mirror ``badslam_tpu.cli``: every ``BadSlamConfig`` field is a
 flag of the same name, type and default. ``--device`` picks the device
@@ -17,6 +18,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
 from badslam_torch.config import BadSlamConfig
 
@@ -24,15 +26,11 @@ from badslam_torch.config import BadSlamConfig
 # each with the later slice that brings it.
 _LATER_FLAGS = {
     "live": "live input comes with the IO slice",
-    "save_state": "state snapshots (io/state.py) come with the state slice",
-    "load_state": "state snapshots (io/state.py) come with the state slice",
-    "export_calibration": "self-calibration comes with the self-calibration slice",
     "export_viewer": "the map viewer comes with the IO slice",
     "live_viewer_dir": "the map viewer comes with the IO slice",
     "save_timings": "per-BA-run timing rows come with the port's benchmark",
 }
 _LATER_SWITCHES = {
-    "final_ba": "final BA (fixed keyframe windows) comes with the final-BA slice",
     "autotune": "the port has no tuned variants to pick between",
 }
 
@@ -75,13 +73,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export_frame_times", default=None,
                    help="write per-frame times (ms; CUDA events on a GPU), the "
                         "keyframe frames, the frames that drained queued BA "
-                        "iterations, the iterations of each BA call and "
-                        "the final keyframe and surfel counts as JSON to this "
-                        "path")
+                        "iterations, the iterations of each BA call, the "
+                        "final keyframe and surfel counts and, where they "
+                        "ran, the seconds of the final BA (and its calls' "
+                        "iterations), of --load_state and of --save_state "
+                        "as JSON to this path")
     p.add_argument("--profile", default=None,
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
                         "kernel launches, device time) into this directory")
+    p.add_argument("--save_state", default=None,
+                   help="write a full state snapshot (.npz) after the run")
+    p.add_argument("--load_state", default=None,
+                   help="resume from a state snapshot (of either package) "
+                        "before processing; the snapshot's config is used")
+    p.add_argument("--export_calibration", default=None,
+                   help="write calibration text files with this prefix")
+    p.add_argument("--final_ba", action="store_true",
+                   help="run windowed + global final BA after the frame loop")
+    p.add_argument("--final_ba_window_size", type=int, default=16)
+    p.add_argument("--final_ba_window_stride", type=int, default=8)
     p.add_argument("--quiet", action="store_true")
     for name, why in _LATER_FLAGS.items():
         p.add_argument(f"--{name}", default=None, help=f"not supported: {why}")
@@ -109,7 +120,7 @@ def resolve_device(name: str):
     return device
 
 
-def _profiled_run(slam, out_dir: str, progress: bool) -> None:
+def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
     """slam.run() under torch.profiler; writes the key_averages table and a
     JSON summary: per span (upload, preprocess, pyramid, track, duel,
     gn_iteration/width<W>, ba, ba_drain, the BA stages ba/<stage>,
@@ -126,7 +137,7 @@ def _profiled_run(slam, out_dir: str, progress: bool) -> None:
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
-        slam.run(progress=progress)
+        slam.run(start=start, progress=progress)
         if slam.device.type == "cuda":
             torch.cuda.synchronize(slam.device)
     wall_ms = 1000.0 * (time.perf_counter() - t0)
@@ -167,6 +178,8 @@ def _profiled_run(slam, out_dir: str, progress: bool) -> None:
 
 
 def main(argv=None) -> int:
+    import torch
+
     args = build_parser().parse_args(argv)
     refused = [f"--{name}: {why}" for name, why in _LATER_FLAGS.items()
                if getattr(args, name) is not None]
@@ -179,16 +192,37 @@ def main(argv=None) -> int:
     config = config_from_args(args)
 
     from badslam_torch.frontend import BadSlam, check_supported
+    from badslam_torch.io import state
     from badslam_torch.io.dataset import load_tum_dataset
 
-    check_supported(config)
+    if not args.load_state:  # a resumed run takes the snapshot's config
+        check_supported(config)
     device = resolve_device(args.device)
     video = load_tum_dataset(args.dataset, args.trajectory_filename)
-    slam = BadSlam(config, video, device)
-    if args.profile:
-        _profiled_run(slam, args.profile, progress=not args.quiet)
+    timings = {}
+    if args.load_state:
+        t0 = time.perf_counter()
+        slam = state.load_state(args.load_state, video, device)
+        timings["load_state_s"] = time.perf_counter() - t0
+        start = slam.last_frame_index + 1
     else:
-        slam.run(progress=not args.quiet)
+        slam = BadSlam(config, video, device)
+        start = None
+    if args.profile:
+        _profiled_run(slam, args.profile, progress=not args.quiet, start=start)
+    else:
+        slam.run(start=start, progress=not args.quiet)
+    if args.final_ba:
+        calls = len(slam.direct_ba.iterations_run)
+        t0 = time.perf_counter()
+        slam.final_bundle_adjustment(args.final_ba_window_size,
+                                     args.final_ba_window_stride)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings["final_ba_s"] = time.perf_counter() - t0
+        timings["final_ba_iterations"] = slam.direct_ba.iterations_run[calls:]
+        if not args.quiet:
+            print(f"final BA in {timings['final_ba_s']:.2f} s")
 
     if args.export_poses:
         slam.export_trajectory(args.export_poses)
@@ -196,6 +230,14 @@ def main(argv=None) -> int:
     if args.export_point_cloud:
         slam.export_point_cloud(args.export_point_cloud)
         print(f"point cloud written to {args.export_point_cloud}")
+    if args.save_state:
+        t0 = time.perf_counter()
+        state.save_state(slam, args.save_state)
+        timings["save_state_s"] = time.perf_counter() - t0
+        print(f"state written to {args.save_state}")
+    if args.export_calibration:
+        state.save_calibration(slam.cam, slam.direct_ba.depth_params,
+                               args.export_calibration)
     if args.export_frame_times:
         ba = slam.direct_ba
         with open(args.export_frame_times, "w") as f:
@@ -205,7 +247,7 @@ def main(argv=None) -> int:
                        "ba_drain_frames": slam.ba_drain_frames,
                        "ba_iterations": ba.iterations_run,
                        "keyframes": ba.keyframes.live_count,
-                       "surfels": ba.surfel_count}, f)
+                       "surfels": ba.surfel_count, **timings}, f)
     if not args.quiet:
         ms = sorted(ms for _, ms in slam.frame_times_ms[1:])
         if ms:

@@ -9,8 +9,14 @@ keyframe bootstraps the surfel map. With
 ``max_num_ba_iterations_per_keyframe > 0`` each later keyframe runs the
 alternating bundle adjustment: with ``parallel_ba`` (the default) two
 iterations at once and the rest queued, drained two per frame (the
-reference's BA thread); after every BA call the whole trajectory is
-deformed along with the keyframes.
+reference's BA thread), or, over a steady run between keyframes when
+nothing paces the loop, once after the run, as the JAX package's fused
+chunk does; after every BA call the whole trajectory is deformed along
+with the keyframes. Frames of a distorted source are
+remapped to the loader's pinhole camera, median-filtered when asked, or
+downscaled to an input pyramid level first; after the frame loop,
+``final_bundle_adjustment`` runs the offline final BA over sliding
+keyframe windows and then all keyframes.
 
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
@@ -35,7 +41,12 @@ from badslam_torch.io.dataset import RGBDVideo, save_tum_trajectory
 from badslam_torch.io.ply import save_ply
 from badslam_torch.io.preload import PreLoadThread
 from badslam_torch.loop.trajectory import deform_trajectory
-from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
+from badslam_torch.ops.preprocess import (
+    ProcessedFrame,
+    downscale_color,
+    downscale_depth_median,
+    preprocess_frame,
+)
 from badslam_torch.ops.pyramid import build_pyramid
 from badslam_torch.tracking.pairwise import track_frame_pairwise
 
@@ -49,13 +60,17 @@ def check_supported(config: BadSlamConfig) -> None:
     if config.enable_loop_detection:
         out.append("loop detection comes with the loop-closure slice; run "
                    "with --enable_loop_detection false")
-    if config.pyramid_level_for_depth > 0 or config.pyramid_level_for_color > 0:
-        out.append("input pyramid levels (pyramid_level_for_depth/color > 0) "
-                   "come with the preprocessing slice that ports the input "
-                   "downscale")
-    if config.median_filter_and_densify_iterations > 0:
-        out.append("median_filter_and_densify_iterations > 0 comes with the "
-                   "preprocessing slice that ports the median filter")
+    # The input pyramid's refusals are the JAX package's (one shared camera;
+    # the reference FATALs on downscaling with the median filter,
+    # bad_slam.cc:671-673).
+    if config.pyramid_level_for_depth != config.pyramid_level_for_color:
+        out.append("input pyramid levels: pyramid_level_for_depth must equal "
+                   "pyramid_level_for_color")
+    if (config.pyramid_level_for_depth > 0
+            and config.median_filter_and_densify_iterations > 0):
+        out.append("input pyramid levels cannot be combined with the median "
+                   "filter (simultaneous downscaling and median filtering of "
+                   "depth maps is not implemented, as in the reference)")
     if config.optimize_intrinsics:
         out.append("optimize_intrinsics (self-calibration) comes with the "
                    "self-calibration slice")
@@ -111,6 +126,19 @@ class BadSlam:
         self.config = config
         self.video = video
         self.cam = video.camera
+        # Input pyramid level: frames are processed at a coarser resolution
+        # (pyramid_level_for_depth/color, bad_slam.cc:666-688).
+        self.input_level = config.pyramid_level_for_depth
+        self._undistort_map = None
+        if video.undistortion_map is not None:
+            if self.input_level > 0:
+                raise NotImplementedError(
+                    "badslam_torch: input pyramid levels cannot be combined "
+                    "with undistortion (as in the reference, bad_slam.cc:306)")
+            self._undistort_map = torch.from_numpy(
+                video.undistortion_map).to(self.device)
+        if self.input_level > 0:
+            self.cam = self.cam.scaled(0.5 ** self.input_level)
         self.cams_pyramid = tuple(
             self.cam.pyramid_level(i) for i in range(config.num_scales))
         self.direct_ba = DirectBA(self.cam, config, surfel_capacity,
@@ -130,6 +158,8 @@ class BadSlam:
         ident = se3.identity(self.device, (n_frames,))
         self.traj_q, self.traj_t = ident.q, ident.t
         self.has_pose = np.zeros(n_frames, bool)
+        # The last frame processed: a state snapshot resumes after it.
+        self.last_frame_index = -1
         # Parallel BA: iterations queued at a keyframe and drained two per
         # frame (the reference's BA-thread queue, bad_slam.h:301-325).
         self.queued_ba_iterations = 0
@@ -151,10 +181,23 @@ class BadSlam:
     def preprocess(self, frame_index: int) -> Tuple[ProcessedFrame, tuple]:
         """Load, upload and preprocess one frame; returns (frame, pyramid)."""
         c = self.config
+        raw_to_float = c.raw_to_float_depth
         with record_function("upload"):
-            depth = torch.from_numpy(
-                self.video.depth_u16(frame_index).astype(np.int32)).to(self.device)
+            depth_u16 = self.video.depth_u16(frame_index)
             rgb = torch.from_numpy(self.video.color_u8(frame_index)).to(self.device)
+            if self.input_level > 0:
+                # The input pyramid converts on the host and downscales on
+                # the device, as the JAX package does.
+                depth = torch.from_numpy(
+                    depth_u16.astype(np.float32) * raw_to_float).to(self.device)
+                raw_to_float = None
+            else:
+                depth = torch.from_numpy(depth_u16.astype(np.int32)).to(self.device)
+        if self.input_level > 0:
+            with record_function("input_downscale"):
+                for _ in range(self.input_level):
+                    depth = downscale_depth_median(depth)
+                    rgb = downscale_color(rgb)
         params = self.direct_ba.depth_params
         with record_function("preprocess"):
             frame = preprocess_frame(
@@ -166,7 +209,9 @@ class BadSlam:
                 a=params.a,
                 cfactor=params.cfactor,
                 cell_size=c.sparse_surfel_cell_size,
-                raw_to_float_depth=c.raw_to_float_depth,
+                raw_to_float_depth=raw_to_float,
+                undistort_map=self._undistort_map,
+                median_iterations=c.median_filter_and_densify_iterations,
             )
         with record_function("pyramid"):
             pyramid = build_pyramid(
@@ -191,10 +236,11 @@ class BadSlam:
         )
         return se3.SE3(result.q, result.t)
 
-    def process_frame(self, frame_index: int) -> se3.SE3:
+    def process_frame(self, frame_index: int, drain: bool = True) -> se3.SE3:
         """Full per-frame pipeline (ProcessFrame, bad_slam.cc:174-283).
         Returns the frame's global_T_frame (after BA's trajectory
-        deformation on a keyframe that ran BA)."""
+        deformation on a keyframe that ran BA). With `drain` false the
+        queued BA iterations wait (a steady run, see `run`)."""
         c = self.config
         is_first = self.base_kf_id is None
         frame, pyramid = self.preprocess(frame_index)
@@ -222,18 +268,11 @@ class BadSlam:
         self._hist_t = torch.cat([self._hist_t[1:], base_T_frame.t[None]])
         self._hist_n += 1
         self.video.set_pose(frame_index, global_T_frame)
+        self.last_frame_index = frame_index
 
         # Drain queued BA iterations between keyframes (parallel BA).
-        if self.queued_ba_iterations > 0:
-            n = min(self.queued_ba_iterations, 2)
-            with record_function("ba_drain"):
-                old = self._remember_keyframe_poses()
-                self.direct_ba.bundle_adjustment(
-                    max_iterations=n, do_surfel_updates=c.do_surfel_updates,
-                    increase_ba_iteration_count=False)
-                self.queued_ba_iterations -= n
-                self._apply_ba_pose_updates(*old)
-            self.ba_drain_frames.append(frame_index)
+        if drain:
+            self._drain_queued_ba(2, frame_index)
 
         # Keyframe policy: every keyframe_interval-th processed frame
         # (bad_slam.cc:202-204), plus always the first.
@@ -260,6 +299,38 @@ class BadSlam:
                 # BA moved the keyframes: return the deformed pose.
                 return self.frame_pose(frame_index)
         return global_T_frame
+
+    def _drain_queued_ba(self, most: int, frame_index: int) -> None:
+        """Run up to `most` of the queued BA iterations (one BA call that
+        does not end the epoch), then deform the trajectory."""
+        if self.queued_ba_iterations <= 0:
+            return
+        n = min(self.queued_ba_iterations, most)
+        with record_function("ba_drain"):
+            old = self._remember_keyframe_poses()
+            self.direct_ba.bundle_adjustment(
+                max_iterations=n, do_surfel_updates=self.config.do_surfel_updates,
+                increase_ba_iteration_count=False)
+            self.queued_ba_iterations -= n
+            self._apply_ba_pose_updates(*old)
+        self.ba_drain_frames.append(frame_index)
+
+    def _steady_run_length(self, i: int, end: int) -> int:
+        """The number of frames of the steady run starting at frame i, or 0.
+        A steady run is the keyframe_interval - 1 frames between two
+        keyframes, when nothing paces the loop; the JAX package fuses it
+        into one program and drains the queued BA iterations once after
+        it, up to 2 per frame of the run (_process_chunk). The port keeps
+        that schedule, which decides the results, and processes the frames
+        one by one."""
+        c = self.config
+        n = c.keyframe_interval - 1
+        eligible = (
+            c.steady_frame_chunking and n >= 2 and self.input_level == 0
+            and c.estimate_poses and self.base_kf_id is not None
+            and c.fps_restriction <= 0 and c.target_frame_rate <= 0
+            and i + n <= end and (i - c.start_frame) % c.keyframe_interval == 1)
+        return n if eligible else 0
 
     def _keyframe_budget_guard(self) -> None:
         """Merge redundant keyframes when the store nears
@@ -354,6 +425,33 @@ class BadSlam:
                 prev_slot, next_slot, alpha, kf_slot)
             self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
 
+    def final_bundle_adjustment(self, window_size: int = 16,
+                                window_stride: int = 8) -> None:
+        """The offline final BA after the frame loop (main.cc:765-809): 10
+        iterations over each window of `window_size` keyframe slots, the
+        windows `window_stride` apart, then 10 over all keyframes; the
+        trajectory is deformed along with the keyframes."""
+        if self.config.use_pcg:
+            raise NotImplementedError(
+                "badslam_torch: the final BA's PCG solver (use_pcg) comes with "
+                "the PCG slice")
+        kf_count = self.direct_ba.keyframes.count
+        if kf_count == 0:
+            return
+        old = self._remember_keyframe_poses()
+        with record_function("final_ba"):
+            lo = 0
+            while lo < kf_count:
+                hi = min(lo + window_size - 1, kf_count - 1)
+                self.direct_ba.bundle_adjustment(
+                    max_iterations=10, active_keyframe_window=(lo, hi))
+                if hi == kf_count - 1:
+                    break
+                lo += window_stride
+            self.direct_ba.bundle_adjustment(
+                max_iterations=10, active_keyframe_window=(0, kf_count - 1))
+            self._apply_ba_pose_updates(*old)
+
     def run(self, start: Optional[int] = None, end: Optional[int] = None,
             progress: bool = False) -> None:
         """Process a frame range, with fps_restriction / target_frame_rate
@@ -364,23 +462,34 @@ class BadSlam:
         on_cuda = self.device.type == "cuda"
         marks = []
         preload = PreLoadThread(self.video)
+        run_last, run_n = start - 1, 0
         try:
             for i in range(start, end):
                 t0 = time.perf_counter()
                 preload.wait_until_done()
                 if i + 1 < end:
                     preload.preload(i + 1)
+                if i > run_last:
+                    run_n = self._steady_run_length(i, end)
+                    run_last = i + run_n - 1
+                in_run = i <= run_last
+
+                def step():
+                    self.process_frame(i, drain=not in_run)
+                    if in_run and i == run_last:
+                        self._drain_queued_ba(2 * run_n, i)
+
                 if on_cuda:
                     stream = torch.cuda.current_stream(self.device)
                     ev0 = torch.cuda.Event(enable_timing=True)
                     ev1 = torch.cuda.Event(enable_timing=True)
                     ev0.record(stream)
-                    self.process_frame(i)
+                    step()
                     ev1.record(stream)
                     marks.append((i, ev0, ev1))
                 else:
                     t1 = time.perf_counter()
-                    self.process_frame(i)
+                    step()
                     marks.append((i, 1000.0 * (time.perf_counter() - t1)))
                 self.video.clear_frame(i)
                 if progress:

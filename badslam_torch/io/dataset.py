@@ -1,18 +1,19 @@
 """RGB-D dataset IO: TUM / ETH3D format with lazy frame loading.
 
-Counterpart of ``badslam_tpu/io/dataset.py`` for pinhole datasets.
-Expected directory layout:
+Counterpart of ``badslam_tpu/io/dataset.py``. Expected directory layout:
 
   dataset/
-    calibration.txt     # "fx fy cx cy" (pixel-corner convention)
-    associated.txt      # "rgb_ts rgb_file depth_ts depth_file" per line
+    calibration.txt     # "[model] fx fy cx cy [distortion...]" (pixel-corner)
+    associated.txt      # "rgb_ts rgb_file depth_ts depth_file" per line, or
+    rgb.txt, depth.txt  # a raw TUM download's lists, associated here
     rgb/*.png, depth/*.png (16-bit, raw_to_float scaling, default 1/5000)
     [trajectory file]   # optional TUM format "ts tx ty tz qx qy qz qw"
 
 Images decode through ``io.png`` (zlib + numpy). Poses are host numpy
-``se3.SE3`` pairs (q wxyz, t), float32. A calibration with nonzero
-distortion terms, and raw TUM downloads without ``associated.txt``, are
-refused: undistortion and in-loader association come in a later slice.
+``se3.SE3`` pairs (q wxyz, t), float32. For a distorted calibration
+(radial-tangential or thin-prism fisheye) the video's camera is the pinhole
+covering the source's field of view and ``undistortion_map`` holds the
+[H, W, 2] remap table that preprocessing applies on the device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from badslam_torch.geometry.camera import PinholeCamera
+from badslam_torch.geometry.camera import (
+    PinholeCamera,
+    RadTanCamera,
+    ThinPrismFisheyeCamera,
+    decide_undistorted_camera,
+)
 from badslam_torch.geometry.se3 import SE3
 from badslam_torch.io.png import read_png
 
@@ -58,6 +64,9 @@ class RGBDVideo:
     # global_T_frame per frame: the dataset prior where a trajectory was
     # given, None until tracked otherwise.
     poses: List[Optional[SE3]] = field(default_factory=list)
+    # [H, W, 2] f32 source-pixel remap when the source images are distorted
+    # (built by the loader, applied by preprocess_frame); None for pinhole.
+    undistortion_map: Optional[np.ndarray] = None
     _color_cache: Dict[int, np.ndarray] = field(default_factory=dict)
     _depth_cache: Dict[int, np.ndarray] = field(default_factory=dict)
 
@@ -142,54 +151,129 @@ def _interpolate_trajectory(ts: List[float], poses: List[SE3],
     return out
 
 
+def _read_tum_file_list(path: str) -> List[Tuple[float, str]]:
+    """One TUM rgb.txt/depth.txt: 'timestamp filename' per line."""
+    out: List[Tuple[float, str]] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            out.append((float(parts[0]), parts[1]))
+    return out
+
+
+def associate_frames(
+    rgb: List[Tuple[float, str]],
+    depth: List[Tuple[float, str]],
+    max_difference: float = 0.02,
+) -> List[Tuple[float, str, float, str]]:
+    """Match the rgb and depth streams of a raw TUM download by timestamp:
+    each rgb frame takes its nearest depth frame within `max_difference`
+    seconds (associate.py's default), each depth frame is used at most
+    once, and ties go to the earlier candidate (a sorted two-pointer sweep)."""
+    rgb = sorted(rgb)
+    depth = sorted(depth)
+    out: List[Tuple[float, str, float, str]] = []
+    j = 0           # first depth frame with timestamp >= current rgb ts
+    last_used = -1  # each depth frame pairs at most once
+    for ts, fname in rgb:
+        while j < len(depth) and depth[j][0] < ts:
+            j += 1
+        best = None
+        for k in (j - 1, j):  # the two straddling candidates
+            if last_used < k < len(depth):
+                dt = abs(depth[k][0] - ts)
+                if dt <= max_difference and (best is None or dt < best[0]):
+                    best = (dt, k)
+        if best is not None:
+            k = best[1]
+            out.append((ts, fname, depth[k][0], depth[k][1]))
+            last_used = k
+    return out
+
+
+def _source_camera(model_name: Optional[str], pinhole: PinholeCamera,
+                  distortion: List[float]):
+    """The distorted source model of a calibration line, or None when the
+    images are pinhole (a radial-tangential model with all terms zero is
+    one); an unknown model name raises ValueError."""
+    if model_name in ("radtan", "radtan8", "radtan9"):
+        if not any(abs(v) > 0 for v in distortion):
+            return None
+        k = (distortion + [0.0] * 4)[:4]
+        return RadTanCamera(pinhole=pinhole, k1=k[0], k2=k[1], p1=k[2], p2=k[3])
+    if model_name in ("thin_prism_fisheye", "fisheye"):
+        k = (distortion + [0.0] * 8)[:8]
+        return ThinPrismFisheyeCamera(
+            pinhole=pinhole, k1=k[0], k2=k[1], k3=k[2], k4=k[3],
+            p1=k[4], p2=k[5], sx1=k[6], sy1=k[7])
+    if model_name not in (None, "pinhole"):
+        raise ValueError(f"unknown camera model '{model_name}'")
+    return None
+
+
 def load_tum_dataset(path: str, trajectory_filename: Optional[str] = None) -> RGBDVideo:
     with open(os.path.join(path, "calibration.txt")) as f:
         tokens = f.readline().split()
+    # Calibration grammar: [model_name] fx fy cx cy [distortion...], the
+    # model inferred from the parameter count when unnamed: 4 -> pinhole;
+    # 6/8 -> radtan (k1 k2 [p1 p2]); 12 -> thin-prism fisheye
+    # (k1 k2 k3 k4 p1 p2 sx1 sy1).
     model_name = None
     if tokens and not tokens[0].lstrip("+-").replace(".", "", 1).isdigit():
         model_name = tokens.pop(0).lower()
     calib_vals = [float(v) for v in tokens]
     fx, fy, cx, cy = calib_vals[:4]
     distortion = calib_vals[4:]
-    if model_name is None:  # inferred from the parameter count
+    if model_name is None:
         model_name = {0: "pinhole", 2: "radtan", 4: "radtan",
                       8: "thin_prism_fisheye"}.get(len(distortion))
         if model_name is None:
             raise ValueError(f"calibration.txt: cannot infer camera model from "
                              f"{4 + len(distortion)} parameters")
-    # A radial-tangential model with all-zero terms is a pinhole, as in the
-    # JAX loader; every other distorted model is remapped there.
-    zero_radtan = (model_name in ("radtan", "radtan8", "radtan9")
-                   and not any(abs(v) > 0 for v in distortion))
-    if model_name != "pinhole" and not zero_radtan:
-        raise NotImplementedError(
-            "badslam_torch reads pinhole calibrations only: undistortion of "
-            "radial-tangential and thin-prism cameras comes with the "
-            "preprocessing slice that ports undistort_image")
 
-    assoc_path = os.path.join(path, "associated.txt")
-    if not os.path.exists(assoc_path):
-        raise FileNotFoundError(
-            f"{assoc_path} (badslam_torch does not yet associate raw rgb.txt/"
-            f"depth.txt lists; run the benchmark's associate.py first)")
     color_paths: List[str] = []
     depth_paths: List[str] = []
     timestamps: List[float] = []
-    with open(assoc_path) as f:
-        for line in f:
-            line = line.strip()
-            if not line or line.startswith("#"):
-                continue
-            rgb_ts, rgb_file, _, depth_file = line.split()[:4]
+    assoc_path = os.path.join(path, "associated.txt")
+    if os.path.exists(assoc_path):
+        with open(assoc_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                rgb_ts, rgb_file, _, depth_file = line.split()[:4]
+                color_paths.append(os.path.join(path, rgb_file))
+                depth_paths.append(os.path.join(path, depth_file))
+                timestamps.append(float(rgb_ts))
+    elif os.path.exists(os.path.join(path, "rgb.txt")) and os.path.exists(
+            os.path.join(path, "depth.txt")):
+        # A raw TUM download (associate.py not run): associate in the loader.
+        pairs = associate_frames(
+            _read_tum_file_list(os.path.join(path, "rgb.txt")),
+            _read_tum_file_list(os.path.join(path, "depth.txt")))
+        for rgb_ts, rgb_file, _, depth_file in pairs:
             color_paths.append(os.path.join(path, rgb_file))
             depth_paths.append(os.path.join(path, depth_file))
-            timestamps.append(float(rgb_ts))
+            timestamps.append(rgb_ts)
+    else:
+        raise FileNotFoundError(
+            f"{assoc_path} (and no rgb.txt/depth.txt to associate)")
     if not color_paths:
         raise ValueError(f"empty associated.txt in {path}")
 
     first = _imread_depth(depth_paths[0])
     h, w = first.shape
     camera = PinholeCamera(fx=fx, fy=fy, cx=cx, cy=cy, width=w, height=h)
+    # A distorted source: SLAM runs on the pinhole covering its field of
+    # view (DecideForUndistortedCamera without avoid_invalid_pixels, the
+    # depth camera's choice, input_structure.cc:414); preprocessing remaps
+    # each frame through the map built here.
+    src = _source_camera(model_name, camera, distortion)
+    if src is not None:
+        camera = decide_undistorted_camera(src, avoid_invalid_pixels=False)
 
     frame_poses: List[Optional[SE3]] = [None] * len(timestamps)
     if trajectory_filename:
@@ -200,6 +284,8 @@ def load_tum_dataset(path: str, trajectory_filename: Optional[str] = None) -> RG
                       depth_paths=depth_paths, timestamps=timestamps,
                       camera=camera, poses=frame_poses)
     video._depth_cache[0] = first
+    if src is not None:
+        video.undistortion_map = src.undistortion_map(camera)
     return video
 
 

@@ -282,6 +282,13 @@ class KeyframeStore:
         self.activation = propagate_covisible_active(
             self.covis, self.activation, self.valid)
 
+    def set_activation_window(self, lo: int, hi: int) -> None:
+        """Activate the valid slots lo..hi and deactivate all others (the
+        final BA's fixed window, main.cc:765-789)."""
+        ids = torch.arange(self.capacity, device=self.device)
+        window = self.valid & (ids >= lo) & (ids <= hi)
+        self.activation = torch.where(window, ACTIVE, INACTIVE)
+
     def merge_redundant_keyframes(self, approx_merge_count: int) -> List[int]:
         """Free the most redundant keyframes (the memory-pressure path,
         MergeKeyframes analog). Scores on the device, one read of the

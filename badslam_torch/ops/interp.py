@@ -91,14 +91,13 @@ def gather_onehot(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torc
     return gather_onehot_plain(img, px, py)
 
 
-def gather_quad(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The 2x2 texel neighborhood of corner-convention coords (x, y).
+def quad_texels(h: int, w: int, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The 2x2 texel indices of corner-convention coords (x, y) in an
+    [h, w] image and the weights between them.
 
-    Returns (top_left, top_right, bottom_left, bottom_right, tx, ty) with
-    ix = floor(max(0, x - 0.5)), tx clamped to [0, 1] and texel indices
-    clamped to the image border.
+    Returns (ix0, iy0, ix1, iy1, tx, ty) with ix = floor(max(0, x - 0.5)),
+    tx clamped to [0, 1] and texel indices clamped to the image border.
     """
-    h, w = img.shape[-2:]
     fx = torch.clamp_min(x - 0.5, 0.0)
     fy = torch.clamp_min(y - 0.5, 0.0)
     ix = torch.floor(fx)
@@ -107,10 +106,15 @@ def gather_quad(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> Tuple[to
     ty = torch.clamp(fy - iy, 0.0, 1.0)
     ix = ix.to(torch.int64)
     iy = iy.to(torch.int64)
-    ix0 = torch.clamp(ix, 0, w - 1)
-    iy0 = torch.clamp(iy, 0, h - 1)
-    ix1 = torch.clamp(ix + 1, 0, w - 1)
-    iy1 = torch.clamp(iy + 1, 0, h - 1)
+    return (torch.clamp(ix, 0, w - 1), torch.clamp(iy, 0, h - 1),
+            torch.clamp(ix + 1, 0, w - 1), torch.clamp(iy + 1, 0, h - 1), tx, ty)
+
+
+def gather_quad(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The 2x2 texel neighborhood of corner-convention coords (x, y) (see
+    `quad_texels`): (top_left, top_right, bottom_left, bottom_right, tx, ty).
+    """
+    ix0, iy0, ix1, iy1, tx, ty = quad_texels(*img.shape[-2:], x, y)
     tl = gather_nearest(img, ix0, iy0)
     tr = gather_nearest(img, ix1, iy0)
     bl = gather_nearest(img, ix0, iy1)

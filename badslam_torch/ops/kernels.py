@@ -23,7 +23,8 @@
   anything it does not take. There is no fallback from a CUDA tensor to the
   plain version.
 * Counts: ``launch_counts[name]`` goes up by one for each launch of that
-  kernel, and nowhere else, so a run can show that it went through it.
+  kernel, and nowhere else, so a run can show that it went through it;
+  ``launch_shapes[name]`` counts the launches per image shape.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from typing import Dict
 
 import torch
@@ -57,6 +59,8 @@ SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+# The same launches, per image shape ((H, W), or (B, H, W) for K2).
+launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 
 # Seconds spent in nvcc by this process, per source (0 when the library
 # was cached), and what ptxas said about each kernel's registers, shared
@@ -71,6 +75,7 @@ _source_locks = {source: threading.Lock() for source in set(SOURCES.values())}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        launch_shapes[name].clear()
 
 
 def _nvcc() -> str:
@@ -196,6 +201,7 @@ def bilateral_filter_and_cutoff_cuda(
     if err != 0:
         raise RuntimeError(f"bilateral filter kernel launch failed: CUDA error {err}")
     launch_counts[BILATERAL] += 1
+    launch_shapes[BILATERAL][(h, w)] += 1
     return out
 
 
@@ -288,6 +294,7 @@ def gather_cuda(img: torch.Tensor, px: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
     launch_counts[GATHER] += 1
+    launch_shapes[GATHER][(b, h, w)] += 1
     return out
 
 
@@ -315,4 +322,5 @@ def gather_onehot_cuda(img: torch.Tensor, px: torch.Tensor,
         raise RuntimeError(
             f"one-hot gather kernel launch failed: CUDA error {err}")
     launch_counts[GATHER_ONEHOT] += 1
+    launch_shapes[GATHER_ONEHOT][(h, w)] += 1
     return out

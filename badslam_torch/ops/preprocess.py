@@ -13,6 +13,11 @@ The bilateral filter has two versions: ``bilateral_filter_and_cutoff`` here
 is the plain PyTorch one; ``ops.kernels.bilateral_filter`` dispatches a CPU
 tensor to it and a CUDA tensor to the hand-written CUDA kernel.
 ``preprocess_frame`` always goes through the dispatch.
+
+The input stages before it (undistortion, the median filter, the input
+pyramid's 2x2 downscales) are plain PyTorch, as they are XLA code in the
+JAX package; the undistortion's image reads go through ``ops.interp``, so
+on a CUDA tensor they launch the gather kernel.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from badslam_torch.geometry.camera import PinholeCamera
-from badslam_torch.ops import kernels
+from badslam_torch.geometry.camera import PinholeCamera, RadTanCamera
+from badslam_torch.ops import interp, kernels
 
 
 class ProcessedFrame(NamedTuple):
@@ -265,18 +270,31 @@ def preprocess_frame(
     cfactor: torch.Tensor,
     cell_size: int = 4,
     raw_to_float_depth: Optional[float] = None,
+    undistort_map: Optional[torch.Tensor] = None,
+    median_iterations: int = 0,
 ) -> ProcessedFrame:
-    """Full preprocessing of one frame: brightness, bilateral filter + depth
-    cutoff, depth deformation, normals, radii and isolated-pixel removal.
+    """Full preprocessing of one frame: undistortion, median filter and
+    densification, brightness, bilateral filter + depth cutoff, depth
+    deformation, normals, radii and isolated-pixel removal.
 
     `depth_metric` is metric f32, or raw u16 depth (as an integer tensor)
     scaled by `raw_to_float_depth` when that is given; `rgb` is [H, W, 3]
-    u8. `a` and `cfactor` are the depth-deformation parameters (see
-    `apply_depth_deformation`). The bilateral filter runs through
-    ``kernels.bilateral_filter``: the CUDA kernel on a CUDA tensor.
+    u8. With `undistort_map` ([H, W, 2] source-pixel lookup of a distorted
+    camera) the frame is first remapped to the pinhole model: nearest for
+    depth, bilinear for color (UndistortImage, undistortion.h:40-58); the
+    color then goes back to u8 as clip(rgb + 0.5). `median_iterations`
+    passes of `median_filter_and_densify` follow. `a` and `cfactor` are the
+    depth-deformation parameters (see `apply_depth_deformation`). The
+    bilateral filter runs through ``kernels.bilateral_filter``: the CUDA
+    kernel on a CUDA tensor.
     """
     if raw_to_float_depth is not None:
         depth_metric = depth_metric.to(torch.float32) * raw_to_float_depth
+    if undistort_map is not None:
+        depth_metric = undistort_image(depth_metric, undistort_map, nearest=True)
+        rgb = undistort_image(rgb.to(torch.float32), undistort_map)
+    for _ in range(median_iterations):
+        depth_metric = median_filter_and_densify(depth_metric)
     intensity = compute_brightness(rgb)
     filtered = kernels.bilateral_filter(
         depth_metric, max_depth, sigma_xy, radius_factor, sigma_inv_depth)
@@ -292,5 +310,121 @@ def preprocess_frame(
         radius2=radius2,
         intensity=intensity,
         raw_depth=torch.where(keep, filtered, 0.0),
-        rgb=rgb,
+        rgb=(rgb if rgb.dtype == torch.uint8
+             else torch.clamp(rgb + 0.5, 0, 255).to(torch.uint8)),
     )
+
+
+def median_filter_and_densify(depth: torch.Tensor) -> torch.Tensor:
+    """3x3 median filter + densification on depth (0 = invalid)
+    (MedianFilterAndDensifyDepthMap, preprocessing.cc:40-86): a pixel with
+    >= 2 valid values in its 3x3 neighborhood gets their median (an even
+    count picks the middle element closer to their mean); others pass
+    through. The mean sums the 9 slots left to right, the JAX package's
+    order, so that ties between the two middles break the same way."""
+    big = 3.4e38
+    valid, slots = [], []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            v = shift2d(depth, dy, dx)
+            valid.append(v > 0)
+            slots.append(v)
+    total = torch.where(valid[0], slots[0], 0.0)
+    for v, s in zip(valid[1:], slots[1:]):
+        total = total + torch.where(v, s, 0.0)
+    count = torch.stack(valid, dim=-1).sum(dim=-1)
+    ordered = torch.sort(torch.stack(
+        [torch.where(v, s, big) for v, s in zip(valid, slots)], dim=-1), dim=-1).values
+    mid_hi = count // 2
+    mid_lo = torch.clamp_min(mid_hi - 1, 0)
+    hi = torch.gather(ordered, -1, mid_hi[..., None])[..., 0]
+    lo = torch.gather(ordered, -1, mid_lo[..., None])[..., 0]
+    mean = total / torch.clamp_min(count, 1).to(torch.float32)
+    even = (count % 2) == 0
+    median = torch.where(even & (torch.abs(lo - mean) < torch.abs(hi - mean)), lo, hi)
+    return torch.where(count >= 2, median, depth)
+
+
+def _blocks_2x2(img: torch.Tensor) -> torch.Tensor:
+    """[H, W, ...] -> [H // 2, W // 2, 4, ...]: each 2x2 block's samples in
+    row-major order (an odd last row or column is dropped)."""
+    h, w = img.shape[0] // 2, img.shape[1] // 2
+    rest = img.shape[2:]
+    return (img[: 2 * h, : 2 * w].reshape(h, 2, w, 2, *rest)
+            .transpose(1, 2).reshape(h, w, 4, *rest))
+
+
+def downscale_depth_median(depth: torch.Tensor) -> torch.Tensor:
+    """Half-resolution depth: the median of the valid (non-zero) samples of
+    each 2x2 block, the lower middle for an even count (a measured sample,
+    never an average across a depth edge); 0 where none is valid
+    (DownscaleUsingMedianWhileExcluding(0), bad_slam.cc:668-677)."""
+    d4 = _blocks_2x2(depth)
+    valid = d4 > 0
+    count = valid.sum(dim=-1)
+    ordered = torch.sort(torch.where(valid, d4, float("inf")), dim=-1).values
+    mid = torch.clamp_min((count + 1) // 2 - 1, 0)
+    med = torch.gather(ordered, -1, mid[..., None])[..., 0]
+    return torch.where(count > 0, med, 0.0)
+
+
+def downscale_color(rgb: torch.Tensor) -> torch.Tensor:
+    """Half-resolution color: the 2x2 average, rounded for u8 input
+    (bad_slam.cc:680-688)."""
+    out = _blocks_2x2(rgb).to(torch.float32).mean(dim=2) + 0.5
+    return out.to(rgb.dtype) if rgb.dtype == torch.uint8 else (out - 0.5).to(rgb.dtype)
+
+
+def create_undistortion_map(distort_fn, undistorted_cam: PinholeCamera,
+                            height: int, width: int,
+                            device: torch.device | str = "cuda") -> torch.Tensor:
+    """[H, W, 2] map on `device`: for each undistorted pixel center, the
+    source pixel coordinates in the distorted image (CreateUndistortionMap,
+    undistortion.h:40-58). `distort_fn(nx, ny) -> (px, py)` projects
+    normalized coords to the source camera's pixel-corner coords, e.g. a
+    model's `project_normalized`. The loader builds its map on the host
+    instead (`RadTanCamera.undistortion_map`), as the JAX loader does: the
+    two evaluate the pixel centers in other float32 orders and agree to a
+    few ulp."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    like = torch.empty((), dtype=torch.float32, device=device)
+    ys, xs = _pixel_grid(height, width, like)
+    nx = undistorted_cam.fx_inv * xs + undistorted_cam.cx_inv
+    ny = undistorted_cam.fy_inv * ys + undistorted_cam.cy_inv
+    px, py = distort_fn(nx, ny)
+    return torch.stack([px, py], dim=-1)
+
+
+def undistort_image(image: torch.Tensor, undistortion_map: torch.Tensor,
+                    nearest: bool = False) -> torch.Tensor:
+    """Remap an [H, W] or [H, W, C] image through an undistortion map
+    (UndistortImage): bilinear, or nearest (`nearest=True`, for depth);
+    0 where the map points outside the source image. The reads go through
+    ``interp.gather_nearest`` (one batched gather per tap for all channels)."""
+    h, w = image.shape[:2]
+    px = undistortion_map[..., 0]
+    py = undistortion_map[..., 1]
+    inside = (px >= 0) & (py >= 0) & (px < w) & (py < h)
+    planes = image if image.ndim == 2 else image.permute(2, 0, 1)
+    if image.ndim == 3:
+        shape = (image.shape[2],) + px.shape
+        px, py = px.expand(shape), py.expand(shape)
+    if nearest:
+        xi = torch.clamp(torch.floor(px).to(torch.int64), 0, w - 1)
+        yi = torch.clamp(torch.floor(py).to(torch.int64), 0, h - 1)
+        out = interp.gather_nearest(planes.to(torch.float32), xi, yi).to(image.dtype)
+    else:
+        out = interp.bilinear(planes, px, py)
+    if image.ndim == 3:
+        out = out.permute(1, 2, 0)
+        inside = inside[..., None]
+    return torch.where(inside, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def radtan_distort_fn(cam: PinholeCamera, k1: float, k2: float,
+                      p1: float = 0.0, p2: float = 0.0):
+    """Radial-tangential (Brown) projection of normalized coords to pixel
+    coords, for `create_undistortion_map`: `RadTanCamera`'s own model."""
+    return RadTanCamera(cam, k1, k2, p1, p2).project_normalized

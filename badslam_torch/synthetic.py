@@ -1,9 +1,11 @@
 """Synthetic analytic scenes and datasets (numpy only).
 
-Counterpart of the parts of ``badslam_tpu/synthetic.py`` that the odometry
-slice needs: a few analytic planes ray-cast into depth and intensity maps
-along a smooth ground-truth trajectory, written as a TUM-format dataset
-through ``io.png``, and the ATE metric. Poses are host ``se3.SE3`` pairs of
+Counterpart of the parts of ``badslam_tpu/synthetic.py`` that the port's
+slices need: a few analytic planes ray-cast into depth and intensity maps
+along a smooth ground-truth trajectory, through a pinhole or a
+radial-tangential (distorted) camera, written as a TUM-format dataset
+through ``io.png`` (associated, or as a raw download's rgb.txt/depth.txt),
+and the ATE metric. Poses are host ``se3.SE3`` pairs of
 numpy float32 arrays (q wxyz, t).
 """
 
@@ -14,7 +16,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 
-from badslam_torch.geometry.camera import PinholeCamera
+from badslam_torch.geometry.camera import PinholeCamera, RadTanCamera
 from badslam_torch.geometry.se3 import SE3
 from badslam_torch.io.png import write_png
 
@@ -78,7 +80,28 @@ def render_scene(cam: PinholeCamera, scene: PlaneScene,
     ys, xs = np.mgrid[0:cam.height, 0:cam.width]
     dx = cam.fx_inv * xs + cam.cx_inv
     dy = cam.fy_inv * ys + cam.cy_inv
+    return _render_from_dirs(dx, dy, scene, world_T_frame)
 
+
+def render_scene_radtan(rtcam: RadTanCamera, scene: PlaneScene, world_T_frame: SE3,
+                        iterations: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+    """Ray-cast through a radial-tangential (distorted) camera: per source
+    pixel the undistorted normalized direction comes from a fixed-point
+    inversion of the Brown model, then the plane ray-cast runs."""
+    cam = rtcam.pinhole
+    ys, xs = np.mgrid[0:cam.height, 0:cam.width]
+    xd = (xs + 0.5 - cam.cx) / cam.fx
+    yd = (ys + 0.5 - cam.cy) / cam.fy
+    nx, ny = xd.copy(), yd.copy()
+    for _ in range(iterations):
+        radial, tx, ty = rtcam.radial_and_tangential(nx, ny)
+        nx = (xd - tx) / radial
+        ny = (yd - ty) / radial
+    return _render_from_dirs(nx, ny, scene, world_T_frame)
+
+
+def _render_from_dirs(dx, dy, scene: PlaneScene, world_T_frame: SE3):
+    """Plane-scene ray-cast along per-pixel directions (dx, dy, 1)."""
     q = np.asarray(world_T_frame.q, np.float64)
     t = np.asarray(world_T_frame.t, np.float64)
     R_wf = _quat_to_matrix(q)
@@ -150,18 +173,32 @@ def write_tum_dataset(
     poses: Sequence[SE3],
     raw_to_float_depth: float = 1.0 / 5000.0,
     write_gt: bool = True,
+    distortion=None,
 ) -> None:
     """Write a synthetic TUM-format dataset directory: calibration.txt,
-    associated.txt, gray RGB and 16-bit depth PNGs, optional groundtruth.txt."""
+    associated.txt, gray RGB and 16-bit depth PNGs, optional groundtruth.txt.
+    With `distortion` ((k1, k2[, p1, p2])) the images are rendered through
+    the radial-tangential model and calibration.txt carries the line
+    "fx fy cx cy k1 k2 p1 p2"."""
+    rtcam = None
+    if distortion is not None:
+        k = list(distortion) + [0.0] * (4 - len(distortion))
+        rtcam = RadTanCamera(pinhole=cam, k1=k[0], k2=k[1], p1=k[2], p2=k[3])
     os.makedirs(os.path.join(path, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(path, "depth"), exist_ok=True)
     with open(os.path.join(path, "calibration.txt"), "w") as f:
-        f.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy}\n")
+        line = f"{cam.fx} {cam.fy} {cam.cx} {cam.cy}"
+        if rtcam is not None:
+            line += f" {rtcam.k1} {rtcam.k2} {rtcam.p1} {rtcam.p2}"
+        f.write(line + "\n")
 
     assoc_lines = []
     gt_lines = []
     for i, world_T_frame in enumerate(poses):
-        depth, inten = render_scene(cam, scene, world_T_frame)
+        if rtcam is not None:
+            depth, inten = render_scene_radtan(rtcam, scene, world_T_frame)
+        else:
+            depth, inten = render_scene(cam, scene, world_T_frame)
         depth_u16 = np.clip(depth / raw_to_float_depth, 0, 65535).astype(np.uint16)
         gray = np.clip(inten * 255.0 + 0.5, 0, 255).astype(np.uint8)
         rgb = np.stack([gray, gray, gray], axis=-1)
@@ -180,6 +217,25 @@ def write_tum_dataset(
     if write_gt:
         with open(os.path.join(path, "groundtruth.txt"), "w") as f:
             f.write("\n".join(gt_lines) + "\n")
+
+
+def make_raw_tum_lists(path: str, depth_offset_s: float = 0.0,
+                       drop_depth: Sequence[int] = ()) -> None:
+    """Turn a dataset written by `write_tum_dataset` into the layout of a raw
+    TUM download: rgb.txt and depth.txt instead of associated.txt, the depth
+    stamps offset by `depth_offset_s` seconds and the depth frames at the
+    indices `drop_depth` left out (the loader then associates the streams)."""
+    assoc = os.path.join(path, "associated.txt")
+    with open(assoc) as f:
+        rows = [line.split() for line in f if line.strip()]
+    with open(os.path.join(path, "rgb.txt"), "w") as f:
+        f.write("# timestamp filename\n")
+        f.writelines(f"{r[0]} {r[1]}\n" for r in rows)
+    with open(os.path.join(path, "depth.txt"), "w") as f:
+        f.write("# timestamp filename\n")
+        f.writelines(f"{float(r[2]) + depth_offset_s:.6f} {r[3]}\n"
+                     for i, r in enumerate(rows) if i not in set(drop_depth))
+    os.remove(assoc)
 
 
 def ate_rmse(est_poses, gt_poses) -> float:

@@ -12,13 +12,17 @@ failure, so any failure exits non-zero before the last line is printed):
    what ptxas says about its kernels (entry, registers, spills).
 3. Kernels against their plain PyTorch versions on the card, with the
    tolerance stated: K1 (bilateral filter) on random depth at 480x640 and
-   67x160 and on a rendered 480x640 frame (the main path's input), atol
-   1e-5, each with its grid's registers, spills and waves, and at radius 0
-   (the launch, staging and stores alone); K2 (image gather) on the probe's
-   480x640 field and batched [4, 480, 640] x [4, 200000], int32 and int64
-   indices, with out-of-range
-   and negative flat indices, exact (NaN where the plain version gives
-   NaN); K3 (one-hot gather) at 480x640, exact. For each: max abs error,
+   67x160, on a rendered 480x640 frame (the slice's input) and on frame 0
+   of phase 8's distorted input after undistortion and one median pass
+   (502x670, a ragged row length), atol 1e-5, each with its grid's
+   registers, spills and waves, and at radius 0 (the launch, staging and
+   stores alone); K2 (image gather) on the probe's 480x640 field and
+   batched [4, 480, 640] x [4, 200000], int32 and int64 indices, with
+   out-of-range and negative flat indices, exact (NaN where the plain
+   version gives NaN), and at the undistortion's shapes on that frame
+   (nearest depth [1, 480, 640] x [1, 336340], the four bilinear color
+   taps [3, 480, 640] x [3, 336340]), exact; K3 (one-hot gather) at
+   480x640, exact. For each: max abs error,
    device time per call (a CUDA graph of 50 calls), eager call latency,
    the plain version's device time, the least time the card could take
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
@@ -42,8 +46,29 @@ failure, so any failure exits non-zero before the last line is printed):
 7. The card against the CPU: a 160x120, 13-frame BA sequence on both
    devices (poses to 1e-4, surfel counts within 1%), and the first 6 VGA
    odometry frames on the CPU against the CUDA run (poses to 1e-4).
-8. The nvidia-smi line again, one JSON line of the kernels, then the last
+8. The distorted raw input path: 20 VGA frames rendered through a
+   radial-tangential camera (k1 -0.08, k2 0.01) and written as a raw TUM
+   download (rgb.txt/depth.txt only, depth stamps 7 ms late, one depth
+   frame dropped), through `cli.main` on cuda with one median pass, BA (10
+   iterations per keyframe, a keyframe every 10 frames) and the final BA.
+   Checks the decided 670x502 pinhole, K1 once per frame at that size, K2
+   launched, final-BA iterations, ATE below 3e-3 m; prints per-frame
+   medians, the device ms per frame of undistortion plus median (CUDA
+   graph) and the final BA's seconds. The sequence is written before
+   phase 3, which reads its frame 0.
+9. The input pyramid: 10 frames of a 1280x960 source processed at 640x480
+   (level 1), BA on; ATE below 1e-3 m, K1 launched at 640x480 per frame.
+10. Resume: the slice's sequence run to frame 10 with `--save_state`, then
+   resumed with `--load_state`; poses held to the continuous slice run at
+   1e-4; prints the snapshot's bytes and the save and load seconds.
+11. The card against the CPU on the new path: a 96x72 radtan sequence with
+   two median passes, BA and the final BA on both devices (poses to 1e-4,
+   surfel counts within 1%).
+12. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
+
+Each of phases 8-11 prints the card's name and power limit beside its
+numbers.
 """
 
 from __future__ import annotations
@@ -61,10 +86,16 @@ import torch
 
 from badslam_torch import cli, probe_gather, synthetic
 from badslam_torch.cuda_timing import call_ms, device_ms
-from badslam_torch.io.dataset import load_tum_trajectory
-from badslam_torch.ops import kernels
+from badslam_torch.geometry.camera import PinholeCamera
+from badslam_torch.io.dataset import load_tum_dataset, load_tum_trajectory
+from badslam_torch.ops import interp, kernels
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
-from badslam_torch.ops.preprocess import bilateral_filter_and_cutoff, shift2d
+from badslam_torch.ops.preprocess import (
+    bilateral_filter_and_cutoff,
+    median_filter_and_densify,
+    shift2d,
+    undistort_image,
+)
 
 KERNEL_ATOL = 1e-5
 POSE_ATOL = 1e-4
@@ -89,6 +120,39 @@ SMALL_FLAGS = ["--num_scales", "4", "--keyframe_interval", "6",
                "--max_num_ba_iterations_per_keyframe", "4",
                "--enable_loop_detection", "false", "--fps_restriction", "0",
                "--quiet"]
+# The distorted raw input: a TUM-like VGA camera through k1 -0.08, k2 0.01,
+# whose covering pinhole is 670x502; the depth frame INPUT_DROP is dropped.
+INPUT_FRAMES, INPUT_DROP, INPUT_SIZE = 20, 7, (502, 670)
+INPUT_CAMERA = PinholeCamera(fx=525.0, fy=525.0, cx=320.0, cy=240.0,
+                             width=WIDTH, height=HEIGHT)
+INPUT_DISTORTION = (-0.08, 0.01)
+# The JAX package's own CLI ends at 2.13e-3 m on this input, 8.0e-4 m
+# without the median pass (`reference_ate_of_chip_smoke_input` in
+# tests/test_torch_input.py, on the CPU), above tests/test_modes.py's
+# 2e-3 for 96x72 without the median; so this input is held at 3e-3.
+INPUT_ATE_LIMIT_M = 3e-3
+INPUT_FLAGS = ["--num_scales", "5", "--keyframe_interval", "10",
+               "--max_num_ba_iterations_per_keyframe", "10",
+               "--median_filter_and_densify_iterations", "1", "--final_ba",
+               "--enable_loop_detection", "false", "--fps_restriction", "0",
+               "--quiet"]
+PYRAMID_FRAMES = 10
+PYRAMID_FLAGS = ["--num_scales", "5", "--keyframe_interval", "5",
+                 "--max_num_ba_iterations_per_keyframe", "10",
+                 "--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
+                 "--enable_loop_detection", "false", "--fps_restriction", "0",
+                 "--quiet"]
+RESUME_AFTER = 10  # the last frame of the first half: a keyframe, BA queued
+SMALL_INPUT_FRAMES = 8
+SMALL_INPUT_FLAGS = ["--num_scales", "3", "--keyframe_interval", "3",
+                     "--max_num_ba_iterations_per_keyframe", "4",
+                     "--median_filter_and_densify_iterations", "2", "--final_ba",
+                     "--final_ba_window_size", "2", "--final_ba_window_stride", "1",
+                     "--max_surfel_count", str(1 << 13),
+                     "--enable_loop_detection", "false", "--fps_restriction", "0",
+                     "--quiet"]
+# The card's name and power limit, as nvidia-smi gives them (phase_device).
+SMI = ""
 
 
 def _phase(name, fn, *args):
@@ -112,7 +176,9 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
-    print(_smi())  # the card's name and power limit, as nvidia-smi gives them
+    global SMI
+    SMI = _smi()
+    print(SMI)  # the card's name and power limit, as nvidia-smi gives them
     return name
 
 
@@ -190,12 +256,28 @@ def _k1_launch(h: int, w: int, radius: int) -> str:
             f"{balance:.3f}")
 
 
-def _k1() -> dict:
+def _input_frame(data: str):
+    """Frame 0 of the distorted raw input as the input phase's path gives
+    it to the card: (loaded video, undistortion map, metric depth and u8
+    color of the source)."""
+    video = load_tum_dataset(data)
+    umap = torch.from_numpy(video.undistortion_map).cuda()
+    depth = torch.from_numpy(video.depth_u16(0).astype(np.int32)).cuda()
+    rgb = torch.from_numpy(video.color_u8(0)).cuda()
+    return video, umap, depth.to(torch.float32) * (1.0 / 5000.0), rgb
+
+
+def _k1(undistorted: torch.Tensor) -> dict:
+    """`undistorted`: the input phase's frame 0 after undistortion and one
+    median pass, K1's ragged input (rows of 670 floats are not 16-byte
+    aligned, so the staging takes its scalar edge loads)."""
     result = {}
+    size = "x".join(map(str, undistorted.shape))
     for what, max_depth, depth in (
             (f"random {HEIGHT}x{WIDTH}", 2.5, _random_depth(0, (HEIGHT, WIDTH), 2.5)),
             ("random 67x160", 2.5, _random_depth(1, (67, 160), 2.5)),
-            (f"rendered {HEIGHT}x{WIDTH}", 3.0, _rendered_depth())):
+            (f"rendered {HEIGHT}x{WIDTH}", 3.0, _rendered_depth()),
+            (f"undistorted input {size}", 3.0, undistorted)):
         out = kernels.bilateral_filter_and_cutoff_cuda(depth, max_depth)
         ref = bilateral_filter_and_cutoff(depth, max_depth)
         torch.cuda.synchronize()
@@ -234,7 +316,7 @@ def _exact(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return err
 
 
-def _k2() -> dict:
+def _k2(umap, depth, rgb) -> dict:
     img_np, px_np, py_np = probe_gather.make_inputs(HEIGHT, WIDTH)
     img = torch.from_numpy(img_np).cuda()
     result = {}
@@ -277,7 +359,34 @@ def _k2() -> dict:
         print(f"K2 gather batched [{batch}, {n}] on [{batch}, {HEIGHT}, {WIDTH}], "
               f"{dtype}: exact (max_abs_err {err}, {nans} NaN outputs); device ms "
               f"{ms:.4f}")
+    _k2_undistortion(umap, depth, rgb)
     return result
+
+
+def _k2_undistortion(umap, depth, rgb) -> None:
+    """K2 at the undistortion's shapes (undistort_image): the nearest depth
+    read, [1, H, W] x [1, N], and the four bilinear taps of the color,
+    [3, H, W] x [3, N] (N the undistorted pixels), exact."""
+    h, w = depth.shape
+    px, py = umap[..., 0], umap[..., 1]
+    xi = torch.clamp(torch.floor(px).to(torch.int64), 0, w - 1).reshape(1, -1)
+    yi = torch.clamp(torch.floor(py).to(torch.int64), 0, h - 1).reshape(1, -1)
+    planes = rgb.permute(2, 0, 1).to(torch.float32).contiguous()
+    ix0, iy0, ix1, iy1, _, _ = interp.quad_texels(h, w, px, py)
+    taps = {"nearest depth": (depth[None], xi, yi)}
+    for tap, (x, y) in {"tl": (ix0, iy0), "tr": (ix1, iy0), "bl": (ix0, iy1),
+                        "br": (ix1, iy1)}.items():
+        taps[f"color {tap}"] = (planes, x.reshape(1, -1).expand(3, -1).contiguous(),
+                                y.reshape(1, -1).expand(3, -1).contiguous())
+    for what, (img, x, y) in taps.items():
+        err = _exact(kernels.gather_cuda(img, x, y), gather_nearest_plain(img, x, y),
+                     f"K2 undistortion {what}")
+        ms = device_ms(lambda: kernels.gather_cuda(img, x, y))
+        n = x.numel()
+        b = _bound(4.0 * img.numel() + 2.0 * 8.0 * n + 4.0 * n, 3.0 * n)
+        print(f"K2 gather undistortion {what}: {list(img.shape)} x {list(x.shape)}, "
+              f"int64: exact (max_abs_err {err}); device ms {ms:.4f}; bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
 
 
 def _k3() -> dict:
@@ -309,8 +418,10 @@ def _k3() -> dict:
     return {"max_abs_err": err, **t, **b}
 
 
-def phase_kernels() -> dict:
-    return {kernels.BILATERAL: _k1(), kernels.GATHER: _k2(),
+def phase_kernels(input_data: str) -> dict:
+    _, umap, depth, rgb = _input_frame(input_data)
+    undistorted = median_filter_and_densify(undistort_image(depth, umap, nearest=True))
+    return {kernels.BILATERAL: _k1(undistorted), kernels.GATHER: _k2(umap, depth, rgb),
             kernels.GATHER_ONEHOT: _k3()}
 
 
@@ -353,13 +464,37 @@ def _run(data, workdir, tag, device, flags):
     return poses, q, t, summary, launches
 
 
-def _write(workdir, name, width, height, frames, seed, planes=6):
+def _write(workdir, name, width, height, frames, seed, planes=6, camera=None,
+           distortion=None):
     data = os.path.join(workdir, name)
     gt = synthetic.smooth_trajectory(frames)
     synthetic.write_tum_dataset(
-        data, synthetic.default_camera(width, height),
-        synthetic.random_plane_scene(np.random.default_rng(seed), planes), gt)
+        data, camera or synthetic.default_camera(width, height),
+        synthetic.random_plane_scene(np.random.default_rng(seed), planes), gt,
+        distortion=distortion)
     return data, gt
+
+
+def _frame_medians(summary) -> str:
+    """Per-frame medians: all frames after the first, keyframe (BA) frames,
+    frames that drained queued BA iterations, the other frames."""
+    frame_ms = dict(summary["frame_ms"])
+    kf_set, drain_set = set(summary["keyframe_frames"]), set(summary["ba_drain_frames"])
+    later = [frame_ms[i] for i in sorted(frame_ms)[1:]]
+    groups = {"keyframe": [frame_ms[i] for i in summary["keyframe_frames"][1:]],
+              "BA-drain": [frame_ms[i] for i in drain_set - kf_set],
+              "other": [frame_ms[i] for i in sorted(frame_ms)[1:]
+                        if i not in kf_set and i not in drain_set]}
+    parts = [f"per-frame median {statistics.median(later):.2f} ms after the first "
+             f"(first {frame_ms[min(frame_ms)]:.2f})"]
+    parts += [f"{k} frames median {statistics.median(v):.2f} ms ({len(v)})"
+              for k, v in groups.items() if v]
+    return "; ".join(parts)
+
+
+def _shapes() -> dict:
+    """The launches per image shape of the last run (copied)."""
+    return {k: dict(v) for k, v in kernels.launch_shapes.items()}
 
 
 def phase_slice(workdir: str) -> tuple:
@@ -372,22 +507,14 @@ def phase_slice(workdir: str) -> tuple:
     wall = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     ate = synthetic.ate_rmse(poses, gt)
-    frame_ms = dict((i, ms) for i, ms in summary["frame_ms"])
+    frame_ms = dict(summary["frame_ms"])
     later = [frame_ms[i] for i in sorted(frame_ms)[1:]]
     kf = [frame_ms[i] for i in summary["keyframe_frames"][1:]]
-    drain = [frame_ms[i] for i in summary["ba_drain_frames"]
-             if i not in summary["keyframe_frames"]]
-    other = [frame_ms[i] for i in sorted(frame_ms)[1:]
-             if i not in summary["keyframe_frames"]
-             and i not in summary["ba_drain_frames"]]
     points = _ply_points(ply)
     print(f"slice: {FRAMES} frames at {WIDTH}x{HEIGHT} on cuda in {wall:.1f} s wall; "
-          f"ATE {ate:.3e} m (limit {ATE_LIMIT_M}); per-frame median {statistics.median(later):.2f} ms "
-          f"after the first (min {min(later):.2f}, max {max(later):.2f}, first "
-          f"{frame_ms[0]:.2f}); keyframe (BA) frames median {statistics.median(kf):.2f} ms "
-          f"({len(kf)}: {', '.join(f'{x:.1f}' for x in kf)}); BA-drain frames "
-          f"median {statistics.median(drain):.2f} ms ({len(drain)}); other frames "
-          f"median {statistics.median(other):.2f} ms ({len(other)}); BA iterations per call "
+          f"ATE {ate:.3e} m (limit {ATE_LIMIT_M}); {_frame_medians(summary)}; min "
+          f"{min(later):.2f}, max {max(later):.2f} ms after the first; keyframe (BA) "
+          f"frames {', '.join(f'{x:.1f}' for x in kf)} ms; BA iterations per call "
           f"{summary['ba_iterations']}; keyframes {summary['keyframes']}; surfels "
           f"{summary['surfels']}; PLY points {points}; peak memory {peak_mb:.1f} MiB; "
           f"launches {launches}")
@@ -403,7 +530,7 @@ def phase_slice(workdir: str) -> tuple:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
-    return data, launches
+    return data, launches, q, t
 
 
 def phase_profile(data: str, out_dir: str) -> None:
@@ -462,6 +589,131 @@ def phase_cpu(workdir: str, data: str, q_odo, t_odo) -> None:
         raise AssertionError("CPU and CUDA odometry trajectories disagree")
 
 
+def write_input_sequence(workdir: str):
+    """The distorted raw TUM sequence of phase_input; returns (path, ground
+    truth of the frames the loader associates)."""
+    data, gt = _write(workdir, "radtan_raw", WIDTH, HEIGHT, INPUT_FRAMES, 7,
+                      camera=INPUT_CAMERA, distortion=INPUT_DISTORTION)
+    synthetic.make_raw_tum_lists(data, depth_offset_s=0.007, drop_depth=(INPUT_DROP,))
+    return data, [p for i, p in enumerate(gt) if i != INPUT_DROP]
+
+
+def phase_input(workdir: str, data: str, gt_kept) -> None:
+    """Distorted raw TUM input (write_input_sequence) through the CLI:
+    undistortion, median, BA and the final BA."""
+    video, umap, depth, rgb = _input_frame(data)
+    size = (video.camera.height, video.camera.width)
+    t0 = time.perf_counter()
+    poses, q, t, summary, launches = _run(data, workdir, "input", "cuda", INPUT_FLAGS)
+    shapes = _shapes()
+    wall = time.perf_counter() - t0
+    ate = synthetic.ate_rmse(poses, gt_kept)
+
+    # The device time of one frame's undistortion (depth nearest, color
+    # bilinear) and median pass, as preprocess_frame runs them.
+    def undistort_and_median():
+        d = undistort_image(depth, umap, nearest=True)
+        undistort_image(rgb.to(torch.float32), umap)
+        return median_filter_and_densify(d)
+
+    input_ms = device_ms(undistort_and_median)
+    print(f"input: {len(gt_kept)} of {INPUT_FRAMES} raw TUM frames associated, "
+          f"{WIDTH}x{HEIGHT} radtan source undistorted to {size[1]}x{size[0]}, on cuda "
+          f"in {wall:.1f} s wall; ATE {ate:.3e} m (limit {INPUT_ATE_LIMIT_M}); "
+          f"{_frame_medians(summary)}; undistortion + median device time per frame "
+          f"{input_ms:.4f} ms (CUDA graph of 50, median of 5); BA iterations per call "
+          f"{summary['ba_iterations']}; final BA {summary['final_ba_s']:.2f} s, iterations "
+          f"per call {summary['final_ba_iterations']}; keyframes {summary['keyframes']}; "
+          f"surfels {summary['surfels']}; launches {launches}; K1 shapes "
+          f"{shapes[kernels.BILATERAL]} ({SMI})")
+    checks = {
+        f"{len(gt_kept)} frames associated": len(video) == len(gt_kept) == len(poses),
+        f"decided pinhole {INPUT_SIZE[1]}x{INPUT_SIZE[0]}": size == INPUT_SIZE,
+        "K1 once per frame at the decided size":
+            shapes[kernels.BILATERAL] == {size: len(gt_kept)},
+        "K2 launched": launches[kernels.GATHER] > 0,
+        "final BA ran iterations": sum(summary["final_ba_iterations"]) > 0,
+        "ATE below the limit": ate < INPUT_ATE_LIMIT_M,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"input checks failed: {failed}")
+
+
+def phase_pyramid(workdir: str) -> None:
+    """A 1280x960 source processed at input pyramid level 1 (640x480)."""
+    data, gt = _write(workdir, "pyramid", 2 * WIDTH, 2 * HEIGHT, PYRAMID_FRAMES, 7)
+    t0 = time.perf_counter()
+    poses, q, t, summary, launches = _run(data, workdir, "pyramid", "cuda", PYRAMID_FLAGS)
+    shapes = _shapes()
+    wall = time.perf_counter() - t0
+    ate = synthetic.ate_rmse(poses, gt)
+    print(f"pyramid: {PYRAMID_FRAMES} frames of a {2 * WIDTH}x{2 * HEIGHT} source at "
+          f"input level 1 on cuda in {wall:.1f} s wall; ATE {ate:.3e} m (limit "
+          f"{ATE_LIMIT_M}); {_frame_medians(summary)}; BA iterations per call "
+          f"{summary['ba_iterations']}; launches {launches}; K1 shapes "
+          f"{shapes[kernels.BILATERAL]} ({SMI})")
+    checks = {
+        "K1 once per frame at 640x480":
+            shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH): PYRAMID_FRAMES},
+        "BA ran iterations": sum(summary["ba_iterations"]) > 0,
+        "ATE below the limit": ate < ATE_LIMIT_M,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pyramid checks failed: {failed}")
+
+
+def phase_resume(workdir: str, data: str, q_slice, t_slice) -> None:
+    """The slice's sequence to frame RESUME_AFTER with --save_state (a
+    dataset listing its first frames), then --load_state on the whole
+    sequence, against the continuous slice run."""
+    first = os.path.join(workdir, "first_half")
+    os.makedirs(first)
+    with open(os.path.join(data, "associated.txt")) as f:
+        rows = [line.split() for line in f if line.strip()][:RESUME_AFTER + 1]
+    name = os.path.basename(data)
+    with open(os.path.join(first, "associated.txt"), "w") as f:
+        f.writelines(f"{a} ../{name}/{b} {c} ../{name}/{d}\n" for a, b, c, d in rows)
+    with open(os.path.join(data, "calibration.txt")) as src, \
+            open(os.path.join(first, "calibration.txt"), "w") as dst:
+        dst.write(src.read())
+    snap = os.path.join(workdir, "state.npz")
+    _, _, _, saved, _ = _run(first, workdir, "resume_first", "cuda",
+                             SLICE_FLAGS + ["--save_state", snap])
+    poses, q, t, resumed, launches = _run(data, workdir, "resume_rest", "cuda",
+                                          SLICE_FLAGS + ["--load_state", snap])
+    dq, dt = float(np.abs(q - q_slice).max()), float(np.abs(t - t_slice).max())
+    print(f"resume: snapshot after frame {RESUME_AFTER} of {FRAMES}, "
+          f"{os.path.getsize(snap)} bytes, saved in {saved['save_state_s']:.3f} s, "
+          f"loaded in {resumed['load_state_s']:.3f} s; resumed frames "
+          f"{len(resumed['frame_ms'])}, launches {launches}; against the continuous "
+          f"slice run max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol {POSE_ATOL}) ({SMI})")
+    if not (len(poses) == FRAMES and len(resumed["frame_ms"]) == FRAMES - RESUME_AFTER - 1
+            and dq <= POSE_ATOL and dt <= POSE_ATOL):
+        raise AssertionError("the resumed run disagrees with the continuous run")
+
+
+def phase_cpu_input(workdir: str) -> None:
+    """The distorted path with the median filter and the final BA on the
+    card and on the CPU."""
+    small, _ = _write(workdir, "small_radtan", 96, 72, SMALL_INPUT_FRAMES, 3, planes=5,
+                      distortion=(-0.06, 0.01))
+    runs = {dev: _run(small, workdir, f"small_radtan_{dev}", dev, SMALL_INPUT_FLAGS)
+            for dev in ("cuda", "cpu")}
+    (_, qg, tg, sg, lg), (_, qc, tc, sc, _) = runs["cuda"], runs["cpu"]
+    dq, dt = float(np.abs(qg - qc).max()), float(np.abs(tg - tc).max())
+    ds = abs(sg["surfels"] - sc["surfels"]) / max(sc["surfels"], 1)
+    print(f"cpu vs cuda, 96x72 radtan + median + final BA ({SMALL_INPUT_FRAMES} frames): "
+          f"max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol {POSE_ATOL}); surfels cuda "
+          f"{sg['surfels']} cpu {sc['surfels']} (rel diff {ds:.4f}, limit {SURFEL_RTOL}); "
+          f"final BA iterations cuda {sg['final_ba_iterations']} cpu "
+          f"{sc['final_ba_iterations']}; cuda launches {lg} ({SMI})")
+    if not (len(qg) == len(qc) == SMALL_INPUT_FRAMES and dq <= POSE_ATOL
+            and dt <= POSE_ATOL and ds <= SURFEL_RTOL):
+        raise AssertionError("CPU and CUDA disagree on the distorted sequence")
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -481,14 +733,19 @@ def main(argv=None) -> int:
         profile_dir = os.path.abspath(argv[1])
     name = _phase("device", phase_device)
     _phase("build", phase_build)
-    measured = _phase("kernels", phase_kernels)
-    probe_launches = _phase("probe", phase_probe)
     with tempfile.TemporaryDirectory() as workdir:
-        data, slice_launches = _phase("slice", phase_slice, workdir)
+        input_data, gt_kept = _phase("input data", write_input_sequence, workdir)
+        measured = _phase("kernels", phase_kernels, input_data)
+        probe_launches = _phase("probe", phase_probe)
+        data, slice_launches, q_slice, t_slice = _phase("slice", phase_slice, workdir)
         if profile_dir:
             _phase("profile", phase_profile, data, profile_dir)
         q_odo, t_odo = _phase("odometry", phase_odometry, workdir, data)
         _phase("cpu", phase_cpu, workdir, data, q_odo, t_odo)
+        _phase("input", phase_input, workdir, input_data, gt_kept)
+        _phase("pyramid", phase_pyramid, workdir)
+        _phase("resume", phase_resume, workdir, data, q_slice, t_slice)
+        _phase("cpu_input", phase_cpu_input, workdir)
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
         # K1 and K2 are on the SLAM path: their launches are the slice

@@ -195,9 +195,10 @@ def test_onehot_kernel_matches_plain(cuda):
                                atol=0, rtol=0)
 
 
-def _bundle_adjustment(device):
+def _bundle_adjustment(device, window=None):
     """Two rendered keyframes, the first with its surfels, the second
-    starting off its true pose; one BA call of up to 8 iterations."""
+    starting off its true pose; one BA call of up to 8 iterations, or of
+    exactly 3 in the fixed keyframe window `window` (the final BA's)."""
     from badslam_torch.ba.scheme import DirectBA
     from badslam_torch.config import BadSlamConfig
 
@@ -215,20 +216,55 @@ def _bundle_adjustment(device):
         kf = ba.add_keyframe(frame, init, i)
         if i == 0:
             ba.create_surfels_for_keyframe(kf, filter_new_surfels=False)
-    iterations = ba.bundle_adjustment(max_iterations=8)
-    return ba, iterations
+    if window is not None:
+        return ba, ba.bundle_adjustment(max_iterations=3, active_keyframe_window=window)
+    return ba, ba.bundle_adjustment(max_iterations=8)
 
 
 @pytest.mark.cuda
-def test_bundle_adjustment_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("window", [None, (1, 1)], ids=["all", "window"])
+def test_bundle_adjustment_cuda_matches_cpu(cuda, window):
     before = kernels.launch_counts[kernels.GATHER]
-    on_card, iters_card = _bundle_adjustment(cuda)
+    on_card, iters_card = _bundle_adjustment(cuda, window)
     torch.cuda.synchronize()
     assert kernels.launch_counts[kernels.GATHER] > before
-    on_cpu, iters_cpu = _bundle_adjustment("cpu")
+    on_cpu, iters_cpu = _bundle_adjustment("cpu", window)
     assert iters_card == iters_cpu >= 1
+    assert torch.equal(on_card.keyframes.activation[:2].cpu(), on_cpu.keyframes.activation[:2])
     for name in ("q", "t"):
         torch.testing.assert_close(getattr(on_card.keyframes, name)[:2].cpu(),
                                    getattr(on_cpu.keyframes, name)[:2], atol=1e-4, rtol=0)
     n_card, n_cpu = on_card.surfel_count, on_cpu.surfel_count
     assert n_cpu > 500 and abs(n_card - n_cpu) <= 0.01 * n_cpu
+
+
+@pytest.mark.cuda
+def test_undistortion_and_median_cuda_match_cpu(cuda):
+    """The distorted input path on the card: depth (nearest) and color
+    (bilinear) undistortion through K2, then the median filter, against
+    the CPU: exact for the nearest taps and the median, 1e-5 for the
+    bilinear color (its hold against JAX)."""
+    from badslam_torch.geometry.camera import RadTanCamera, decide_undistorted_camera
+    from badslam_torch.ops.preprocess import median_filter_and_densify, undistort_image
+
+    src = RadTanCamera(pinhole=synthetic.default_camera(160, 120), k1=-0.06, k2=0.01)
+    cam = decide_undistorted_camera(src)
+    depth, inten = synthetic.render_scene_radtan(src, synthetic.random_plane_scene(
+        np.random.default_rng(2), 5), synthetic.pose(tx=0.01))
+    depth[np.random.default_rng(2).uniform(size=depth.shape) < 0.1] = 0.0
+    rgb = np.stack([np.clip(inten * 255.0, 0, 255)] * 3, axis=-1).astype(np.float32)
+    umap = torch.from_numpy(src.undistortion_map(cam))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        before = kernels.launch_counts[kernels.GATHER]
+        d = undistort_image(torch.from_numpy(depth).to(device), umap.to(device), nearest=True)
+        c = undistort_image(torch.from_numpy(rgb).to(device), umap.to(device))
+        out[device.type] = (d.cpu(), median_filter_and_densify(d).cpu(), c.cpu())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts[kernels.GATHER] == before + 5
+    (dg, mg, cg), (dc, mc, cc) = out["cuda"], out["cpu"]
+    assert dg.shape == (cam.height, cam.width) and cg.shape == (cam.height, cam.width, 3)
+    torch.testing.assert_close(dg, dc, atol=0, rtol=0)
+    torch.testing.assert_close(mg, mc, atol=0, rtol=0)
+    torch.testing.assert_close(cg, cc, atol=1e-5, rtol=0)

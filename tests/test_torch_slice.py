@@ -196,41 +196,71 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
 @pytest.mark.parametrize("argv, what", [
     (["--max_num_ba_iterations_per_keyframe", "10", "--use_pcg", "true"], "PCG"),
     (["--enable_loop_detection", "true"], "loop detection"),
-    (["--pyramid_level_for_depth", "1"], "input pyramid"),
-    (["--median_filter_and_densify_iterations", "1"], "median"),
+    (["--pyramid_level_for_depth", "1"], "must equal pyramid_level_for_color"),
+    (["--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
+      "--median_filter_and_densify_iterations", "1"], "median filter"),
     (["--optimize_intrinsics", "true"], "optimize_intrinsics"),
     (["--export_point_cloud", "x.ply", "--export_viewer", "v"], "map viewer"),
-    (["--save_state", "s.npz"], "snapshots"),
-    (["--load_state", "s.npz"], "snapshots"),
-    (["--final_ba"], "final BA"),
+    (["--save_timings", "t.txt"], "timing rows"),
+    (["--live_viewer_dir", "v"], "map viewer"),
+    (["--final_ba", "--use_pcg", "true"], "PCG"),
     (["--live", "dir:x"], "live input"),
     (["--autotune"], "tuned variants"),
 ], ids=["ba", "loop", "pyramid_level", "median", "intrinsics", "point_cloud",
-        "save_state", "load_state", "final_ba", "live", "autotune"])
+        "save_timings", "live_viewer", "final_ba", "live", "autotune"])
 def test_later_slices_are_refused(tmp_path, argv, what):
+    """What the port still refuses, before it reads the dataset: the later
+    slices' settings and flags, and the JAX package's own refusals of the
+    input pyramid (unequal levels; a level with the median filter)."""
     base = ["--max_num_ba_iterations_per_keyframe", "0",
             "--enable_loop_detection", "false"]
     with pytest.raises(NotImplementedError, match=what):
         torch_main([str(tmp_path), "--device", "cpu", *base, *argv])
 
 
-def test_distorted_calibration_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="pinhole"):
-        tds.load_tum_dataset(FIXTURE)
+def test_calibration_lines_load_like_jax(tmp_path):
+    """Every form of the calibration grammar gives JAX's camera (and, for a
+    distorted source, its undistortion map); an unknown model name raises
+    ValueError in both loaders. One difference: a radial-tangential line
+    whose terms are all zero is a pinhole for the port, while the JAX
+    loader's model dispatch falls through and calls it unknown."""
     data = str(tmp_path / "seq")
     cam = tsyn.default_camera(32, 24)
     tsyn.write_tum_dataset(data, cam, tsyn.random_plane_scene(np.random.default_rng(0), 2),
                            [tsyn.pose()], write_gt=False)
     base = f"{cam.fx} {cam.fy} {cam.cx} {cam.cy}"
-    for line, accepted in ((base + " 0 0 0 0", True), ("pinhole " + base, True),
-                           (base + " 0 0 0 0 0 0 0 0", False), (base + " 0.1 0", False)):
+    for line in (base + " 0 0 0 0", "radtan " + base + " 0 0"):
         with open(os.path.join(data, "calibration.txt"), "w") as f:
             f.write(line + "\n")
-        if accepted:
-            assert tds.load_tum_dataset(data).camera == cam
+        assert tds.load_tum_dataset(data).camera == cam
+        assert tds.load_tum_dataset(data).undistortion_map is None
+        with pytest.raises(ValueError, match="unknown camera model 'radtan'"):
+            jds.load_tum_dataset(data)
+    lines = (base, "pinhole " + base, base + " 0.1 0",
+             base + " -0.05 0.01 0.001 0.002", "radtan " + base + " -0.05 0.01",
+             base + " 0 0 0 0 0 0 0 0", base + " 0.01 -0.002 0 0 0.001 0 0 0",
+             "thin_prism_fisheye " + base + " 0.01 0 0 0 0 0 0.001 0",
+             "fisheye " + base + " 0 0 0 0 0 0 0 0")
+    for line in lines:
+        with open(os.path.join(data, "calibration.txt"), "w") as f:
+            f.write(line + "\n")
+        tv, jv = tds.load_tum_dataset(data), jds.load_tum_dataset(data)
+        assert (tv.camera.fx, tv.camera.fy, tv.camera.cx, tv.camera.cy, tv.camera.width,
+                tv.camera.height) == (jv.camera.fx, jv.camera.fy, jv.camera.cx, jv.camera.cy,
+                                      jv.camera.width, jv.camera.height), line
+        assert (tv.undistortion_map is None) == (jv.undistortion_map is None), line
+        if tv.undistortion_map is not None:
+            np.testing.assert_allclose(tv.undistortion_map, jv.undistortion_map,
+                                       atol=1e-5, rtol=0, err_msg=line)
         else:
-            with pytest.raises(NotImplementedError):
-                tds.load_tum_dataset(data)
+            assert tv.camera == cam, line
+    for line in ("kannala " + base + " 0.1 0", base + " 0.1 0 0"):
+        with open(os.path.join(data, "calibration.txt"), "w") as f:
+            f.write(line + "\n")
+        with pytest.raises(ValueError):
+            tds.load_tum_dataset(data)
+        with pytest.raises(ValueError):
+            jds.load_tum_dataset(data)
 
 
 def test_cuda_device_without_cuda_fails(tmp_path):
