@@ -10,8 +10,10 @@ The port covers the main path with loop detection off: preprocessing
 (with the bilateral depth filter as a CUDA kernel), the image pyramid,
 coarse-to-fine pairwise tracking against the base keyframe, the keyframe
 store and surfel map, the alternating keyframe bundle adjustment (with the
-image gather as a CUDA kernel), trajectory deformation, the point-cloud
-export, and the front end and CLI that drive them. Loop closure and the
+image gather as a CUDA kernel), the PCG bundle adjustment, self-calibration
+of the camera intrinsics and the depth deformation, trajectory
+deformation, the point-cloud export, and the front end and CLI that drive
+them, plus the generic LM optimizer (``utils/lm.py``). Loop closure and the
 other later slices are refused with ``NotImplementedError`` where a
 configuration asks for them.
 

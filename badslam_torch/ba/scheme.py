@@ -17,9 +17,15 @@ map ops run on the prefix [0, count + room) of the surfel map, with
 the most surfels this call can create: entries beyond are invalid, so the
 result is that of the whole capacity.
 
-Not here: the multi-device branches, the staged profiling path, the
-pow-2 keyframe and surfel buckets (they bound XLA recompiles), and the
-intrinsics step (self-calibration is a later slice).
+With intrinsics optimization (self-calibration) the JAX package leaves
+its fused program for its host loop: every one of the `max_iterations`
+iterations runs (no early exit) and is followed by the intrinsics step
+(``optimize_intrinsics_step``), which updates the camera and the depth
+deformation and re-derives the keyframes' planes; the port does the same.
+The PCG solver (``ba/pcg.py``) works on this same state.
+
+Not here: the multi-device branches, the staged profiling path and the
+pow-2 keyframe and surfel buckets (they bound XLA recompiles).
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ from badslam_torch.ba.geometry_opt import (
     _position_step,
     update_activation_and_normals,
 )
-from badslam_torch.ba.intrinsics_opt import empty_depth_params
+from badslam_torch.ba.intrinsics_opt import empty_depth_params, optimize_intrinsics
 from badslam_torch.ba.pose_opt import optimize_keyframe_poses
 from badslam_torch.config import BadSlamConfig
+from badslam_torch.cuda_timing import Spans
 from badslam_torch.geometry import se3
 from badslam_torch.mapping import keyframes as kfs
 from badslam_torch.mapping import surfels as sf
@@ -63,13 +70,21 @@ class DirectBA:
                                        capacity=self.config.keyframe_bucket_base)
         self.ba_iteration_count = 0
         self.last_ba_iteration_count = -1
-        # Depth-deformation parameters (identity; self-calibration is a
-        # later slice).
+        # Depth-deformation parameters (DepthParameters analog), identity
+        # until self-calibration updates them.
         self.depth_params = empty_depth_params(
             cam.height, cam.width, self.config.sparse_surfel_cell_size,
             self.device)
-        # Iterations run by each bundle_adjustment call (diagnostics).
+        # Set when self-calibration changed `cam`; the front end refreshes
+        # its cameras and clears it.
+        self.intrinsics_updated = False
+        # Diagnostics: iterations run by each BA call (alternating or PCG),
+        # the CG steps of each PCG outer iteration, and the elapsed time of
+        # each intrinsics step and each PCG outer iteration.
         self.iterations_run = []
+        self.cg_steps = []
+        self.intrinsics_spans = Spans(self.device)
+        self.pcg_spans = Spans(self.device)
 
     # ------------------------------------------------------------------
 
@@ -147,6 +162,33 @@ class DirectBA:
         self.surfels = sf.write_back(self.surfels, view)
 
     # ------------------------------------------------------------------
+    # Intrinsics / self-calibration
+    # ------------------------------------------------------------------
+
+    def _intrinsics_step(self, smap, optimize_depth: bool, optimize_color: bool) -> None:
+        ks = self.keyframes
+        c = self.config
+        with self.intrinsics_spans.span(), record_function("ba/intrinsics"):
+            self.cam, self.depth_params = optimize_intrinsics(
+                smap, self.cam, ks.stack(), ks.stack_raw(), self.depth_params,
+                baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
+                optimize_depth=optimize_depth, optimize_color=optimize_color)
+            if optimize_depth:
+                ks.recalibrate(self.cam, self.depth_params.a,
+                               self.depth_params.cfactor, c.sparse_surfel_cell_size)
+        self.intrinsics_updated = True
+
+    def optimize_intrinsics_step(self, optimize_depth_intrinsics: bool = True,
+                                 optimize_color_intrinsics: bool = False) -> None:
+        """One Schur-complement intrinsics step over the valid keyframes and
+        the map: updates `cam` and `depth_params` and re-derives the
+        keyframes' calibrated planes when the depth intrinsics moved."""
+        if self.keyframes.count == 0:
+            return
+        self._intrinsics_step(self._working_map(0), optimize_depth_intrinsics,
+                              optimize_color_intrinsics)
+
+    # ------------------------------------------------------------------
     # The alternating BA scheme
     # ------------------------------------------------------------------
 
@@ -201,8 +243,7 @@ class DirectBA:
                     use_depth=c.use_geometric_residuals,
                     use_descriptor=c.use_photometric_residuals,
                     max_iterations=30)
-            ks.q[:k] = torch.where(participating[:, None], result.q, ks.q[:k])
-            ks.t[:k] = torch.where(participating[:, None], result.t, ks.t[:k])
+            ks.set_poses(result.q, result.t, participating)
             activation = torch.where(
                 participating, torch.where(result.moved, ACTIVE, INACTIVE),
                 activation)
@@ -223,6 +264,11 @@ class DirectBA:
         stopping early when no keyframe is ACTIVE. Returns the number of
         iterations run.
 
+        With `optimize_depth_intrinsics` / `optimize_color_intrinsics` every
+        iteration runs and is followed by the intrinsics step (the JAX
+        package's host loop), each system gated by its residual kind
+        (use_geometric_residuals / use_photometric_residuals).
+
         `activate_all` (default: config.disable_deactivation without a
         window) re-activates every valid keyframe at the start of each
         iteration, the reference's default (bad_slam.cc:268-269 ->
@@ -234,10 +280,7 @@ class DirectBA:
         `increase_ba_iteration_count` false (the parallel-BA drain) the
         scheme-end tasks of the previous epoch run first when the epoch has
         changed, and none run at the end."""
-        if optimize_depth_intrinsics or optimize_color_intrinsics:
-            raise NotImplementedError(
-                "badslam_torch: intrinsics optimization comes with the "
-                "self-calibration slice")
+        c = self.config
         ks = self.keyframes
         k = ks.count
         if k == 0:
@@ -265,8 +308,9 @@ class DirectBA:
             # The early-exit test runs before the first iteration; with the
             # activate-all window every valid keyframe enters it active.
             ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
+        intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
         iterations = 0
-        while iterations < max_iterations and (fixed_window or bool(
+        while iterations < max_iterations and (fixed_window or intrinsics or bool(
                 (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
             if fixed_window:
                 ks.set_activation_window(*active_keyframe_window)
@@ -274,6 +318,10 @@ class DirectBA:
             smap = self._iteration(smap, activate_all, optimize_geometry,
                                    do_surfel_updates, optimize_poses)
             iterations += 1
+            if intrinsics:
+                self._intrinsics_step(
+                    smap, optimize_depth_intrinsics and c.use_geometric_residuals,
+                    optimize_color_intrinsics and c.use_photometric_residuals)
 
         if increase_ba_iteration_count:
             smap = self._scheme_end_tasks(smap, do_surfel_updates)

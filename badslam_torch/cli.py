@@ -4,12 +4,19 @@ Run as
 
     python -m badslam_torch <dataset_dir> --device cuda \\
         --enable_loop_detection false --export_point_cloud map.ply \\
-        [--final_ba] [--save_state s.npz | --load_state s.npz]
+        [--final_ba] [--save_state s.npz | --load_state s.npz] \\
+        [--optimize_intrinsics true --export_calibration calib] \\
+        [--use_pcg true --parallel_ba false]
 
 The flags mirror ``badslam_tpu.cli``: every ``BadSlamConfig`` field is a
 flag of the same name, type and default. ``--device`` picks the device
 (default ``cuda``; there is no fallback to the CPU when CUDA is missing).
-Flags and settings of later slices are refused with NotImplementedError.
+``--optimize_intrinsics true`` self-calibrates the camera and the depth
+deformation during BA; ``--use_pcg true`` runs the PCG solver for the
+keyframe BA (with ``--parallel_ba false``; with parallel BA it warns and
+runs the alternating solver) and for ``--final_ba``. Loop detection, live
+input and the viewer are refused with NotImplementedError, naming the
+later slice that brings them.
 """
 
 from __future__ import annotations
@@ -73,11 +80,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export_frame_times", default=None,
                    help="write per-frame times (ms; CUDA events on a GPU), the "
                         "keyframe frames, the frames that drained queued BA "
-                        "iterations, the iterations of each BA call, the "
-                        "final keyframe and surfel counts and, where they "
-                        "ran, the seconds of the final BA (and its calls' "
-                        "iterations), of --load_state and of --save_state "
-                        "as JSON to this path")
+                        "iterations, the keyframe frames that self-"
+                        "calibrated, the iterations of each BA call, the CG "
+                        "steps of each PCG outer iteration, the ms of each "
+                        "intrinsics step and PCG outer iteration, the final "
+                        "keyframe and surfel counts and, where they ran, the "
+                        "seconds of the final BA (and its calls' iterations), "
+                        "of --load_state and of --save_state as JSON to this "
+                        "path")
     p.add_argument("--profile", default=None,
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
@@ -178,6 +188,12 @@ def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
 
 
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """What `main` does; returns the BadSlam after its run and exports."""
     import torch
 
     args = build_parser().parse_args(argv)
@@ -245,7 +261,11 @@ def main(argv=None) -> int:
                        "frame_ms": [[i, ms] for i, ms in slam.frame_times_ms],
                        "keyframe_frames": slam.keyframe_frames,
                        "ba_drain_frames": slam.ba_drain_frames,
+                       "self_calibration_frames": slam.self_calibration_frames,
                        "ba_iterations": ba.iterations_run,
+                       "cg_steps": ba.cg_steps,
+                       "intrinsics_step_ms": ba.intrinsics_spans.ms(),
+                       "pcg_iteration_ms": ba.pcg_spans.ms(),
                        "keyframes": ba.keyframes.live_count,
                        "surfels": ba.surfel_count, **timings}, f)
     if not args.quiet:
@@ -253,7 +273,7 @@ def main(argv=None) -> int:
         if ms:
             print(f"{len(slam.frame_times_ms)} frames on {device}, median "
                   f"{ms[len(ms) // 2]:.2f} ms per frame after the first")
-    return 0
+    return slam
 
 
 if __name__ == "__main__":

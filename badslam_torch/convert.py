@@ -5,7 +5,8 @@ depth-deformation model, the keyframes and the surfel map. These helpers
 turn the JAX package's values, read out as numpy arrays or host numbers,
 into the port's types on an explicit device, so that tests can feed both
 packages the same base keyframe, the same depth parameters, and the same
-map and keyframes for one BA step.
+map and keyframes for one BA step, and the same camera and depth
+parameters for one PCG or intrinsics step.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from badslam_torch.ba.intrinsics_opt import DepthParams
 from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.geometry.se3 import SE3
 from badslam_torch.mapping.keyframes import KeyframeStack, KeyframeStore
@@ -35,9 +37,9 @@ def camera_from_numpy(cam) -> PinholeCamera:
                          height=int(cam.height))
 
 
-def depth_params_from_numpy(a, cfactor, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depth-deformation parameters: (a [] f32, cfactor [Hc, Wc] f32)."""
-    return _tensor(a, device), _tensor(cfactor, device)
+def depth_params_from_numpy(a, cfactor, device) -> DepthParams:
+    """Depth-deformation parameters: DepthParams(a [] f32, cfactor [Hc, Wc] f32)."""
+    return DepthParams(_tensor(a, device), _tensor(cfactor, device))
 
 
 def pyramid_from_numpy(levels: Sequence, device) -> Tuple[FramePyramidLevel, ...]:

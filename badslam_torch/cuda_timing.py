@@ -8,14 +8,50 @@ Two numbers per function, both on the card's clock:
 * ``call_ms``: the latency a caller sees, host-side launch work included:
   the median of `runs` eager calls, each between two events.
 
-Both need CUDA and raise without it.
+Both need CUDA and raise without it. ``Spans`` records the elapsed time of
+repeated spans of work inside a run on either device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import time
 
 import torch
+
+
+class Spans:
+    """Elapsed milliseconds of repeated spans of work on one device: a pair
+    of CUDA events per span on the card, resolved only when `ms` is read
+    (recording adds no synchronization), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device | str):
+        self.cuda = torch.device(device).type == "cuda"
+        self._marks = []
+
+    @contextlib.contextmanager
+    def span(self):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._marks.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._marks.append(1000.0 * (time.perf_counter() - t0))
+
+    def ms(self) -> list:
+        out = []
+        for mark in self._marks:
+            if isinstance(mark, tuple):
+                mark[1].synchronize()
+                mark = mark[0].elapsed_time(mark[1])
+            out.append(mark)
+        return out
 
 
 def _require_cuda() -> None:

@@ -11,12 +11,16 @@ alternating bundle adjustment: with ``parallel_ba`` (the default) two
 iterations at once and the rest queued, drained two per frame (the
 reference's BA thread), or, over a steady run between keyframes when
 nothing paces the loop, once after the run, as the JAX package's fused
-chunk does; after every BA call the whole trajectory is deformed along
-with the keyframes. Frames of a distorted source are
-remapped to the loader's pinhole camera, median-filtered when asked, or
-downscaled to an input pyramid level first; after the frame loop,
-``final_bundle_adjustment`` runs the offline final BA over sliding
-keyframe windows and then all keyframes.
+chunk does; with ``use_pcg`` and sequential BA the PCG solver instead.
+With ``optimize_intrinsics`` the keyframe's BA call also self-calibrates
+the camera and the depth deformation (from 10 keyframes on, at every call
+up to 20, then every ``intrinsics_optimization_interval``-th), and the
+next frames are preprocessed and tracked with the updated camera. After
+every BA call the whole trajectory is deformed along with the keyframes.
+Frames of a distorted source are remapped to the loader's pinhole camera,
+median-filtered when asked, or downscaled to an input pyramid level first;
+after the frame loop, ``final_bundle_adjustment`` runs the offline final
+BA over sliding keyframe windows and then all keyframes, or one PCG pass.
 
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from badslam_torch.ba.pcg import pcg_bundle_adjustment
 from badslam_torch.ba.scheme import DirectBA
 from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
@@ -71,12 +76,6 @@ def check_supported(config: BadSlamConfig) -> None:
         out.append("input pyramid levels cannot be combined with the median "
                    "filter (simultaneous downscaling and median filtering of "
                    "depth maps is not implemented, as in the reference)")
-    if config.optimize_intrinsics:
-        out.append("optimize_intrinsics (self-calibration) comes with the "
-                   "self-calibration slice")
-    if config.use_pcg:
-        out.append("use_pcg (the PCG BA solver) comes with the PCG slice; the "
-                   "alternating solver runs without it")
     if out:
         raise NotImplementedError("badslam_torch: " + "; ".join(out))
 
@@ -164,12 +163,15 @@ class BadSlam:
         # frame (the reference's BA-thread queue, bad_slam.h:301-325).
         self.queued_ba_iterations = 0
         self.bundle_adjustment_counter = 0
+        self._warned_pcg_parallel = False
         # (frame index, milliseconds) of each frame's process_frame call, on
         # the device's clock for CUDA (filled in at the end of run()), the
         # frames that were keyframes and those that drained queued BA.
         self.frame_times_ms: List[Tuple[int, float]] = []
         self.keyframe_frames: List[int] = []
         self.ba_drain_frames: List[int] = []
+        # The keyframe frames whose BA call passed the self-calibration gate.
+        self.self_calibration_frames: List[int] = []
 
     # ------------------------------------------------------------------
 
@@ -281,24 +283,63 @@ class BadSlam:
             self._keyframe_budget_guard()
             self.create_keyframe(frame_index, frame, pyramid, global_T_frame)
             if c.max_num_ba_iterations_per_keyframe > 0 and not is_first:
+                # Self-calibration gate (bad_slam.cc:238-246): not before 10
+                # keyframes, every BA run up to 20, then every
+                # intrinsics_optimization_interval-th, counted before this run.
+                kf_count = self.direct_ba.keyframes.count
+                opt_intr = (c.optimize_intrinsics and kf_count >= 10
+                            and (kf_count <= 20 or self.bundle_adjustment_counter
+                                 % c.intrinsics_optimization_interval == 0))
                 self.bundle_adjustment_counter += 1
+                if opt_intr:
+                    self.self_calibration_frames.append(frame_index)
                 with record_function("ba"):
                     old = self._remember_keyframe_poses()
-                    if c.parallel_ba:
-                        # Two iterations now, the rest queued.
-                        self.direct_ba.bundle_adjustment(
-                            max_iterations=2,
-                            do_surfel_updates=c.do_surfel_updates)
-                        self.queued_ba_iterations += max(
-                            0, c.max_num_ba_iterations_per_keyframe - 2)
-                    else:
-                        self.direct_ba.bundle_adjustment(
-                            max_iterations=c.max_num_ba_iterations_per_keyframe,
-                            do_surfel_updates=c.do_surfel_updates)
+                    self._keyframe_bundle_adjustment(opt_intr)
                     self._apply_ba_pose_updates(*old)
+                self._refresh_cameras()
                 # BA moved the keyframes: return the deformed pose.
                 return self.frame_pose(frame_index)
         return global_T_frame
+
+    def _keyframe_bundle_adjustment(self, opt_intr: bool) -> None:
+        """The keyframe's BA call: sequential PCG (use_pcg without
+        parallel_ba, bad_slam.cc:485-525), or the alternating solver with
+        two iterations now and the rest queued (parallel_ba) or all of them
+        now. The reference refuses PCG in parallel mode and runs the
+        alternating solver instead (bad_slam.cc:1273-1276)."""
+        c = self.config
+        if c.use_pcg and c.parallel_ba and not self._warned_pcg_parallel:
+            _log.warning("use_pcg is not supported with parallel_ba; using the "
+                         "alternating solver (run with --parallel_ba false for PCG)")
+            self._warned_pcg_parallel = True
+        if c.use_pcg and not c.parallel_ba:
+            pcg_bundle_adjustment(
+                self.direct_ba,
+                max_iterations=min(c.max_num_ba_iterations_per_keyframe, 10),
+                optimize_intrinsics=opt_intr and c.use_geometric_residuals,
+                do_surfel_updates=c.do_surfel_updates)
+            return
+        intrinsics = dict(
+            optimize_depth_intrinsics=opt_intr and c.use_geometric_residuals,
+            optimize_color_intrinsics=opt_intr and c.use_photometric_residuals)
+        if c.parallel_ba:
+            self.direct_ba.bundle_adjustment(
+                max_iterations=2, do_surfel_updates=c.do_surfel_updates, **intrinsics)
+            self.queued_ba_iterations += max(0, c.max_num_ba_iterations_per_keyframe - 2)
+        else:
+            self.direct_ba.bundle_adjustment(
+                max_iterations=c.max_num_ba_iterations_per_keyframe,
+                do_surfel_updates=c.do_surfel_updates, **intrinsics)
+
+    def _refresh_cameras(self) -> None:
+        """After a BA call that self-calibrated: the next frames are
+        preprocessed and tracked with the updated camera."""
+        if self.direct_ba.intrinsics_updated:
+            self.cam = self.direct_ba.cam
+            self.cams_pyramid = tuple(
+                self.cam.pyramid_level(i) for i in range(self.config.num_scales))
+            self.direct_ba.intrinsics_updated = False
 
     def _drain_queued_ba(self, most: int, frame_index: int) -> None:
         """Run up to `most` of the queued BA iterations (one BA call that
@@ -429,16 +470,22 @@ class BadSlam:
                                 window_stride: int = 8) -> None:
         """The offline final BA after the frame loop (main.cc:765-809): 10
         iterations over each window of `window_size` keyframe slots, the
-        windows `window_stride` apart, then 10 over all keyframes; the
-        trajectory is deformed along with the keyframes."""
-        if self.config.use_pcg:
-            raise NotImplementedError(
-                "badslam_torch: the final BA's PCG solver (use_pcg) comes with "
-                "the PCG slice")
+        windows `window_stride` apart, then 10 over all keyframes; with
+        use_pcg instead one PCG pass of 10 outer iterations, self-calibrating
+        with optimize_intrinsics. The trajectory is deformed along with the
+        keyframes. As in the JAX package, the front end's camera stays the
+        one from before the PCG pass (DirectBA holds the pass's camera), so
+        --export_calibration pairs it with the pass's depth deformation."""
         kf_count = self.direct_ba.keyframes.count
         if kf_count == 0:
             return
         old = self._remember_keyframe_poses()
+        if self.config.use_pcg:
+            with record_function("final_ba"):
+                pcg_bundle_adjustment(self.direct_ba, max_iterations=10,
+                                      optimize_intrinsics=self.config.optimize_intrinsics)
+                self._apply_ba_pose_updates(*old)
+            return
         with record_function("final_ba"):
             lo = 0
             while lo < kf_count:

@@ -11,7 +11,9 @@ map):
   * Unprojection of integer pixel indices uses the pixel **center**:
     nx(px) = (px + 0.5 - cx) / fx.
 
-The intrinsics are host floats: nothing on the odometry path optimizes them.
+The intrinsics are host floats. Self-calibration (``ba/intrinsics_opt.py``,
+``ba/pcg.py``) replaces the camera with ``with_intrinsics`` after each of
+its steps, reading its few updated values back from the device once.
 """
 
 from __future__ import annotations
@@ -69,6 +71,10 @@ class PinholeCamera:
     @property
     def cy_inv(self) -> float:
         return -(self.cy - 0.5) / self.fy
+
+    def with_intrinsics(self, fx, fy, cx, cy) -> "PinholeCamera":
+        return PinholeCamera(fx=float(fx), fy=float(fy), cx=float(cx),
+                             cy=float(cy), width=self.width, height=self.height)
 
 
 # -- distorted source models (host numpy, float64 where the JAX package is) --

@@ -105,6 +105,12 @@ def load_state(path: str, video, device: torch.device | str = "cuda"):
     if (cam.width, cam.height) != (slam.cam.width, slam.cam.height):
         raise ValueError(f"{path}: snapshot camera {cam.width}x{cam.height} does "
                          f"not match the dataset's {slam.cam.width}x{slam.cam.height}")
+    # The snapshot's intrinsics, which self-calibration may have changed,
+    # replace the dataset's everywhere the camera is held.
+    slam.cam = cam
+    slam.cams_pyramid = tuple(cam.pyramid_level(i) for i in range(config.num_scales))
+    slam.direct_ba.cam = cam
+    slam.direct_ba.keyframes.cam = cam
     dev = slam.device
 
     def tensor(x, dtype=None):

@@ -275,6 +275,37 @@ class KeyframeStore:
                              self.radius2[:k], self.intensity[:k],
                              self.q[:k], self.t[:k], mask[:k])
 
+    def stack_raw(self) -> torch.Tensor:
+        """The raw (pre-deformation) depth of the slots [0, count)."""
+        return self.raw_depth[: self.count]
+
+    def set_poses(self, q: torch.Tensor, t: torch.Tensor, mask: torch.Tensor) -> None:
+        """Masked pose update of the slots [0, count) from rows [0, count)
+        of q, t and mask."""
+        k = self.count
+        m = mask[:k, None]
+        self.q[:k] = torch.where(m, q[:k], self.q[:k])
+        self.t[:k] = torch.where(m, t[:k], self.t[:k])
+
+    def recalibrate(self, cam, a, cfactor, cell_size: int) -> None:
+        """Re-derive the calibrated depth, normals, radii and depth range of
+        every valid keyframe from its raw depth after a self-calibration
+        update (the JAX package's KeyframeStore.recalibrate)."""
+        from badslam_torch.ba.intrinsics_opt import recalibrate_planes
+
+        ids = torch.nonzero(self.valid[: self.count]).flatten()
+        if ids.numel() == 0:
+            return
+        depth, nx, ny, radius2 = recalibrate_planes(
+            cam, self.raw_depth[ids], a, cfactor, cell_size)
+        self.depth[ids] = depth
+        self.nx[ids] = nx
+        self.ny[ids] = ny
+        self.radius2[ids] = radius2
+        v = depth > 0
+        self.min_depth[ids] = torch.where(v, depth, math.inf).amin(dim=(1, 2))
+        self.max_depth[ids] = torch.where(v, depth, 0.0).amax(dim=(1, 2))
+
     def active_mask(self, include_covisible: bool = True) -> torch.Tensor:
         return active_mask(self.valid, self.activation, include_covisible)
 

@@ -64,10 +64,30 @@ failure, so any failure exits non-zero before the last line is printed):
 11. The card against the CPU on the new path: a 96x72 radtan sequence with
    two median passes, BA and the final BA on both devices (poses to 1e-4,
    surfel counts within 1%).
-12. The nvidia-smi line again, one JSON line of the kernels, then the last
+12. Self-calibration (path a): 24 VGA frames rendered with the true camera
+   while calibration.txt holds a perturbed one (fx x 1.005, cx + 1 px,
+   cy - 1 px), a keyframe every 2 frames (12 keyframes: three BA calls
+   pass the gate of >= 10), parallel BA with 10 iterations per keyframe and
+   --optimize_intrinsics. Checks the intrinsics step ran, the camera
+   changed, poses and the calibration are finite, K2 launched, the ATE is
+   below its limit; prints the intrinsics error before and after, the ATE,
+   per-frame medians (self-calibrating keyframe frames apart), ms per
+   intrinsics step, peak memory and launches.
+13. PCG (paths b + c): the same sequence with --use_pcg true --parallel_ba
+   false and --final_ba. Checks PCG outer iterations and CG steps ran,
+   finite poses and calibration, K2 launched, the ATE; prints the CG steps
+   per outer iteration, ms per outer iteration (at keyframes and in the
+   final pass), the final pass's seconds, peak memory, launches, and the
+   device time, K2 launches and kernel launches of one matrix-free product
+   A p at the run's end (all keyframes).
+14. The card against the CPU on the new paths: a 96x72, 22-frame
+   miscalibrated sequence (11 keyframes) through paths (a) and (b) on both
+   devices: poses to 1e-4, calibrated fx..cy to 1e-5 relative, surfel
+   counts within 1%.
+15. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
 
-Each of phases 8-11 prints the card's name and power limit beside its
+Each of phases 8-14 prints the card's name and power limit beside its
 numbers.
 """
 
@@ -85,9 +105,11 @@ import numpy as np
 import torch
 
 from badslam_torch import cli, probe_gather, synthetic
+from badslam_torch.ba.pcg import PCGSystem
 from badslam_torch.cuda_timing import call_ms, device_ms
 from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.io.dataset import load_tum_dataset, load_tum_trajectory
+from badslam_torch.io.state import load_calibration
 from badslam_torch.ops import interp, kernels
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
 from badslam_torch.ops.preprocess import (
@@ -151,6 +173,40 @@ SMALL_INPUT_FLAGS = ["--num_scales", "3", "--keyframe_interval", "3",
                      "--max_surfel_count", str(1 << 13),
                      "--enable_loop_detection", "false", "--fps_restriction", "0",
                      "--quiet"]
+# Self-calibration: 24 VGA frames, a keyframe every 2 (12 keyframes, so
+# three BA calls pass the gate of >= 10 keyframes), rendered with the true
+# camera while calibration.txt holds fx x 1.005, cx + 1 px, cy - 1 px.
+CALIB_FRAMES = 24
+CALIB_PERTURBATION = (1.005, 1.0, -1.0)
+CALIB_FLAGS = ["--num_scales", "5", "--keyframe_interval", "2",
+               "--max_num_ba_iterations_per_keyframe", "10",
+               "--optimize_intrinsics", "true",
+               "--enable_loop_detection", "false", "--fps_restriction", "0",
+               "--quiet"]
+PCG_FLAGS = CALIB_FLAGS + ["--use_pcg", "true", "--parallel_ba", "false", "--final_ba"]
+# ATE limits of the two self-calibrating VGA runs; see
+# `reference_ate_of_chip_smoke_calibration` in
+# tests/test_torch_calibration_slice.py for the JAX CLI's own ATE on this
+# sequence (on the CPU, at a reduced size).
+CALIB_ATE_LIMIT_M = 3e-3
+PCG_ATE_LIMIT_M = 3e-3
+# The card against the CPU on the new paths: 96x72, 22 frames (11
+# keyframes), 2 alternating iterations or 1 PCG outer iteration per
+# keyframe; poses to 1e-4, the calibrated fx..cy to 1e-5 relative. The
+# PCG path's CG stops can differ between the two (its stopping rule is
+# decided by rounding where the residual norm is not monotone), which
+# on the CPU against the JAX package moves poses by up to 4.5e-4 m
+# (tests/test_torch_calibration_slice.py); here the card and the CPU
+# stayed within 3.6e-5 m and 3.5e-6 relative on an H100 (PERF.md).
+SMALL_CALIB_FRAMES = 22
+SMALL_CALIB_FLAGS = ["--num_scales", "3", "--keyframe_interval", "2",
+                     "--max_num_ba_iterations_per_keyframe", "2",
+                     "--optimize_intrinsics", "true", "--max_surfel_count", str(1 << 14),
+                     "--enable_loop_detection", "false", "--fps_restriction", "0",
+                     "--quiet"]
+SMALL_PCG_FLAGS = SMALL_CALIB_FLAGS + ["--use_pcg", "true", "--parallel_ba", "false",
+                                       "--max_num_ba_iterations_per_keyframe", "1"]
+CALIB_CAM_RTOL = 1e-5
 # The card's name and power limit, as nvidia-smi gives them (phase_device).
 SMI = ""
 
@@ -446,22 +502,26 @@ def _ply_points(path: str) -> int:
     raise AssertionError(f"{path}: no vertex count in the PLY header")
 
 
-def _run(data, workdir, tag, device, flags):
-    """cli.main on one device; returns (poses, q, t, summary, launches)."""
+def _run_slam(data, workdir, tag, device, flags):
+    """The CLI (badslam_torch.cli.run, what cli.main runs) on one device;
+    returns (BadSlam, poses, q, t, summary, launches)."""
     poses_path = os.path.join(workdir, f"{tag}_poses.txt")
     times_path = os.path.join(workdir, f"{tag}_times.json")
     kernels.reset_launch_counts()
-    rc = cli.main([data, "--device", device, *flags, "--export_poses", poses_path,
-                   "--export_frame_times", times_path])
+    slam = cli.run([data, "--device", device, *flags, "--export_poses", poses_path,
+                    "--export_frame_times", times_path])
     launches = dict(kernels.launch_counts)
-    if rc != 0:
-        raise RuntimeError(f"badslam_torch.cli.main ({tag}) returned {rc}")
     poses, q, t = _poses(poses_path)
     if not (np.all(np.isfinite(q)) and np.all(np.isfinite(t))):
         raise AssertionError(f"{tag}: non-finite poses")
     with open(times_path) as f:
         summary = json.load(f)
-    return poses, q, t, summary, launches
+    return slam, poses, q, t, summary, launches
+
+
+def _run(data, workdir, tag, device, flags):
+    """cli.main on one device; returns (poses, q, t, summary, launches)."""
+    return _run_slam(data, workdir, tag, device, flags)[1:]
 
 
 def _write(workdir, name, width, height, frames, seed, planes=6, camera=None,
@@ -476,12 +536,16 @@ def _write(workdir, name, width, height, frames, seed, planes=6, camera=None,
 
 
 def _frame_medians(summary) -> str:
-    """Per-frame medians: all frames after the first, keyframe (BA) frames,
-    frames that drained queued BA iterations, the other frames."""
+    """Per-frame medians: all frames after the first, keyframe (BA) frames
+    (those whose BA call self-calibrated apart), frames that drained queued
+    BA iterations, the other frames."""
     frame_ms = dict(summary["frame_ms"])
     kf_set, drain_set = set(summary["keyframe_frames"]), set(summary["ba_drain_frames"])
+    calib_set = set(summary["self_calibration_frames"])
     later = [frame_ms[i] for i in sorted(frame_ms)[1:]]
-    groups = {"keyframe": [frame_ms[i] for i in summary["keyframe_frames"][1:]],
+    groups = {"keyframe": [frame_ms[i] for i in summary["keyframe_frames"][1:]
+                           if i not in calib_set],
+              "self-calibrating keyframe": [frame_ms[i] for i in sorted(calib_set)],
               "BA-drain": [frame_ms[i] for i in drain_set - kf_set],
               "other": [frame_ms[i] for i in sorted(frame_ms)[1:]
                         if i not in kf_set and i not in drain_set]}
@@ -714,6 +778,182 @@ def phase_cpu_input(workdir: str) -> None:
         raise AssertionError("CPU and CUDA disagree on the distorted sequence")
 
 
+def write_miscalibrated_sequence(workdir: str, name: str, width: int, height: int,
+                                 frames: int, seed: int):
+    """A plane-scene sequence rendered with the true camera whose
+    calibration.txt then holds the perturbed one (CALIB_PERTURBATION);
+    returns (path, ground truth, true camera)."""
+    cam = synthetic.default_camera(width, height)
+    data, gt = _write(workdir, name, width, height, frames, seed, camera=cam)
+    fx, dcx, dcy = CALIB_PERTURBATION
+    with open(os.path.join(data, "calibration.txt"), "w") as f:
+        f.write(f"{cam.fx * fx} {cam.fy} {cam.cx + dcx} {cam.cy + dcy}\n")
+    return data, gt, cam
+
+
+def _intrinsics_error(values, cam) -> str:
+    fx, fy, cx, cy = values
+    return (f"fx {(fx - cam.fx) / cam.fx:+.3e} rel, fy {(fy - cam.fy) / cam.fy:+.3e} rel, "
+            f"cx {cx - cam.cx:+.3f} px, cy {cy - cam.cy:+.3f} px")
+
+
+def _calibrated(workdir: str, tag: str, data: str, flags, device="cuda"):
+    """A self-calibrating run through the CLI with --export_calibration;
+    returns (BadSlam, poses, q, t, summary, launches, (fx, fy, cx, cy), a,
+    cfactor) and checks that the calibration is finite."""
+    prefix = os.path.join(workdir, f"{tag}_calibration")
+    out = _run_slam(data, workdir, tag, device, flags + ["--export_calibration", prefix])
+    (fx, fy, cx, cy, _, _), a, cfactor = load_calibration(prefix)
+    if not (np.all(np.isfinite([fx, fy, cx, cy, a])) and np.all(np.isfinite(cfactor))):
+        raise AssertionError(f"{tag}: non-finite calibration")
+    return out + ((fx, fy, cx, cy), a, cfactor)
+
+
+def _ms_summary(values) -> str:
+    if not values:
+        return "none"
+    return (f"median {statistics.median(values):.2f} ms, min {min(values):.2f}, "
+            f"max {max(values):.2f} ({len(values)})")
+
+
+def phase_calibration(workdir: str) -> tuple:
+    """Path (a): the default parallel alternating BA self-calibrating at VGA."""
+    data, gt, cam = write_miscalibrated_sequence(workdir, "calibration", WIDTH, HEIGHT,
+                                                 CALIB_FRAMES, 7)
+    perturbed = (cam.fx * CALIB_PERTURBATION[0], cam.fy, cam.cx + CALIB_PERTURBATION[1],
+                 cam.cy + CALIB_PERTURBATION[2])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, poses, q, t, summary, launches, after, a, cfactor = _calibrated(
+        workdir, "calibration", data, CALIB_FLAGS)
+    wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ate = synthetic.ate_rmse(poses, gt)
+    steps = summary["intrinsics_step_ms"]
+    print(f"self-calibration (path a): {CALIB_FRAMES} frames at {WIDTH}x{HEIGHT} on cuda, "
+          f"parallel BA, in {wall:.1f} s wall; ATE {ate:.3e} m (limit {CALIB_ATE_LIMIT_M}); "
+          f"intrinsics error before {_intrinsics_error(perturbed, cam)}, after "
+          f"{_intrinsics_error(after, cam)}; a {a:+.3e}, cfactor in "
+          f"[{cfactor.min():+.3e}, {cfactor.max():+.3e}]; {_frame_medians(summary)}; "
+          f"intrinsics steps {len(steps)}, {_ms_summary(steps)} per step; self-calibrating "
+          f"keyframe frames {summary['self_calibration_frames']}; BA iterations per call "
+          f"{summary['ba_iterations']}; keyframes {summary['keyframes']}; surfels "
+          f"{summary['surfels']}; peak memory {peak_mb:.1f} MiB; launches {launches} "
+          f"({SMI})")
+    checks = {
+        "the intrinsics step ran": len(steps) > 0,
+        "the camera changed": tuple(after) != perturbed,
+        f"{CALIB_FRAMES} poses": len(poses) == CALIB_FRAMES,
+        "K2 launched": launches[kernels.GATHER] > 0,
+        "ATE below the limit": ate < CALIB_ATE_LIMIT_M,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"self-calibration checks failed: {failed}")
+    return data, gt, cam
+
+
+def _apply_timing(ba) -> str:
+    """One matrix-free product A p of the PCG system at the run's end (all
+    keyframes, the map's live prefix, intrinsics unknowns on): its time
+    between CUDA events (median of 10 eager calls: the product copies small
+    host constants to the card, which a CUDA graph cannot capture), its K2
+    launches and its device kernel launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ks = ba.keyframes
+    smap = ba._working_map(0)
+    smap = smap._replace(active=smap.valid)
+    c = ba.config
+    system = PCGSystem(smap, ba.cam, ks.stack(), ks.stack_raw(), ba.depth_params,
+                       baseline_fx=c.baseline_fx, use_depth=c.use_geometric_residuals,
+                       use_descriptor=c.use_photometric_residuals, gauge_kf=0,
+                       cell_size=c.sparse_surfel_cell_size, optimize_intrinsics=True)
+    p, _ = system.rhs_and_diagonal()
+    kernels.reset_launch_counts()
+    system.apply(p)
+    torch.cuda.synchronize()
+    k2 = kernels.launch_counts[kernels.GATHER]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        system.apply(p)
+        torch.cuda.synchronize()
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and not e.is_user_annotation)
+    ms = call_ms(lambda: system.apply(p), runs=10)
+    return (f"A p at K={ks.count} keyframes, N={smap.capacity} surfels: {ms:.3f} ms "
+            f"between CUDA events (median of 10 eager calls), {k2} K2 launches and "
+            f"{launched} device kernel launches per product")
+
+
+def phase_pcg(workdir: str, data: str, gt, cam) -> None:
+    """Paths (b) and (c): sequential PCG BA self-calibrating at each keyframe
+    the gate lets through, then the final BA's PCG pass."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slam, poses, q, t, summary, launches, after, a, cfactor = _calibrated(
+        workdir, "pcg", data, PCG_FLAGS)
+    wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ate = synthetic.ate_rmse(poses, gt)
+    cg, outer_ms = summary["cg_steps"], summary["pcg_iteration_ms"]
+    final_n = summary["final_ba_iterations"][0] if summary["final_ba_iterations"] else 0
+    ba = slam.direct_ba
+    calibrated = (ba.cam.fx, ba.cam.fy, ba.cam.cx, ba.cam.cy)
+    print(f"PCG (paths b + c): {CALIB_FRAMES} frames at {WIDTH}x{HEIGHT} on cuda, "
+          f"sequential PCG BA with self-calibration and the final PCG pass, in {wall:.1f} s "
+          f"wall; ATE {ate:.3e} m (limit {PCG_ATE_LIMIT_M}); intrinsics error after the "
+          f"frames (exported) {_intrinsics_error(after, cam)}, after the final pass "
+          f"{_intrinsics_error(calibrated, cam)}; {_frame_medians(summary)}; PCG outer "
+          f"iterations {len(cg)} ({final_n} in the final pass), CG steps per outer "
+          f"iteration {cg}; ms per outer iteration {_ms_summary(outer_ms[:len(outer_ms) - final_n])} "
+          f"at keyframes, {_ms_summary(outer_ms[len(outer_ms) - final_n:])} in the final "
+          f"pass; final PCG pass {summary['final_ba_s']:.2f} s; keyframes "
+          f"{summary['keyframes']}; surfels {summary['surfels']}; peak memory "
+          f"{peak_mb:.1f} MiB; launches {launches} ({SMI})")
+    print(f"PCG: {_apply_timing(ba)} ({SMI})")
+    checks = {
+        "PCG outer iterations ran": len(cg) > final_n > 0,
+        "CG steps taken": all(s > 0 for s in cg),
+        "the camera changed": calibrated != (cam.fx * CALIB_PERTURBATION[0], cam.fy,
+                                             cam.cx + CALIB_PERTURBATION[1],
+                                             cam.cy + CALIB_PERTURBATION[2]),
+        f"{CALIB_FRAMES} poses": len(poses) == CALIB_FRAMES,
+        "K2 launched": launches[kernels.GATHER] > 0,
+        "ATE below the limit": ate < PCG_ATE_LIMIT_M,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"PCG checks failed: {failed}")
+
+
+def phase_cpu_calibration(workdir: str) -> None:
+    """Paths (a) and (b) with self-calibration on the card and on the CPU."""
+    small, _, _ = write_miscalibrated_sequence(workdir, "small_calibration", 96, 72,
+                                               SMALL_CALIB_FRAMES, 5)
+    failed = []
+    for path, flags in (("alternating", SMALL_CALIB_FLAGS), ("pcg", SMALL_PCG_FLAGS)):
+        runs = {dev: _calibrated(workdir, f"small_{path}_{dev}", small, flags, dev)
+                for dev in ("cuda", "cpu")}
+        g, c = runs["cuda"], runs["cpu"]
+        dq, dt = float(np.abs(g[2] - c[2]).max()), float(np.abs(g[3] - c[3]).max())
+        ds = abs(g[4]["surfels"] - c[4]["surfels"]) / max(c[4]["surfels"], 1)
+        dcam = float(np.max(np.abs(np.subtract(g[6], c[6])) / np.abs(c[6])))
+        dcf = float(np.abs(g[8] - c[8]).max())
+        pose_atol, cam_rtol = POSE_ATOL, CALIB_CAM_RTOL
+        print(f"cpu vs cuda, 96x72 self-calibration, {path} ({SMALL_CALIB_FRAMES} frames): "
+              f"max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol {pose_atol}); fx..cy max rel "
+              f"diff {dcam:.3e} (rtol {cam_rtol}); a diff {abs(g[7] - c[7]):.3e}, cfactor "
+              f"max diff {dcf:.3e}; surfels cuda {g[4]['surfels']} cpu {c[4]['surfels']} "
+              f"(rel diff {ds:.4f}, limit {SURFEL_RTOL}); CG steps cuda {g[4]['cg_steps']} "
+              f"cpu {c[4]['cg_steps']}; cuda launches {g[5]} ({SMI})")
+        if not (len(g[2]) == len(c[2]) == SMALL_CALIB_FRAMES and dq <= pose_atol
+                and dt <= pose_atol and dcam <= cam_rtol and ds <= SURFEL_RTOL
+                and g[5][kernels.GATHER] > 0):
+            failed.append(path)
+    if failed:
+        raise AssertionError(f"CPU and CUDA disagree on the self-calibrating paths {failed}")
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -746,6 +986,9 @@ def main(argv=None) -> int:
         _phase("pyramid", phase_pyramid, workdir)
         _phase("resume", phase_resume, workdir, data, q_slice, t_slice)
         _phase("cpu_input", phase_cpu_input, workdir)
+        calib_data, calib_gt, calib_cam = _phase("calibration", phase_calibration, workdir)
+        _phase("pcg", phase_pcg, workdir, calib_data, calib_gt, calib_cam)
+        _phase("cpu_calibration", phase_cpu_calibration, workdir)
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
         # K1 and K2 are on the SLAM path: their launches are the slice

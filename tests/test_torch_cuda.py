@@ -268,3 +268,91 @@ def test_undistortion_and_median_cuda_match_cpu(cuda):
     torch.testing.assert_close(dg, dc, atol=0, rtol=0)
     torch.testing.assert_close(mg, mc, atol=0, rtol=0)
     torch.testing.assert_close(cg, cc, atol=1e-5, rtol=0)
+
+
+def _calibration_ba(device):
+    """Four rendered keyframes with their surfels, the camera perturbed
+    (fx x 1.004, cx + 0.5 px, cy - 0.5 px) and the second keyframe off its
+    true pose. The frames are preprocessed on the CPU for either device,
+    so that both start from the same keyframes."""
+    from badslam_torch.ba.scheme import DirectBA
+    from badslam_torch.config import BadSlamConfig
+
+    cam = synthetic.default_camera(128, 96)
+    scene = synthetic.random_plane_scene(np.random.default_rng(17), 4)
+    ba = DirectBA(cam, BadSlamConfig(max_surfel_count=1 << 14),
+                  surfel_capacity=1 << 14, device=device)
+    for i in range(4):
+        gt = synthetic.pose(tx=0.05 * i, ry=0.01 * i, ty=0.02 * (i % 2))
+        depth, inten = synthetic.render_scene(cam, scene, gt)
+        depth_u16 = np.clip(depth * 5000.0, 0, 65535).astype(np.int32)
+        gray = np.clip(inten * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        frame = _preprocess(cam, depth_u16, np.stack([gray] * 3, axis=-1), "cpu")
+        frame = type(frame)(*(None if x is None else x.to(device) for x in frame))
+        init = synthetic.pose(tx=0.054, ry=0.01, ty=0.018) if i == 1 else gt
+        kf = ba.add_keyframe(frame, init, i)
+        ba.create_surfels_for_keyframe(kf, filter_new_surfels=i > 0)
+    ba.cam = cam.with_intrinsics(fx=cam.fx * 1.004, fy=cam.fy, cx=cam.cx + 0.5,
+                                 cy=cam.cy - 0.5)
+    return ba
+
+
+def _cam_list(cam):
+    return [cam.fx, cam.fy, cam.cx, cam.cy]
+
+
+@pytest.mark.cuda
+def test_intrinsics_step_cuda_matches_cpu(cuda):
+    """One self-calibration step (depth and color) on the card against the
+    CPU: the camera 4e-5 relative and cfactor atol 3e-5, the joint-step
+    holds of tests/test_torch_intrinsics.py (the float order of the sums,
+    index_add_'s atomics on the card among them, amplified by the reduced
+    system's conditioning), the K2 gathers launched."""
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        ba = _calibration_ba(device)
+        before = kernels.launch_counts[kernels.GATHER]
+        ba.optimize_intrinsics_step(True, True)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts[kernels.GATHER] > before
+        out[device.type] = ba
+    card, cpu = out["cuda"], out["cpu"]
+    assert _cam_list(card.cam) != _cam_list(_calibration_ba("cpu").cam)
+    np.testing.assert_allclose(_cam_list(card.cam), _cam_list(cpu.cam), rtol=4e-5, atol=0)
+    torch.testing.assert_close(card.depth_params.cfactor.cpu(), cpu.depth_params.cfactor,
+                               atol=3e-5, rtol=0)
+    k = cpu.keyframes.count
+    torch.testing.assert_close(card.keyframes.depth[:k].cpu(), cpu.keyframes.depth[:k],
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_pcg_step_cuda_matches_cpu(cuda):
+    """One PCG outer iteration with self-calibration on the card against the
+    CPU, from the same state: poses and surfel positions atol 1e-5, the
+    camera 1e-5 relative (tests/test_torch_pcg.py's one-step holds against
+    JAX), the CG steps equal, the K2 gathers launched."""
+    from badslam_torch.ba.pcg import pcg_bundle_adjustment_step
+
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        ba = _calibration_ba(device)
+        ks = ba.keyframes
+        before = kernels.launch_counts[kernels.GATHER]
+        res = pcg_bundle_adjustment_step(
+            ba.surfels._replace(active=ba.surfels.valid), ba.cam, ks.stack(),
+            raw_depth=ks.stack_raw(), params=ba.depth_params, max_inner_iterations=10,
+            optimize_intrinsics=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts[kernels.GATHER] > before
+        out[device.type] = res
+    card, cpu = out["cuda"], out["cpu"]
+    assert card.cg_steps == cpu.cg_steps > 0
+    for name in ("q", "t"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name),
+                                   atol=1e-5, rtol=0)
+    v = cpu.smap.valid
+    torch.testing.assert_close(card.smap.pos.cpu()[v], cpu.smap.pos[v], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_cam_list(card.cam), _cam_list(cpu.cam), rtol=1e-5, atol=0)

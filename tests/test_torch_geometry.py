@@ -114,6 +114,8 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.ba.scheme, badslam_torch.probe_gather\n"
         "import badslam_torch.synthetic, badslam_torch.convert\n"
         "import badslam_torch.ops.kernels, badslam_torch.io.state\n"
+        "import badslam_torch.ba.pcg, badslam_torch.ba.intrinsics_opt\n"
+        "import badslam_torch.utils.lm\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"

@@ -194,20 +194,17 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
 
 
 @pytest.mark.parametrize("argv, what", [
-    (["--max_num_ba_iterations_per_keyframe", "10", "--use_pcg", "true"], "PCG"),
     (["--enable_loop_detection", "true"], "loop detection"),
     (["--pyramid_level_for_depth", "1"], "must equal pyramid_level_for_color"),
     (["--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
       "--median_filter_and_densify_iterations", "1"], "median filter"),
-    (["--optimize_intrinsics", "true"], "optimize_intrinsics"),
     (["--export_point_cloud", "x.ply", "--export_viewer", "v"], "map viewer"),
     (["--save_timings", "t.txt"], "timing rows"),
     (["--live_viewer_dir", "v"], "map viewer"),
-    (["--final_ba", "--use_pcg", "true"], "PCG"),
     (["--live", "dir:x"], "live input"),
     (["--autotune"], "tuned variants"),
-], ids=["ba", "loop", "pyramid_level", "median", "intrinsics", "point_cloud",
-        "save_timings", "live_viewer", "final_ba", "live", "autotune"])
+], ids=["loop", "pyramid_level", "median", "point_cloud", "save_timings",
+        "live_viewer", "live", "autotune"])
 def test_later_slices_are_refused(tmp_path, argv, what):
     """What the port still refuses, before it reads the dataset: the later
     slices' settings and flags, and the JAX package's own refusals of the
