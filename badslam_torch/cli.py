@@ -3,7 +3,7 @@
 Run as
 
     python -m badslam_torch <dataset_dir> --device cuda \\
-        --enable_loop_detection false --export_point_cloud map.ply \\
+        --export_point_cloud map.ply \\
         [--final_ba] [--save_state s.npz | --load_state s.npz] \\
         [--optimize_intrinsics true --export_calibration calib] \\
         [--use_pcg true --parallel_ba false]
@@ -14,8 +14,12 @@ flag of the same name, type and default. ``--device`` picks the device
 ``--optimize_intrinsics true`` self-calibrates the camera and the depth
 deformation during BA; ``--use_pcg true`` runs the PCG solver for the
 keyframe BA (with ``--parallel_ba false``; with parallel BA it warns and
-runs the alternating solver) and for ``--final_ba``. Loop detection, live
-input and the viewer are refused with NotImplementedError, naming the
+runs the alternating solver) and for ``--final_ba``. Loop detection is on
+by default (``--enable_loop_detection``, on a worker thread with
+``--parallel_loop_detection``; the ``--loop_detection_*`` flags set the
+detection images, their rate and a vocabulary file), and closures still in
+flight are applied before the final BA. Live input, the viewer and
+``--n_devices`` above 1 are refused with NotImplementedError, naming the
 later slice that brings them.
 """
 
@@ -81,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-frame times (ms; CUDA events on a GPU), the "
                         "keyframe frames, the frames that drained queued BA "
                         "iterations, the keyframe frames that self-"
-                        "calibrated, the iterations of each BA call, the CG "
+                        "calibrated, the loop closures and closure attempts, "
+                        "the iterations of each BA call, the CG "
                         "steps of each PCG outer iteration, the ms of each "
                         "intrinsics step and PCG outer iteration, the final "
                         "keyframe and surfel counts and, where they ran, the "
@@ -134,7 +139,8 @@ def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
     """slam.run() under torch.profiler; writes the key_averages table and a
     JSON summary: per span (upload, preprocess, pyramid, track, duel,
     gn_iteration/width<W>, ba, ba_drain, the BA stages ba/<stage>,
-    trajectory_deformation) its count and host ms, and the number of device
+    trajectory_deformation, loop_drain_wait, loop_closure_attempt) its
+    count and host ms, and the number of device
     kernel launches, their device ms, and the host-side synchronizations."""
     import os
     import time
@@ -158,7 +164,8 @@ def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
              for e in events
              if e.device_type.name == "CPU"
              and (e.key in ("upload", "preprocess", "pyramid", "track", "duel",
-                            "ba", "ba_drain", "trajectory_deformation")
+                            "ba", "ba_drain", "trajectory_deformation",
+                            "loop_drain_wait", "loop_closure_attempt")
                   or e.key.startswith(("gn_iteration/", "ba/")))}
     kernels = [e for e in events
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
@@ -224,10 +231,13 @@ def run(argv=None):
     else:
         slam = BadSlam(config, video, device)
         start = None
-    if args.profile:
-        _profiled_run(slam, args.profile, progress=not args.quiet, start=start)
-    else:
-        slam.run(start=start, progress=not args.quiet)
+    try:
+        if args.profile:
+            _profiled_run(slam, args.profile, progress=not args.quiet, start=start)
+        else:
+            slam.run(start=start, progress=not args.quiet)
+    finally:
+        slam.close()
     if args.final_ba:
         calls = len(slam.direct_ba.iterations_run)
         t0 = time.perf_counter()
@@ -262,6 +272,8 @@ def run(argv=None):
                        "keyframe_frames": slam.keyframe_frames,
                        "ba_drain_frames": slam.ba_drain_frames,
                        "self_calibration_frames": slam.self_calibration_frames,
+                       "loop_closures": slam.loop_closure_count,
+                       "closure_attempts": slam.closure_attempts,
                        "ba_iterations": ba.iterations_run,
                        "cg_steps": ba.cg_steps,
                        "intrinsics_step_ms": ba.intrinsics_spans.ms(),

@@ -1,7 +1,7 @@
-"""BadSlam front end: the per-frame pipeline and the keyframe BA around it.
+"""BadSlam front end: the per-frame pipeline, the keyframe BA around it and
+loop closure.
 
-Counterpart of ``badslam_tpu/frontend.py`` for the configuration without
-loop closure (``enable_loop_detection = false``): preprocess -> pyramid ->
+Counterpart of ``badslam_tpu/frontend.py``: preprocess -> pyramid ->
 constant-motion prediction -> pairwise tracking against the base keyframe
 -> trajectory and history bookkeeping. Every ``keyframe_interval``-th frame
 becomes a keyframe of ``DirectBA`` and the new base keyframe; the first
@@ -21,6 +21,14 @@ Frames of a distorted source are remapped to the loader's pinhole camera,
 median-filtered when asked, or downscaled to an input pyramid level first;
 after the frame loop, ``final_bundle_adjustment`` runs the offline final
 BA over sliding keyframe windows and then all keyframes, or one PCG pass.
+
+With ``enable_loop_detection`` (the default) every keyframe's host images go
+to the loop detector (``loop/detector.py``: features, BoW candidate,
+RANSAC), on a worker thread with ``parallel_loop_detection`` (the default),
+whose results are applied when the next keyframe arrives and at the end of
+``run``. A candidate is refined by three tracker runs against the matched
+keyframe and its temporal neighbours, gated, and applied through the pose
+graph and the trajectory deformation (``loop/closure.py``).
 
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
@@ -42,9 +50,13 @@ from badslam_torch.ba.pcg import pcg_bundle_adjustment
 from badslam_torch.ba.scheme import DirectBA
 from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
+from badslam_torch.geometry import se3_np as s3
 from badslam_torch.io.dataset import RGBDVideo, save_tum_trajectory
 from badslam_torch.io.ply import save_ply
 from badslam_torch.io.preload import PreLoadThread
+from badslam_torch.loop.closure import apply_closure
+from badslam_torch.loop.detector import LoopDetector
+from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.loop.trajectory import deform_trajectory
 from badslam_torch.ops.preprocess import (
     ProcessedFrame,
@@ -62,9 +74,9 @@ def check_supported(config: BadSlamConfig) -> None:
     """Raise NotImplementedError naming each setting of this configuration
     that the port does not do yet, with the later slice that brings it."""
     out = []
-    if config.enable_loop_detection:
-        out.append("loop detection comes with the loop-closure slice; run "
-                   "with --enable_loop_detection false")
+    if config.n_devices > 1:
+        out.append("n_devices > 1: BA over several devices comes with the "
+                   "multi-device slice; run with --n_devices 0 or 1")
     # The input pyramid's refusals are the JAX package's (one shared camera;
     # the reference FATALs on downscaling with the median filter,
     # bad_slam.cc:671-673).
@@ -172,6 +184,41 @@ class BadSlam:
         self.ba_drain_frames: List[int] = []
         # The keyframe frames whose BA call passed the self-calibration gate.
         self.self_calibration_frames: List[int] = []
+
+        # Loop closure (badslam_tpu/frontend.py:365-395).
+        self.loop_closure_count = 0
+        # One entry per closure attempt: the frame being processed, the two
+        # keyframe slots, the refinements run and the two gates' outcomes.
+        self.closure_attempts: List[dict] = []
+        self.loop_detector: Optional[LoopDetector] = None
+        self._loop_thread: Optional[LoopDetectionThread] = None
+        self._loop_pending_seq = -1
+        # The keyframe count at the last closure attempt (the cooldown,
+        # config.loop_closure_cooldown_keyframes).
+        self._last_closure_attempt_kf = -(1 << 30)
+        if config.enable_loop_detection:
+            det_size = None
+            if (config.loop_detection_images_width > 0
+                    and config.loop_detection_images_height > 0):
+                det_size = (config.loop_detection_images_width,
+                            config.loop_detection_images_height)
+            # Detection-image frequency: the config's, else fps_restriction /
+            # keyframe_interval (bad_slam_config.h:371-372); it sets the
+            # detector's recency window.
+            freq = config.loop_detection_image_frequency
+            if freq <= 0 and config.keyframe_interval > 0:
+                freq = config.fps_restriction / float(config.keyframe_interval)
+            self.loop_detector = LoopDetector(
+                cam=self.cam, vocabulary_path=config.loop_detection_vocabulary_path,
+                images_size=det_size, image_frequency=freq)
+            if config.parallel_loop_detection:
+                self._loop_thread = LoopDetectionThread(self.loop_detector)
+
+    def close(self) -> None:
+        """Stop the loop-detection worker thread (idempotent)."""
+        t, self._loop_thread = self._loop_thread, None
+        if t is not None:
+            t.stop()
 
     # ------------------------------------------------------------------
 
@@ -386,6 +433,11 @@ class BadSlam:
             low_memory = free_bytes / 2**20 < c.min_free_gpu_memory_mb
         if low_memory or ks.live_count >= c.max_keyframe_count - 2:
             freed = ks.merge_redundant_keyframes(4)
+            for slot in freed:  # the detector forgets merged keyframes
+                if self._loop_thread is not None:
+                    self._loop_thread.remove(slot)
+                elif self.loop_detector is not None:
+                    self.loop_detector.remove_keyframe(slot)
             if not freed and ks.live_count >= c.max_keyframe_count:
                 _log.warning("keyframe budget exceeded (%d live >= %d) and no "
                              "keyframe was mergeable", ks.live_count,
@@ -405,7 +457,152 @@ class BadSlam:
         self.base_kf_pyramid = pyramid
         self._hist_q, self._hist_t = _identity_hist(self.device)
         self._hist_n = 1
+        if self.loop_detector is not None:
+            self._loop_detection_step(kf_id, frame_index)
         return kf_id
+
+    # ------------------------------------------------------------------
+    # Loop closure (badslam_tpu/frontend.py:907-1080)
+    # ------------------------------------------------------------------
+
+    def _loop_detection_inputs(self, frame_index: int):
+        """The detector's host images of a frame: gray (0.299 R + 0.587 G +
+        0.114 B, truncated to u8) and calibrated depth, remapped by the
+        nearest source pixel to the pinhole camera for a distorted source."""
+        rgb = self.video.color_u8(frame_index)
+        gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+                + 0.114 * rgb[..., 2]).astype(np.uint8)
+        depth = (self.video.depth_u16(frame_index).astype(np.float32)
+                 * self.config.raw_to_float_depth)
+        um = self.video.undistortion_map
+        if um is not None:
+            h, w = depth.shape
+            xi = np.clip(np.floor(um[..., 0]).astype(np.int32), 0, w - 1)
+            yi = np.clip(np.floor(um[..., 1]).astype(np.int32), 0, h - 1)
+            inside = ((um[..., 0] >= 0) & (um[..., 1] >= 0)
+                      & (um[..., 0] < w) & (um[..., 1] < h))
+            gray = np.where(inside, gray[yi, xi], 0).astype(np.uint8)
+            depth = np.where(inside, depth[yi, xi], 0.0).astype(np.float32)
+        return gray, depth
+
+    def register_keyframe_features(self, kf_id: int, frame_index: int) -> None:
+        """Register a keyframe with the detector without looking for a
+        candidate (a resumed run's live keyframes), through the worker's
+        queue when there is one."""
+        gray, depth = self._loop_detection_inputs(frame_index)
+        if self._loop_thread is not None:
+            self._loop_pending_seq = self._loop_thread.register(kf_id, gray, depth)
+        else:
+            self.loop_detector.add_keyframe(gray, depth, kf_id=kf_id)
+
+    def _loop_detection_step(self, kf_id: int, frame_index: int) -> None:
+        """Register the keyframe's features and look for a closure. With
+        the worker thread, first apply the results of every detection
+        queued up to the previous keyframe (a fixed point in the frame
+        stream, one keyframe later than the synchronous path), then queue
+        this keyframe."""
+        gray, depth = self._loop_detection_inputs(frame_index)
+        if self._loop_thread is not None:
+            self._drain_loop_detections()
+            self._loop_pending_seq = self._loop_thread.enqueue(kf_id, gray, depth)
+            return
+        det = self.loop_detector
+        det.add_keyframe(gray, depth, kf_id=kf_id)
+        candidate = det.detect_candidate(kf_id)
+        if candidate is None or not self._closure_attempt_allowed():
+            return
+        init = det.initial_alignment(kf_id, candidate)
+        if init is not None:
+            self._attempt_loop_closure(kf_id, candidate, init[0])
+
+    def _closure_attempt_allowed(self) -> bool:
+        """The cooldown between closure attempts, counted in keyframes
+        (the store's slot high-water mark, as in the JAX package)."""
+        now = self.direct_ba.keyframes.count
+        if now - self._last_closure_attempt_kf < self.config.loop_closure_cooldown_keyframes:
+            return False
+        self._last_closure_attempt_kf = now
+        return True
+
+    def _drain_loop_detections(self) -> None:
+        """Wait for the queued detections (re-raising a worker's failure)
+        and attempt the closures they found."""
+        if self._loop_thread is None or self._loop_pending_seq < 0:
+            return
+        with record_function("loop_drain_wait"):
+            self._loop_thread.wait_through(self._loop_pending_seq)
+        for r in self._loop_thread.drain_results():
+            if (r.candidate is not None and r.cur_T_matched is not None
+                    and self._closure_attempt_allowed()):
+                self._attempt_loop_closure(r.kf_id, r.candidate, r.cur_T_matched)
+
+    def _keyframe_pyramid(self, kf_id: int):
+        ks = self.direct_ba.keyframes
+        return build_pyramid(ks.depth[kf_id], ks.nx[kf_id], ks.ny[kf_id],
+                             ks.intensity[kf_id], self.config.num_scales,
+                             gradmag=self.config.use_gradmag)
+
+    def _attempt_loop_closure(self, kf_id: int, matched_id: int,
+                              cur_T_matched_init: s3.SE3) -> None:
+        """Verify a candidate and apply it: direct refinement of
+        cur_T_matched against the matched keyframe and its temporal
+        neighbours (loop_detector.cc:436-548), then the gates, the pose
+        graph and the trajectory deformation (loop/closure.py). A rejected
+        candidate leaves every pose as it was."""
+        c = self.config
+        ks = self.direct_ba.keyframes
+        # Live keyframes in temporal order (slots are recycled by merging).
+        order = ks.live_slots_in_time_order()
+        if kf_id not in order or matched_id not in order:
+            return
+        cur_pos = order.index(kf_id)
+        matched_pos = order.index(matched_id)
+        neighbors = [order[j] for j in (matched_pos - 1, matched_pos, matched_pos + 1)
+                     if 0 <= j < len(order) and order[j] != kf_id]
+        if len(neighbors) < 2:
+            return
+        with record_function("loop_closure_attempt"):
+            dev = self.device
+            init_host = se3.SE3(
+                torch.as_tensor(np.asarray(cur_T_matched_init.q), dtype=torch.float32).to(dev),
+                torch.as_tensor(np.asarray(cur_T_matched_init.t), dtype=torch.float32).to(dev))
+            # The current keyframe is the tracker's base: it estimates
+            # cur_T_old, initialized from RANSAC and the keyframe poses.
+            cur_pyr = self._keyframe_pyramid(kf_id)
+            matched_pose = ks.pose(matched_id)
+            ref_q, ref_t = [], []
+            for old in neighbors:
+                matched_T_old = se3.mul(se3.inverse(matched_pose), ks.pose(old))
+                init = se3.mul(init_host, matched_T_old)
+                res = track_frame_pairwise(
+                    self.cams_pyramid, cur_pyr, self._keyframe_pyramid(old),
+                    init.q, init.t, init.q, init.t,
+                    baseline_fx=c.baseline_fx,
+                    use_depth=c.use_geometric_residuals,
+                    use_descriptor=c.use_photometric_residuals and not c.use_gradmag,
+                    use_gradmag=c.use_gradmag,
+                    max_iterations=c.tracking_max_iterations)
+                cur_T_matched = se3.mul(se3.SE3(res.q, res.t), se3.inverse(matched_T_old))
+                ref_q.append(cur_T_matched.q)
+                ref_t.append(cur_T_matched.t)
+            pts = torch.as_tensor(self.loop_detector.features[kf_id].points_local).to(dev)
+            brackets = self._bracket_arrays()
+            out = apply_closure(
+                ks.q, ks.t, torch.as_tensor(order, device=dev), cur_pos, matched_pos,
+                torch.stack(ref_q), torch.stack(ref_t),
+                torch.ones(len(ref_q), dtype=torch.bool, device=dev),
+                pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                self.traj_q, self.traj_t, *brackets, self.cam)
+            self.closure_attempts.append(dict(
+                frame=self.last_frame_index, kf=kf_id, matched=matched_id,
+                refinements=len(neighbors), consistent=out.consistent,
+                needed=out.needed))
+            if out.ok:
+                ks.q.copy_(out.kq)
+                ks.t.copy_(out.kt)
+                self.traj_q, self.traj_t = out.traj_q, out.traj_t
+                self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
+                self.loop_closure_count += 1
 
     # ------------------------------------------------------------------
     # Trajectory deformation after BA
@@ -556,6 +753,8 @@ class BadSlam:
                         time.sleep(min_frame_time - dt)
         finally:
             preload.stop()
+        # Apply the closures still in flight on the detection thread.
+        self._drain_loop_detections()
         if on_cuda:
             torch.cuda.synchronize(self.device)
             self.frame_times_ms += [(i, ev0.elapsed_time(ev1))

@@ -7,9 +7,14 @@ keys, dtypes and magic string, so that either package resumes the other's:
 the config as JSON, the camera, every frame pose, the motion history, the
 BA counters and the parallel-BA queue, the depth-deformation parameters,
 the keyframes (planes, poses, validity, activation, covisibility, depth
-range, BA counters) and the surfel map. The JAX package sizes the keyframe
-store and the surfel map on a power-of-two ladder and the port does not:
-`load_state` takes any capacity that holds the snapshot's contents.
+range, BA counters), the surfel map and the loop-closure count. The JAX
+package sizes the keyframe store and the surfel map on a power-of-two
+ladder and the port does not:
+`load_state` takes any capacity that holds the snapshot's contents. With
+loop detection on, the live keyframes' features are registered again in
+temporal order from the dataset's frames, built as the front end builds them
+(gray, and the nearest remap of a distorted source), through the detection
+thread's queue when there is one.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ def save_state(slam, path: str) -> None:
         last_frame_index=np.int64(slam.last_frame_index),
         ba_counter=np.int64(slam.bundle_adjustment_counter),
         queued_ba_iterations=np.int64(slam.queued_ba_iterations),
-        loop_closure_count=np.int64(0),  # the port runs without loop closure
+        loop_closure_count=np.int64(slam.loop_closure_count),
         depth_a=_np(params.a, np.float32),
         depth_cfactor=_np(params.cfactor, np.float32),
         ba_iteration_count=np.int64(slam.direct_ba.ba_iteration_count),
@@ -83,7 +88,7 @@ def save_state(slam, path: str) -> None:
 def load_state(path: str, video, device: torch.device | str = "cuda"):
     """Restore a frontend.BadSlam from a snapshot of either package on
     `device`; processing resumes at `last_frame_index + 1`. The snapshot's
-    config is checked by `check_supported` (loop detection is refused)."""
+    config is checked by `check_supported`."""
     from badslam_torch.ba.intrinsics_opt import DepthParams
     from badslam_torch.config import BadSlamConfig
     from badslam_torch.frontend import BadSlam, check_supported
@@ -124,6 +129,7 @@ def load_state(path: str, video, device: torch.device | str = "cuda"):
     slam.has_pose[:m] = has[:m]
     slam.last_frame_index = int(z["last_frame_index"])
     slam.bundle_adjustment_counter = int(z["ba_counter"])
+    slam.loop_closure_count = int(z["loop_closure_count"])
     if "queued_ba_iterations" in z.files:
         slam.queued_ba_iterations = int(z["queued_ba_iterations"])
     hq, ht = z["base_kf_hist_q"][-3:], z["base_kf_hist_t"][-3:]
@@ -182,6 +188,11 @@ def load_state(path: str, video, device: torch.device | str = "cuda"):
         slam.base_kf_pyramid = build_pyramid(
             ks.depth[base], ks.nx[base], ks.ny[base], ks.intensity[base],
             config.num_scales, gradmag=config.use_gradmag)
+        if slam.loop_detector is not None:
+            for slot in ks.live_slots_in_time_order():
+                fi = ks.frame_indices[slot]
+                slam.register_keyframe_features(slot, fi)
+                video.clear_frame(fi)
     return slam
 
 

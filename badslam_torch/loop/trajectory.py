@@ -1,18 +1,25 @@
 """Trajectory deformation: drag the non-keyframes along with the keyframes.
 
-Counterpart of ``badslam_tpu/loop/trajectory.py:25 deform_trajectory_device``
-(RememberKeyframePoses / ExtrapolateAndInterpolateKeyframePoseChanges,
-trajectory_deformation.cc:33-130): after every BA run, each frame gets the
-correction implied by the pose changes of its two bracketing keyframes,
-interpolated as translation lerp + quaternion slerp and extrapolated at the
-trajectory ends; keyframe frames snap exactly to their new pose.
+Counterpart of ``badslam_tpu/loop/trajectory.py`` (RememberKeyframePoses /
+ExtrapolateAndInterpolateKeyframePoseChanges,
+trajectory_deformation.cc:33-130): after every BA run and loop closure,
+each frame gets the correction implied by the pose changes of its two
+bracketing keyframes, interpolated as translation lerp + quaternion slerp
+and extrapolated at the trajectory ends; keyframe frames snap exactly to
+their new pose. `deform_trajectory` is the front end's (torch, on the
+trajectory's device); `extrapolate_and_interpolate_keyframe_pose_changes`
+the host float64 version over lists of poses.
 """
 
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 import torch
 
 from badslam_torch.geometry import se3
+from badslam_torch.geometry import se3_np as s3
 
 
 def deform_trajectory(
@@ -49,3 +56,55 @@ def deform_trajectory(
     own = torch.clamp_min(kf_slot, 0)
     return (torch.where(is_kf, new_kq[own], out.q),
             torch.where(is_kf, new_kt[own], out.t))
+
+
+def extrapolate_and_interpolate_keyframe_pose_changes(
+    frame_poses: List[Optional[s3.SE3]],       # global_T_frame per frame
+    kf_frame_indices: Sequence[int],           # dataset frame index per keyframe
+    old_kf_T_global: Sequence[s3.SE3],         # frame_T_global before BA
+    new_global_T_kf: Sequence[s3.SE3],         # global_T_frame after BA
+    start_frame: int = 0,
+    end_frame: Optional[int] = None,
+) -> List[Optional[s3.SE3]]:
+    """Returns the updated global_T_frame list (keyframes set exactly)."""
+    n = len(frame_poses)
+    end_frame = n - 1 if end_frame is None else min(end_frame, n - 1)
+    kf_count = len(kf_frame_indices)
+    if kf_count == 0:
+        return frame_poses
+
+    out = list(frame_poses)
+    kf_by_frame: Dict[int, int] = {f: k for k, f in enumerate(kf_frame_indices)}
+
+    prev_kf = 0
+    next_kf = 0
+    for fi in range(start_frame, end_frame + 1):
+        if out[fi] is None:
+            continue
+        while next_kf < kf_count and kf_frame_indices[next_kf] <= fi:
+            prev_kf = next_kf
+            next_kf += 1
+
+        if fi in kf_by_frame:
+            out[fi] = new_global_T_kf[kf_by_frame[fi]]
+            continue
+
+        old_pose = out[fi]
+
+        def corrected(k: int) -> s3.SE3:
+            # new_global_T_frame via keyframe k's change.
+            return s3.mul(new_global_T_kf[k], s3.mul(old_kf_T_global[k], old_pose))
+
+        if next_kf >= kf_count or kf_frame_indices[prev_kf] > fi:
+            # Extrapolate off the ends.
+            out[fi] = corrected(prev_kf)
+        else:
+            frame_T_global = s3.inverse(old_pose)
+            corr_prev = s3.mul(frame_T_global, corrected(prev_kf))
+            corr_next = s3.mul(frame_T_global, corrected(next_kf))
+            f = (fi - kf_frame_indices[prev_kf]) / float(
+                kf_frame_indices[next_kf] - kf_frame_indices[prev_kf])
+            corr = s3.SE3(s3.slerp(corr_prev.q, corr_next.q, f),
+                          (1 - f) * np.asarray(corr_prev.t) + f * np.asarray(corr_next.t))
+            out[fi] = s3.mul(old_pose, corr)
+    return out

@@ -5,14 +5,16 @@ slices need: a few analytic planes ray-cast into depth and intensity maps
 along a smooth ground-truth trajectory, through a pinhole or a
 radial-tangential (distorted) camera, written as a TUM-format dataset
 through ``io.png`` (associated, or as a raw download's rgb.txt/depth.txt),
-and the ATE metric. Poses are host ``se3.SE3`` pairs of
-numpy float32 arrays (q wxyz, t).
+and the ATE metric; and the loop-closure fixture: a textured box room, a
+revisiting circular trajectory, and sensor noise and depth bias in the
+written dataset. Poses are host ``se3.SE3`` pairs of numpy float32 arrays
+(q wxyz, t).
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -62,6 +64,47 @@ def intensity_at(points: np.ndarray) -> np.ndarray:
     return np.floor(v * 255.0 + 0.5) / 255.0
 
 
+def textured_intensity_at(points: np.ndarray, cell: float = 0.05,
+                          seed: int = 0) -> np.ndarray:
+    """Blocky world-space albedo: constant within `cell`-sized 3D cells,
+    discontinuous across them (corner-rich, so FAST finds features), from
+    a deterministic integer hash per cell; u8-quantized."""
+    c = np.floor(points / cell).astype(np.int64)
+    h = (c[..., 0] * 73856093) ^ (c[..., 1] * 19349663) \
+        ^ (c[..., 2] * 83492791) ^ (np.int64(seed) * 2654435761)
+    v = ((h ^ (h >> 13)) & 0xFFFF).astype(np.float64) / 65535.0
+    v = 0.15 + 0.7 * v
+    return np.floor(v * 255.0 + 0.5) / 255.0
+
+
+def room_scene(size: float = 3.0) -> PlaneScene:
+    """Box room: 6 inward-facing planes centered at the origin (the fixture
+    for in-place loop trajectories)."""
+    half = size / 2.0
+    pts = np.array([[half, 0, 0], [-half, 0, 0], [0, half, 0], [0, -half, 0],
+                    [0, 0, half], [0, 0, -half]], np.float32)
+    normals = -pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    return PlaneScene(pts, normals.astype(np.float32))
+
+
+def loop_trajectory(num_frames: int, loop_frames: Optional[int] = None,
+                    orbit_radius: float = 0.8, height_wobble: float = 0.03) -> list:
+    """A revisiting walk: the camera travels a circle of `orbit_radius`
+    facing along the tangent, closes the loop in `loop_frames` frames and
+    keeps going, so frames past `loop_frames` see the start sector again
+    with all the drift the odometry accumulated."""
+    if loop_frames is None:
+        loop_frames = max(1, int(num_frames * 0.9))
+    poses = []
+    for i in range(num_frames):
+        th = 2.0 * np.pi * i / loop_frames
+        p = pose(ry=th + np.pi / 2.0)  # camera +z along the tangent
+        t = np.array([orbit_radius * np.sin(th), height_wobble * np.sin(3.0 * th),
+                      orbit_radius * (np.cos(th) - 1.0)], np.float32)
+        poses.append(SE3(p.q, t))
+    return poses
+
+
 def _quat_to_matrix(q) -> np.ndarray:
     w, x, y, z = (float(v) for v in q)
     return np.array([
@@ -71,16 +114,17 @@ def _quat_to_matrix(q) -> np.ndarray:
     ], np.float64)
 
 
-def render_scene(cam: PinholeCamera, scene: PlaneScene,
-                 world_T_frame: SE3) -> Tuple[np.ndarray, np.ndarray]:
+def render_scene(cam: PinholeCamera, scene: PlaneScene, world_T_frame: SE3,
+                 albedo=None) -> Tuple[np.ndarray, np.ndarray]:
     """Ray-cast the plane scene. Returns (depth [H,W] f32, intensity [H,W] f32).
 
     Depth is the z-depth of the nearest plane intersection in front of the
-    camera; pixels hitting no plane get 0."""
+    camera; pixels hitting no plane get 0. `albedo(points_world)` replaces
+    the smooth default intensity (e.g. textured_intensity_at)."""
     ys, xs = np.mgrid[0:cam.height, 0:cam.width]
     dx = cam.fx_inv * xs + cam.cx_inv
     dy = cam.fy_inv * ys + cam.cy_inv
-    return _render_from_dirs(dx, dy, scene, world_T_frame)
+    return _render_from_dirs(dx, dy, scene, world_T_frame, albedo)
 
 
 def render_scene_radtan(rtcam: RadTanCamera, scene: PlaneScene, world_T_frame: SE3,
@@ -100,7 +144,7 @@ def render_scene_radtan(rtcam: RadTanCamera, scene: PlaneScene, world_T_frame: S
     return _render_from_dirs(nx, ny, scene, world_T_frame)
 
 
-def _render_from_dirs(dx, dy, scene: PlaneScene, world_T_frame: SE3):
+def _render_from_dirs(dx, dy, scene: PlaneScene, world_T_frame: SE3, albedo=None):
     """Plane-scene ray-cast along per-pixel directions (dx, dy, 1)."""
     q = np.asarray(world_T_frame.q, np.float64)
     t = np.asarray(world_T_frame.t, np.float64)
@@ -129,7 +173,7 @@ def _render_from_dirs(dx, dy, scene: PlaneScene, world_T_frame: SE3):
     # Intensity from the world-space position of the hit point.
     pts_cam = np.stack([depth * dx, depth * dy, depth], axis=-1)
     pts_world = pts_cam @ R_wf.T + t
-    inten = intensity_at(pts_world).astype(np.float32)
+    inten = (albedo or intensity_at)(pts_world).astype(np.float32)
     inten = np.where(depth > 0, inten, 0.0)
     return depth, inten
 
@@ -174,12 +218,23 @@ def write_tum_dataset(
     raw_to_float_depth: float = 1.0 / 5000.0,
     write_gt: bool = True,
     distortion=None,
+    albedo=None,
+    depth_noise: float = 0.0,
+    depth_bias: float = 0.0,
+    depth_bias_quadratic: float = 0.0,
+    intensity_noise: float = 0.0,
+    noise_seed: int = 0,
 ) -> None:
     """Write a synthetic TUM-format dataset directory: calibration.txt,
     associated.txt, gray RGB and 16-bit depth PNGs, optional groundtruth.txt.
     With `distortion` ((k1, k2[, p1, p2])) the images are rendered through
     the radial-tangential model and calibration.txt carries the line
-    "fx fy cx cy k1 k2 p1 p2"."""
+    "fx fy cx cy k1 k2 p1 p2". `albedo` replaces the intensity function
+    (pinhole only). Sensor effects, drawn from default_rng(noise_seed) in the
+    JAX package's order: depth scaled by (1 + depth_bias +
+    depth_bias_quadratic * d), depth noise of sigma depth_noise * d^2, and
+    gray-level noise of sigma intensity_noise (u8 scale)."""
+    noise_rng = np.random.default_rng(noise_seed)
     rtcam = None
     if distortion is not None:
         k = list(distortion) + [0.0] * (4 - len(distortion))
@@ -198,8 +253,18 @@ def write_tum_dataset(
         if rtcam is not None:
             depth, inten = render_scene_radtan(rtcam, scene, world_T_frame)
         else:
-            depth, inten = render_scene(cam, scene, world_T_frame)
+            depth, inten = render_scene(cam, scene, world_T_frame, albedo)
+        if depth_bias != 0.0 or depth_bias_quadratic != 0.0:
+            depth = depth * (1.0 + depth_bias + depth_bias_quadratic * depth)
+        if depth_noise > 0:
+            sigma = depth_noise * depth * depth
+            depth = np.where(
+                depth > 0,
+                np.maximum(depth + sigma * noise_rng.standard_normal(depth.shape), 1e-3),
+                0.0).astype(np.float32)
         depth_u16 = np.clip(depth / raw_to_float_depth, 0, 65535).astype(np.uint16)
+        if intensity_noise > 0:
+            inten = inten + (intensity_noise / 255.0) * noise_rng.standard_normal(inten.shape)
         gray = np.clip(inten * 255.0 + 0.5, 0, 255).astype(np.uint8)
         rgb = np.stack([gray, gray, gray], axis=-1)
         ts = f"{i / 30.0:.6f}"

@@ -19,6 +19,8 @@ Tolerances:
   * bundle adjustment on CUDA vs CPU: keyframe poses atol 1e-4, the same
     number of iterations, surfel counts within 1% (creation and deletion
     are threshold tests on float values).
+  * a loop closure's gates, pose graph and deformation on CUDA vs CPU:
+    poses and trajectory atol 1e-5, the same decisions.
 """
 
 import numpy as np
@@ -356,3 +358,55 @@ def test_pcg_step_cuda_matches_cpu(cuda):
     v = cpu.smap.valid
     torch.testing.assert_close(card.smap.pos.cpu()[v], cpu.smap.pos[v], atol=1e-5, rtol=0)
     np.testing.assert_allclose(_cam_list(card.cam), _cam_list(cpu.cam), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_loop_closure_cuda_matches_cpu(cuda):
+    """The closure's gates, pose graph and trajectory deformation on the
+    card against the CPU: 16 drifted keyframes of a loop (every 10th of 160
+    frames) closed from keyframe 15 onto keyframe 0; poses and trajectory
+    atol 1e-5 (float32 dense solves in another order), the same gate
+    decisions."""
+    from badslam_torch.geometry import se3_np as s3
+    from badslam_torch.loop.closure import apply_closure
+
+    gt = synthetic.loop_trajectory(160, loop_frames=150, orbit_radius=0.4)
+    kfs = [s3.SE3(np.asarray(gt[i].q, float), np.asarray(gt[i].t, float)) for i in range(0, 160, 10)]
+    poses, drift = [], s3.identity()
+    for p in kfs:
+        poses.append(s3.mul(drift, p))
+        drift = s3.mul(s3.exp(np.array([0.001, 0, 0.0005, 0, 0.0017, 0])), drift)
+    truth = s3.mul(s3.inverse(kfs[15]), kfs[0])
+    refs = [s3.mul(truth, s3.exp(np.array(d, float))) for d in
+            ([0] * 6, [0.004, 0, 0, 0, 0.002, 0], [0, -0.003, 0, 0, 0, 0.002])]
+    q = np.stack([p.q for p in poses]).astype(np.float32)
+    t = np.stack([p.t for p in poses]).astype(np.float32)
+    traj_q = np.repeat(q, 10, axis=0)
+    traj_t = np.repeat(t, 10, axis=0)
+    kf_frames = np.arange(16) * 10
+    fi = np.arange(160)
+    j = np.searchsorted(kf_frames, fi, side="right")
+    prev, nxt = np.clip(j - 1, 0, 15), np.clip(j, 0, 15)
+    inner = j < 16
+    alpha = np.where(inner, (fi - kf_frames[prev]) / 10.0, 0.0).astype(np.float32)
+    nxt = np.where(inner, nxt, 15)
+    kf_slot = np.full(160, -1)
+    kf_slot[kf_frames] = np.arange(16)
+    pts = np.random.default_rng(2).uniform([-1, -0.7, 1], [1, 0.7, 3], (60, 3)).astype(np.float32)
+    cam = synthetic.default_camera(128, 96)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        def dev(x, dtype=None):
+            return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+        out.append(apply_closure(
+            dev(q), dev(t), dev(np.arange(16)), 15, 0,
+            dev(np.stack([r.q for r in refs]), torch.float32),
+            dev(np.stack([r.t for r in refs]), torch.float32),
+            dev(np.ones(3, bool)), dev(pts), dev(np.ones(60, bool)), dev(traj_q), dev(traj_t),
+            dev(prev), dev(nxt), dev(alpha), dev(kf_slot), cam))
+    card, cpu = out
+    assert card.ok and cpu.ok
+    for name in ("kq", "kt", "traj_q", "traj_t"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), atol=1e-5, rtol=0)
+    assert float((card.kt.cpu() - torch.from_numpy(t)).abs().max()) > 1e-2

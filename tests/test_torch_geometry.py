@@ -107,7 +107,7 @@ def test_camera_pyramid_level():
 
 def test_import_badslam_torch_leaves_jax_out():
     """The port and chip_smoke.py import neither jax nor any module of the
-    JAX package (badslam_tpu), not even its jax-free ones."""
+    JAX package (badslam_tpu), not even its jax-free ones, nor OpenCV."""
     code = (
         "import sys\n"
         "import badslam_torch, badslam_torch.cli, badslam_torch.frontend\n"
@@ -116,11 +116,17 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.ops.kernels, badslam_torch.io.state\n"
         "import badslam_torch.ba.pcg, badslam_torch.ba.intrinsics_opt\n"
         "import badslam_torch.utils.lm\n"
+        "import badslam_torch.loop, badslam_torch.loop.closure\n"
+        "import badslam_torch.loop.detector, badslam_torch.loop.features\n"
+        "import badslam_torch.loop.pose_graph, badslam_torch.loop.ransac\n"
+        "import badslam_torch.loop.thread, badslam_torch.loop.vocabulary\n"
+        "import badslam_torch.geometry.se3_np\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"
         "assert not tpu, tpu\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'cv2' not in sys.modules\n"
     )
     import os
 

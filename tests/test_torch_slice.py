@@ -194,7 +194,7 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
 
 
 @pytest.mark.parametrize("argv, what", [
-    (["--enable_loop_detection", "true"], "loop detection"),
+    (["--n_devices", "2"], "multi-device slice"),
     (["--pyramid_level_for_depth", "1"], "must equal pyramid_level_for_color"),
     (["--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
       "--median_filter_and_densify_iterations", "1"], "median filter"),
@@ -203,7 +203,7 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
     (["--live_viewer_dir", "v"], "map viewer"),
     (["--live", "dir:x"], "live input"),
     (["--autotune"], "tuned variants"),
-], ids=["loop", "pyramid_level", "median", "point_cloud", "save_timings",
+], ids=["n_devices", "pyramid_level", "median", "point_cloud", "save_timings",
         "live_viewer", "live", "autotune"])
 def test_later_slices_are_refused(tmp_path, argv, what):
     """What the port still refuses, before it reads the dataset: the later

@@ -218,14 +218,25 @@ def test_port_snapshot_loads_in_jax(sequence, tmp_path):
         assert torch.equal(getattr(back.direct_ba.surfels, name)[:n],
                            getattr(tslam.direct_ba.surfels, name))
 
-    # A snapshot whose config enables loop detection is refused.
-    bad = dict(z)
-    cfg = json.loads(str(z["config_json"]))
-    cfg["enable_loop_detection"] = True
-    bad["config_json"] = json.dumps(cfg)
-    np.savez_compressed(str(tmp_path / "loop.npz"), **bad)
-    with pytest.raises(NotImplementedError, match="loop detection"):
-        tstate.load_state(str(tmp_path / "loop.npz"), tds.load_tum_dataset(data), "cpu")
+    def edited(name, **config):
+        d = dict(z, loop_closure_count=np.int64(3))
+        d["config_json"] = json.dumps({**json.loads(str(z["config_json"])), **config})
+        np.savez_compressed(str(tmp_path / name), **d)
+        return str(tmp_path / name)
+
+    # A snapshot whose config enables loop detection loads with its closure
+    # count, and the live keyframes are registered with the detector through
+    # the worker thread, in temporal order.
+    loop = tstate.load_state(edited("loop.npz", enable_loop_detection=True),
+                             tds.load_tum_dataset(data), "cpu")
+    loop._drain_loop_detections()
+    assert loop.loop_closure_count == 3
+    assert loop.loop_detector._order == loop.direct_ba.keyframes.live_slots_in_time_order()
+    assert all(len(f.descriptors) > 0 for f in loop.loop_detector.features.values())
+    loop.close()
+    # One that asks for several devices is refused.
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        tstate.load_state(edited("mesh.npz", n_devices=2), tds.load_tum_dataset(data), "cpu")
 
 
 def test_port_resume_matches_continuous_run(sequence, tmp_path):
