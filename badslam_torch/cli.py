@@ -6,7 +6,9 @@ Run as
         --export_point_cloud map.ply \\
         [--final_ba] [--save_state s.npz | --load_state s.npz] \\
         [--optimize_intrinsics true --export_calibration calib] \\
-        [--use_pcg true --parallel_ba false]
+        [--use_pcg true --parallel_ba false] [--export_viewer map.html]
+    python -m badslam_torch --live dir:<path> | --live tcp:<port> \\
+        [--live_viewer_dir view --live_viewer_port 8765]
 
 The flags mirror ``badslam_tpu.cli``: every ``BadSlamConfig`` field is a
 flag of the same name, type and default. ``--device`` picks the device
@@ -18,9 +20,16 @@ runs the alternating solver) and for ``--final_ba``. Loop detection is on
 by default (``--enable_loop_detection``, on a worker thread with
 ``--parallel_loop_detection``; the ``--loop_detection_*`` flags set the
 detection images, their rate and a vocabulary file), and closures still in
-flight are applied before the final BA. Live input, the viewer and
-``--n_devices`` above 1 are refused with NotImplementedError, naming the
-later slice that brings them.
+flight are applied before the final BA. ``--live`` consumes a live stream
+instead of a dataset (``dir:<path>``: a directory a camera process drops
+PNG pairs into; ``tcp:<port>``: a binary frame stream; the vendor SDK
+inputs raise without their SDK); a live stream cannot be resumed from a
+snapshot, so ``--load_state`` is refused with it. ``--export_viewer``
+writes a self-contained HTML map viewer after the run;
+``--live_viewer_dir`` serves a map view during the run (a snapshot every
+``--live_viewer_interval`` keyframes, each a device read) with run, pause,
+step and command buttons. ``--n_devices`` above 1, ``--save_timings`` and
+``--autotune`` are refused, naming why.
 """
 
 from __future__ import annotations
@@ -36,9 +45,6 @@ from badslam_torch.config import BadSlamConfig
 # Output and mode flags of badslam_tpu.cli that the port does not do yet,
 # each with the later slice that brings it.
 _LATER_FLAGS = {
-    "live": "live input comes with the IO slice",
-    "export_viewer": "the map viewer comes with the IO slice",
-    "live_viewer_dir": "the map viewer comes with the IO slice",
     "save_timings": "per-BA-run timing rows come with the port's benchmark",
 }
 _LATER_SWITCHES = {
@@ -56,12 +62,19 @@ def build_parser() -> argparse.ArgumentParser:
         description="Direct RGB-D SLAM in PyTorch + CUDA",
     )
     p.add_argument("dataset", nargs="?", default=None,
-                   help="TUM/ETH3D-format dataset directory")
+                   help="TUM/ETH3D-format dataset directory (omit with --live)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda, cuda:N or cpu "
                         "(cuda fails when CUDA is not available)")
     p.add_argument("--trajectory_filename", default=None,
                    help="optional ground-truth/init trajectory in the dataset dir")
+    p.add_argument("--live", default=None,
+                   help="live input instead of a dataset: 'dir:<path>' "
+                        "(follow a frame-drop directory), 'tcp:<port>' "
+                        "(binary frame stream), or 'realsense'/'k4a'/"
+                        "'structure' (vendor SDK required)")
+    p.add_argument("--live_max_frames", type=int, default=10000,
+                   help="capacity of the live-mode trajectory buffers")
 
     # Mirror BadSlamConfig fields as flags.
     cfg = BadSlamConfig()
@@ -89,10 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "the iterations of each BA call, the CG "
                         "steps of each PCG outer iteration, the ms of each "
                         "intrinsics step and PCG outer iteration, the final "
-                        "keyframe and surfel counts and, where they ran, the "
-                        "seconds of the final BA (and its calls' iterations), "
-                        "of --load_state and of --save_state as JSON to this "
-                        "path")
+                        "keyframe and surfel counts, with --live each "
+                        "frame's capture-to-pose lag (ms) and backlog "
+                        "(frames) and, where they ran, the seconds of the "
+                        "final BA (and its calls' iterations), of "
+                        "--load_state, --save_state and --export_viewer as "
+                        "JSON to this path")
     p.add_argument("--profile", default=None,
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
@@ -104,6 +119,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "before processing; the snapshot's config is used")
     p.add_argument("--export_calibration", default=None,
                    help="write calibration text files with this prefix")
+    p.add_argument("--export_viewer", default=None,
+                   help="write a self-contained HTML map viewer to this path")
+    p.add_argument("--live_viewer_dir", default=None,
+                   help="serve a live map view from this directory (a "
+                        "snapshot every --live_viewer_interval keyframes; "
+                        "each snapshot is a device read and sync: do not "
+                        "time runs with this on)")
+    p.add_argument("--live_viewer_port", type=int, default=8765,
+                   help="HTTP port for --live_viewer_dir (0 = any free port)")
+    p.add_argument("--live_viewer_interval", type=int, default=5,
+                   help="keyframes between live-viewer snapshots")
     p.add_argument("--final_ba", action="store_true",
                    help="run windowed + global final BA after the frame loop")
     p.add_argument("--final_ba_window_size", type=int, default=16)
@@ -135,9 +161,9 @@ def resolve_device(name: str):
     return device
 
 
-def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
-    """slam.run() under torch.profiler; writes the key_averages table and a
-    JSON summary: per span (upload, preprocess, pyramid, track, duel,
+def _profiled_run(slam, out_dir: str, run_frames) -> None:
+    """run_frames() (slam.run or slam.run_live) under torch.profiler;
+    writes the key_averages table and a JSON summary: per span (upload, preprocess, pyramid, track, duel,
     gn_iteration/width<W>, ba, ba_drain, the BA stages ba/<stage>,
     trajectory_deformation, loop_drain_wait, loop_closure_attempt) its
     count and host ms, and the number of device
@@ -153,7 +179,7 @@ def _profiled_run(slam, out_dir: str, progress: bool, start=None) -> None:
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
-        slam.run(start=start, progress=progress)
+        run_frames()
         if slam.device.type == "cuda":
             torch.cuda.synchronize(slam.device)
     wall_ms = 1000.0 * (time.perf_counter() - t0)
@@ -201,8 +227,6 @@ def main(argv=None) -> int:
 
 def run(argv=None):
     """What `main` does; returns the BadSlam after its run and exports."""
-    import torch
-
     args = build_parser().parse_args(argv)
     refused = [f"--{name}: {why}" for name, why in _LATER_FLAGS.items()
                if getattr(args, name) is not None]
@@ -210,34 +234,76 @@ def run(argv=None):
                 if getattr(args, name)]
     if refused:
         raise NotImplementedError("badslam_torch: " + "; ".join(refused))
-    if not args.dataset:
-        build_parser().error("a dataset directory is required")
+    if args.live and args.load_state:
+        raise ValueError("--load_state cannot resume a --live stream: a snapshot "
+                         "needs the frames before it, which a live stream does not "
+                         "keep")
+    if not (args.dataset or args.live):
+        build_parser().error("either a dataset directory or --live is required")
     config = config_from_args(args)
 
     from badslam_torch.frontend import BadSlam, check_supported
     from badslam_torch.io import state
     from badslam_torch.io.dataset import load_tum_dataset
+    from badslam_torch.io.live_inputs import open_live_input
+    from badslam_torch.viz.viewer import LiveViewer
 
     if not args.load_state:  # a resumed run takes the snapshot's config
         check_supported(config)
     device = resolve_device(args.device)
-    video = load_tum_dataset(args.dataset, args.trajectory_filename)
+    live_input = open_live_input(args.live, config) if args.live else None
+    viewer = None
     timings = {}
-    if args.load_state:
-        t0 = time.perf_counter()
-        slam = state.load_state(args.load_state, video, device)
-        timings["load_state_s"] = time.perf_counter() - t0
-        start = slam.last_frame_index + 1
-    else:
-        slam = BadSlam(config, video, device)
-        start = None
     try:
-        if args.profile:
-            _profiled_run(slam, args.profile, progress=not args.quiet, start=start)
+        if live_input is not None:
+            video = live_input.start(max_frames=args.live_max_frames,
+                                     depth_scaling=1.0 / config.raw_to_float_depth)
         else:
-            slam.run(start=start, progress=not args.quiet)
+            video = load_tum_dataset(args.dataset, args.trajectory_filename)
+        if args.load_state:
+            t0 = time.perf_counter()
+            slam = state.load_state(args.load_state, video, device)
+            timings["load_state_s"] = time.perf_counter() - t0
+            start = slam.last_frame_index + 1
+        else:
+            slam = BadSlam(config, video, device)
+            start = None
+        if args.live_viewer_dir:
+            viewer = LiveViewer(args.live_viewer_dir, port=args.live_viewer_port,
+                                interval=args.live_viewer_interval)
+            slam.live_viewer = viewer
+            print(f"live viewer: http://127.0.0.1:{viewer.port}/index.html")
+
+        def run_frames():
+            if live_input is not None:
+                slam.run_live(progress=not args.quiet)
+            else:
+                slam.run(start=start, progress=not args.quiet)
+
+        try:
+            if args.profile:
+                _profiled_run(slam, args.profile, run_frames)
+            else:
+                run_frames()
+        finally:
+            slam.close()
+        _finish(slam, args, device, timings)
     finally:
-        slam.close()
+        if live_input is not None:
+            live_input.stop()
+        if viewer is not None:
+            viewer.close()
+    return slam
+
+
+def _finish(slam, args, device, timings: dict) -> None:
+    """After the frame loop: the final BA, the exports, the live viewer's
+    last snapshot and the summary line."""
+    import torch
+
+    from badslam_torch.io import state
+    from badslam_torch.viz.viewer import export_html_viewer
+
     if args.final_ba:
         calls = len(slam.direct_ba.iterations_run)
         t0 = time.perf_counter()
@@ -256,6 +322,11 @@ def run(argv=None):
     if args.export_point_cloud:
         slam.export_point_cloud(args.export_point_cloud)
         print(f"point cloud written to {args.export_point_cloud}")
+    if args.export_viewer:
+        t0 = time.perf_counter()
+        export_html_viewer(slam, args.export_viewer)
+        timings["export_viewer_s"] = time.perf_counter() - t0
+        print(f"viewer written to {args.export_viewer}")
     if args.save_state:
         t0 = time.perf_counter()
         state.save_state(slam, args.save_state)
@@ -279,13 +350,16 @@ def run(argv=None):
                        "intrinsics_step_ms": ba.intrinsics_spans.ms(),
                        "pcg_iteration_ms": ba.pcg_spans.ms(),
                        "keyframes": ba.keyframes.live_count,
-                       "surfels": ba.surfel_count, **timings}, f)
+                       "surfels": ba.surfel_count,
+                       "live_lag_ms": [[i, 1000.0 * s] for i, s in slam.live_lag_s],
+                       "live_backlog": slam.live_backlog, **timings}, f)
     if not args.quiet:
         ms = sorted(ms for _, ms in slam.frame_times_ms[1:])
         if ms:
             print(f"{len(slam.frame_times_ms)} frames on {device}, median "
                   f"{ms[len(ms) // 2]:.2f} ms per frame after the first")
-    return slam
+    if slam.live_viewer is not None:
+        slam.live_viewer.snapshot(slam)  # the final state
 
 
 if __name__ == "__main__":

@@ -30,6 +30,12 @@ whose results are applied when the next keyframe arrives and at the end of
 keyframe and its temporal neighbours, gated, and applied through the pose
 graph and the trajectory deformation (``loop/closure.py``).
 
+``run_live`` consumes a live stream (``io/live_inputs.py``) frame by frame
+as it arrives. With a ``live_viewer`` (``viz/viewer.py``) every keyframe
+may snapshot the map, and before each frame the loop waits while the
+viewer is paused and applies its queued commands (manual BA, densify,
+runtime config edits, keyframe move and delete).
+
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
 map and the keyframes) lives on that device; the tracker and BA read one
@@ -184,6 +190,16 @@ class BadSlam:
         self.ba_drain_frames: List[int] = []
         # The keyframe frames whose BA call passed the self-calibration gate.
         self.self_calibration_frames: List[int] = []
+        # run_live: per frame, the host seconds from the frame's push by
+        # the capture thread to the end of its process_frame (the
+        # capture-to-pose lag) and the frames captured but not yet
+        # processed at that point (the backlog).
+        self.live_lag_s: List[Tuple[int, float]] = []
+        self.live_backlog: List[int] = []
+        # The live map view (viz.viewer.LiveViewer), set by the caller: a
+        # snapshot after every interval-th keyframe (a device read) and
+        # run controls before each frame.
+        self.live_viewer = None
 
         # Loop closure (badslam_tpu/frontend.py:365-395).
         self.loop_closure_count = 0
@@ -406,17 +422,20 @@ class BadSlam:
     def _steady_run_length(self, i: int, end: int) -> int:
         """The number of frames of the steady run starting at frame i, or 0.
         A steady run is the keyframe_interval - 1 frames between two
-        keyframes, when nothing paces the loop; the JAX package fuses it
-        into one program and drains the queued BA iterations once after
-        it, up to 2 per frame of the run (_process_chunk). The port keeps
-        that schedule, which decides the results, and processes the frames
-        one by one."""
+        keyframes, when nothing paces the loop (no pacing, no live viewer,
+        no live stream); the JAX package fuses it into one program and
+        drains the queued BA iterations once after it, up to 2 per frame of
+        the run (_process_chunk, chunk_eligible). The port keeps that
+        schedule, which decides the results, and processes the frames one
+        by one."""
         c = self.config
         n = c.keyframe_interval - 1
         eligible = (
             c.steady_frame_chunking and n >= 2 and self.input_level == 0
             and c.estimate_poses and self.base_kf_id is not None
+            and self.live_viewer is None
             and c.fps_restriction <= 0 and c.target_frame_rate <= 0
+            and not hasattr(self.video, "wait_for_frame")
             and i + n <= end and (i - c.start_frame) % c.keyframe_interval == 1)
         return n if eligible else 0
 
@@ -459,6 +478,8 @@ class BadSlam:
         self._hist_n = 1
         if self.loop_detector is not None:
             self._loop_detection_step(kf_id, frame_index)
+        if self.live_viewer is not None:
+            self.live_viewer.on_keyframe(self)
         return kf_id
 
     # ------------------------------------------------------------------
@@ -605,6 +626,119 @@ class BadSlam:
                 self.loop_closure_count += 1
 
     # ------------------------------------------------------------------
+    # Live viewer commands (badslam_tpu/frontend.py:1084-1200)
+    # ------------------------------------------------------------------
+
+    # Config fields the viewer's settings panel may edit during a run: the
+    # ones the frame loop reads anew every frame.
+    RUNTIME_CONFIG_FIELDS = (
+        "fps_restriction", "target_frame_rate", "keyframe_interval",
+        "max_num_ba_iterations_per_keyframe", "parallel_ba",
+        "do_surfel_updates", "steady_frame_chunking",
+        "min_free_gpu_memory_mb",
+    )
+
+    def _apply_config_edit(self, assignment: str) -> None:
+        """Apply one `key=value` edit, the value coerced to the field's
+        type; other keys, bad values and a keyframe_interval below 1 are
+        ignored with a warning."""
+        key, _, raw = assignment.partition("=")
+        if key not in self.RUNTIME_CONFIG_FIELDS:
+            _log.warning("ignoring config edit for %r (not runtime-editable)", key)
+            return
+        cur = getattr(self.config, key)
+        try:
+            if isinstance(cur, bool):
+                val = raw.strip().lower() in ("1", "true", "on", "yes")
+            elif isinstance(cur, int):
+                val = int(raw)
+            elif isinstance(cur, float):
+                val = float(raw)
+            else:
+                val = raw
+        except ValueError:
+            _log.warning("ignoring config edit %r (bad value)", assignment)
+            return
+        if key == "keyframe_interval" and val < 1:  # the frame loop divides by it
+            _log.warning("ignoring config edit %r (must be at least 1)", assignment)
+            return
+        setattr(self.config, key, val)
+
+    def _apply_viewer_commands(self) -> None:
+        """Apply the commands queued by the live viewer's /control endpoint,
+        on the SLAM thread (wait_if_paused's on_wake hook): manual BA (4
+        iterations, then the trajectory deformation), densify (surfels for
+        the base keyframe), `set:key=value`, and the keyframe move and
+        delete tools; each but `set:` is followed by a snapshot."""
+        lv = self.live_viewer
+        if lv is None:
+            return
+        for cmd in lv.take_commands():
+            if cmd == "ba" and self.direct_ba.keyframes.count > 0:
+                old = self._remember_keyframe_poses()
+                self.direct_ba.bundle_adjustment(
+                    max_iterations=4, do_surfel_updates=self.config.do_surfel_updates)
+                self._apply_ba_pose_updates(*old)
+                lv.snapshot(self)
+            elif cmd == "densify" and self.base_kf_id is not None:
+                self.direct_ba.create_surfels_for_keyframe(
+                    self.base_kf_id, filter_new_surfels=False)
+                lv.snapshot(self)
+            elif cmd.startswith("set:"):
+                self._apply_config_edit(cmd[len("set:"):])
+            elif cmd.startswith("move_kf:"):
+                self._debug_move_keyframe(cmd[len("move_kf:"):])
+                lv.snapshot(self)
+            elif cmd.startswith("delete_kf:"):
+                self._debug_delete_keyframe(cmd[len("delete_kf:"):])
+                lv.snapshot(self)
+
+    def _debug_move_keyframe(self, spec: str) -> None:
+        """`<slot>:<dx>,<dy>,<dz>`: translate a live keyframe's pose (the
+        reference GUI's manual frame move); the next BA should pull it
+        back."""
+        try:
+            slot_s, _, vec = spec.partition(":")
+            slot = int(slot_s)
+            dx, dy, dz = (float(v) for v in vec.split(","))
+        except ValueError:
+            _log.warning("ignoring malformed move_kf command %r", spec)
+            return
+        ks = self.direct_ba.keyframes
+        if not (0 <= slot < ks.count) or slot in ks.free_slot_set:
+            _log.warning("move_kf: slot %d is not a live keyframe", slot)
+            return
+        pose = ks.pose(slot)
+        moved = se3.SE3(pose.q, pose.t + torch.tensor(
+            [dx, dy, dz], dtype=torch.float32, device=self.device))
+        ks.set_pose(slot, moved)
+        if slot == self.base_kf_id:
+            self.base_kf_global_T_frame = moved
+
+    def _debug_delete_keyframe(self, spec: str) -> None:
+        """`<slot>`: delete a live keyframe other than the odometry base;
+        its slot is recycled and the loop detector forgets it (through the
+        worker's queue when there is one)."""
+        try:
+            slot = int(spec)
+        except ValueError:
+            _log.warning("ignoring malformed delete_kf command %r", spec)
+            return
+        ks = self.direct_ba.keyframes
+        if not (0 <= slot < ks.count) or slot in ks.free_slot_set:
+            _log.warning("delete_kf: slot %d is not a live keyframe", slot)
+            return
+        if slot == self.base_kf_id or ks.live_count <= 1:
+            _log.warning("delete_kf: refusing to delete the odometry base "
+                         "keyframe (slot %d)", slot)
+            return
+        ks.remove_keyframe(slot)
+        if self._loop_thread is not None:
+            self._loop_thread.remove(slot)
+        elif self.loop_detector is not None:
+            self.loop_detector.remove_keyframe(slot)
+
+    # ------------------------------------------------------------------
     # Trajectory deformation after BA
     # ------------------------------------------------------------------
 
@@ -696,6 +830,35 @@ class BadSlam:
                 max_iterations=10, active_keyframe_window=(0, kf_count - 1))
             self._apply_ba_pose_updates(*old)
 
+    def _timed_step(self, i: int, step, marks: list) -> None:
+        """Run step() (frame i's work), timed with CUDA events on a GPU and
+        the host clock on the CPU; read by _collect_frame_times."""
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record(stream)
+            step()
+            ev1.record(stream)
+            marks.append((i, ev0, ev1))
+        else:
+            t1 = time.perf_counter()
+            step()
+            marks.append((i, 1000.0 * (time.perf_counter() - t1)))
+
+    def _collect_frame_times(self, marks: list) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self.frame_times_ms += [(i, ev0.elapsed_time(ev1)) for i, ev0, ev1 in marks]
+        else:
+            self.frame_times_ms += marks
+
+    def _wait_for_viewer(self) -> None:
+        """The live viewer's run controls: block while paused, applying its
+        queued commands (badslam_tpu/frontend.py:1281-1285)."""
+        if self.live_viewer is not None:
+            self.live_viewer.wait_if_paused(on_wake=self._apply_viewer_commands)
+
     def run(self, start: Optional[int] = None, end: Optional[int] = None,
             progress: bool = False) -> None:
         """Process a frame range, with fps_restriction / target_frame_rate
@@ -703,12 +866,12 @@ class BadSlam:
         c = self.config
         start = c.start_frame if start is None else start
         end = min(len(self.video), c.end_frame) if end is None else end
-        on_cuda = self.device.type == "cuda"
         marks = []
         preload = PreLoadThread(self.video)
         run_last, run_n = start - 1, 0
         try:
             for i in range(start, end):
+                self._wait_for_viewer()
                 t0 = time.perf_counter()
                 preload.wait_until_done()
                 if i + 1 < end:
@@ -723,18 +886,7 @@ class BadSlam:
                     if in_run and i == run_last:
                         self._drain_queued_ba(2 * run_n, i)
 
-                if on_cuda:
-                    stream = torch.cuda.current_stream(self.device)
-                    ev0 = torch.cuda.Event(enable_timing=True)
-                    ev1 = torch.cuda.Event(enable_timing=True)
-                    ev0.record(stream)
-                    step()
-                    ev1.record(stream)
-                    marks.append((i, ev0, ev1))
-                else:
-                    t1 = time.perf_counter()
-                    step()
-                    marks.append((i, 1000.0 * (time.perf_counter() - t1)))
+                self._timed_step(i, step, marks)
                 self.video.clear_frame(i)
                 if progress:
                     dt = time.perf_counter() - t0
@@ -755,12 +907,32 @@ class BadSlam:
             preload.stop()
         # Apply the closures still in flight on the detection thread.
         self._drain_loop_detections()
-        if on_cuda:
-            torch.cuda.synchronize(self.device)
-            self.frame_times_ms += [(i, ev0.elapsed_time(ev1))
-                                    for i, ev0, ev1 in marks]
-        else:
-            self.frame_times_ms += marks
+        self._collect_frame_times(marks)
+
+    def run_live(self, progress: bool = False) -> int:
+        """Consume a live stream (io.live_inputs.LiveRGBDVideo): process
+        each frame as the capture thread delivers it, with the default
+        per-frame BA drain, until the stream ends or its capacity is
+        reached (badslam_tpu/frontend.py:1329-1348). Records each frame's
+        time (as `run`), its capture-to-pose lag and the backlog. Returns
+        the number of frames processed; a failed capture raises."""
+        video = self.video
+        marks = []
+        i = 0
+        while video.wait_for_frame(i):
+            self._wait_for_viewer()
+            t0 = time.perf_counter()
+            self._timed_step(i, lambda: self.process_frame(i), marks)
+            done = time.perf_counter()
+            self.live_lag_s.append((i, done - video.push_times[i]))
+            self.live_backlog.append(video.received - (i + 1))
+            video.clear_frame(i)
+            if progress:
+                print(f"frame {i}: {1.0 / max(done - t0, 1e-9):.1f} FPS", flush=True)
+            i += 1
+        self._drain_loop_detections()
+        self._collect_frame_times(marks)
+        return i
 
     def export_trajectory(self, path: str) -> None:
         q = self.traj_q.cpu().numpy()

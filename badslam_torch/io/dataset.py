@@ -9,7 +9,8 @@ Counterpart of ``badslam_tpu/io/dataset.py``. Expected directory layout:
     rgb/*.png, depth/*.png (16-bit, raw_to_float scaling, default 1/5000)
     [trajectory file]   # optional TUM format "ts tx ty tz qx qy qz qw"
 
-Images decode through ``io.png`` (zlib + numpy). Poses are host numpy
+Images decode with libpng through ``io/native_loader.py`` where its
+library loads, else through ``io/png.py`` (zlib + numpy). Poses are host numpy
 ``se3.SE3`` pairs (q wxyz, t), float32. For a distorted calibration
 (radial-tangential or thin-prism fisheye) the video's camera is the pinhole
 covering the source's field of view and ``undistortion_map`` holds the
@@ -18,6 +19,7 @@ covering the source's field of view and ``undistortion_map`` holds the
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -31,18 +33,39 @@ from badslam_torch.geometry.camera import (
     decide_undistorted_camera,
 )
 from badslam_torch.geometry.se3 import SE3
+from badslam_torch.io import native_loader
 from badslam_torch.io.png import read_png
+
+_log = logging.getLogger("badslam_torch")
+
+
+_decoder_logged = False
+
+
+def _read_png(path: str) -> np.ndarray:
+    """Decode with libpng through the native loader where it loads, else
+    with io/png.py (as the JAX package falls back to cv2); logs once which
+    decoder serves."""
+    global _decoder_logged
+    if not _decoder_logged:
+        _decoder_logged = True
+        _log.info("PNG decoder: %s", native_loader.decoder_name())
+    if native_loader.available():
+        img = native_loader.read_png(path)
+        if img is not None:
+            return img
+    return read_png(path)
 
 
 def _imread_depth(path: str) -> np.ndarray:
-    img = read_png(path)
+    img = _read_png(path)
     if img.ndim == 3:
         img = img[..., 0]
     return img.astype(np.uint16)
 
 
 def _imread_color(path: str) -> np.ndarray:
-    img = read_png(path)
+    img = _read_png(path)
     if img.ndim == 3 and img.shape[2] == 2:  # gray + alpha
         img = img[..., 0]
     if img.ndim == 2:

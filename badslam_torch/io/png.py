@@ -6,7 +6,8 @@ gray, 8-bit RGB and 16-bit gray with filter type 0. 16-bit samples are
 big-endian in the file, as the format requires. Palette and interlaced
 images are refused.
 
-Rows with filter types None, Sub and Up decode vectorized. Average and
+Every malformed or truncated file raises ValueError. Rows with filter
+types None, Sub and Up decode vectorized. Average and
 Paeth rows depend on the row's own earlier output and decode in a Python
 loop, which is slow for large images written by encoders that choose them.
 """
@@ -23,9 +24,13 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunks(data: bytes):
+    """The chunks up to IEND. A file that ends before IEND (one still being
+    written, or cut short) raises ValueError, as libpng fails on it."""
     pos = len(_SIGNATURE)
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if pos + 12 + length > len(data):
+            break
         body = data[pos + 8:pos + 8 + length]
         crc = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]
         if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
@@ -34,6 +39,7 @@ def _chunks(data: bytes):
         pos += 12 + length
         if kind == b"IEND":
             return
+    raise ValueError("PNG file ends before IEND (truncated)")
 
 
 def _unfilter_slow(kind: int, line: bytearray, prior: bytes, bpp: int) -> None:
@@ -76,7 +82,10 @@ def decode_png(data: bytes) -> np.ndarray:
     channels = _CHANNELS[color_type]
     bpp = channels * bit_depth // 8
     stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from e
     if raw.size != height * (stride + 1):
         raise ValueError("PNG image data has the wrong size")
     rows = raw.reshape(height, stride + 1)

@@ -394,3 +394,20 @@ def assign_colors(smap: SurfelMap, cam, kstack: KeyframeStack,
     observed = smap.valid & (cnt > 0)
     mean = acc / torch.clamp_min(cnt, 1.0)[:, None]
     return smap._replace(color=torch.where(observed[:, None], mean, smap.color))
+
+
+def assign_descriptor_colors(smap: SurfelMap) -> SurfelMap:
+    """Debug visualization: the two descriptor components as red and green
+    with a contrast stretch (AssignDescriptorColorsCUDA,
+    kernel_assign_colors.cu:233-258): d / 180 -> sign(d) |d|^0.35 ->
+    255.99 (0.5 d + 0.5), clipped to [0, 255]; blue fixed at 127."""
+
+    def stretch(d):
+        d = d / 180.0
+        d = torch.sign(d) * torch.abs(d) ** 0.35
+        return torch.clamp(255.99 * (0.5 * d + 0.5), 0.0, 255.0)
+
+    r = stretch(smap.desc[:, 0])
+    g = stretch(smap.desc[:, 1])
+    b = torch.full_like(r, 127.0)
+    return smap._replace(color=torch.stack([r, g, b], dim=-1))

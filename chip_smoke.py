@@ -107,10 +107,32 @@ failure, so any failure exits non-zero before the last line is printed):
    keyframe) on both devices: keyframe poses and the trajectory to 1e-4,
    one closure on each, the drift more than halved, and a candidate the
    necessity gate rejects leaving every pose bit-identical on both.
-17. The nvidia-smi line again, one JSON line of the kernels, then the last
+17. Live input from a directory (the live path): the slice's 30 VGA
+   frames (PNGs written by io/png.py) dropped into a directory at 30 FPS
+   by a writer thread while `cli.run --live dir:` follows it on cuda with
+   the live viewer (a snapshot per keyframe, HTTP on a free port) and the
+   HTML export. Checks every frame processed, K1 once per frame at
+   480x640, K2 launched, ATE below 1e-3 m, a snapshot per keyframe plus
+   the final one, the HTML above 10 kB with "kf_poses"; prints per-frame
+   medians, the capture-to-pose lag (median, p90, max), the largest
+   backlog, PNG decode ms per VGA depth and color frame with the decoder
+   that served, ms per snapshot, peak memory and launches.
+18. Live input over TCP: the same frames sent with `send_frame` at 30 FPS
+   to `cli.run --live tcp:<port>`; poses held to phase 17's at 1e-4.
+19. Viewer controls on the card: on phase 17's finished state, `ba`,
+   `densify`, `set:`, `move_kf:` and `delete_kf:` sent over HTTP /control
+   to a LiveViewer on a free port and applied by the front end; checks
+   each effect, and that deleting the base keyframe and malformed commands
+   change nothing; prints each command's ms.
+20. The card against the CPU on a live stream: phase 7's 160x120, 13-frame
+   sequence as a finished directory stream on both devices (poses to
+   1e-4, surfel counts within 1%).
+21. The vendor-SDK inputs: RealSense, Azure Kinect and Structure Core each
+   refuse to start without their SDK (RuntimeError).
+22. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
 
-Each of phases 8-16 prints the card's name and power limit beside its
+Each of phases 8-21 prints the card's name and power limit beside its
 numbers.
 """
 
@@ -118,11 +140,15 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -135,7 +161,13 @@ from badslam_torch.frontend import BadSlam
 from badslam_torch.geometry import se3
 from badslam_torch.geometry import se3_np as s3
 from badslam_torch.geometry.camera import PinholeCamera
-from badslam_torch.io.dataset import load_tum_dataset, load_tum_trajectory
+from badslam_torch.io import live_inputs, native_loader
+from badslam_torch.io.dataset import (
+    _imread_color,
+    _imread_depth,
+    load_tum_dataset,
+    load_tum_trajectory,
+)
 from badslam_torch.io.state import load_calibration
 from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.ops import interp, kernels
@@ -146,6 +178,7 @@ from badslam_torch.ops.preprocess import (
     shift2d,
     undistort_image,
 )
+from badslam_torch.viz.viewer import LiveViewer
 
 KERNEL_ATOL = 1e-5
 POSE_ATOL = 1e-4
@@ -552,12 +585,15 @@ def _ply_points(path: str) -> int:
 
 
 def _run_slam(data, workdir, tag, device, flags):
-    """The CLI (badslam_torch.cli.run, what cli.main runs) on one device;
-    returns (BadSlam, poses, q, t, summary, launches)."""
+    """The CLI (badslam_torch.cli.run, what cli.main runs) on one device,
+    on a dataset directory or on the source arguments `data` (a list, e.g.
+    ["--live", "dir:<path>"]); returns (BadSlam, poses, q, t, summary,
+    launches)."""
     poses_path = os.path.join(workdir, f"{tag}_poses.txt")
     times_path = os.path.join(workdir, f"{tag}_times.json")
+    source = data if isinstance(data, list) else [data]
     kernels.reset_launch_counts()
-    slam = cli.run([data, "--device", device, *flags, "--export_poses", poses_path,
+    slam = cli.run([*source, "--device", device, *flags, "--export_poses", poses_path,
                     "--export_frame_times", times_path])
     launches = dict(kernels.launch_counts)
     poses, q, t = _poses(poses_path)
@@ -1225,6 +1261,293 @@ def phase_cpu_loop(workdir: str) -> None:
         raise AssertionError("CPU and CUDA disagree on the injected loop closure")
 
 
+# Live input (phases 17-21): the slice's 30 VGA frames arrive at 30 FPS.
+LIVE_FPS = 30.0
+
+
+def _stream_names(n: int):
+    return [f"{i / LIVE_FPS:.6f}.png" for i in range(n)]
+
+
+def _stream_dir(path: str, calibration: str) -> None:
+    os.makedirs(os.path.join(path, "depth"))
+    os.makedirs(os.path.join(path, "rgb"))
+    with open(calibration) as src, open(os.path.join(path, "calibration.txt"), "w") as dst:
+        dst.write(src.read())
+
+
+def _dataset_pngs(data: str):
+    """The PNG bytes of a written dataset's frames: [(depth, rgb)]."""
+    with open(os.path.join(data, "associated.txt")) as f:
+        rows = [line.split() for line in f if line.strip()]
+    out = []
+    for row in rows:
+        with open(os.path.join(data, row[3]), "rb") as fd, \
+                open(os.path.join(data, row[1]), "rb") as fc:
+            out.append((fd.read(), fc.read()))
+    return out
+
+
+def _directory_writer(path: str, pngs) -> threading.Thread:
+    """A camera process dropping each frame's PNG pair (written by
+    io/png.py) into `path` at LIVE_FPS, then `end`."""
+    def write():
+        t0 = time.perf_counter()
+        for i, (name, (depth, rgb)) in enumerate(zip(_stream_names(len(pngs)), pngs)):
+            time.sleep(max(0.0, t0 + i / LIVE_FPS - time.perf_counter()))
+            with open(os.path.join(path, "depth", name), "wb") as f:
+                f.write(depth)
+            with open(os.path.join(path, "rgb", name), "wb") as f:
+                f.write(rgb)
+        open(os.path.join(path, "end"), "w").close()
+
+    t = threading.Thread(target=write, daemon=True)
+    t.start()
+    return t
+
+
+class _SnapshotProbe:
+    """For the duration of a run: the host ms of each live-viewer snapshot
+    (device reads included: a snapshot synchronizes)."""
+
+    def __enter__(self):
+        self.ms = []
+        self._orig = LiveViewer.snapshot
+        orig, probe = self._orig, self
+
+        def timed(viewer, slam):
+            t0 = time.perf_counter()
+            orig(viewer, slam)
+            probe.ms.append(1000.0 * (time.perf_counter() - t0))
+
+        LiveViewer.snapshot = timed
+        return self
+
+    def __exit__(self, *exc):
+        LiveViewer.snapshot = self._orig
+
+
+def _lag_summary(summary) -> str:
+    lag = np.array([ms for _, ms in summary["live_lag_ms"]])
+    return (f"capture-to-pose lag median {np.median(lag):.1f} ms, p90 "
+            f"{np.percentile(lag, 90):.1f} ms, max {lag.max():.1f} ms; largest backlog "
+            f"{max(summary['live_backlog'])} frames")
+
+
+def _decode_ms(path: str, reader) -> float:
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        reader(path)
+        times.append(1000.0 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_live(workdir: str, data: str) -> tuple:
+    """The slice's 30 VGA frames written into a directory at 30 FPS while
+    `cli.run --live dir:` follows it on cuda with the live viewer (a
+    snapshot per keyframe, on a free port) and the HTML export."""
+    gt = synthetic.smooth_trajectory(FRAMES)
+    path = os.path.join(workdir, "live_dir")
+    _stream_dir(path, os.path.join(data, "calibration.txt"))
+    pngs = _dataset_pngs(data)
+    view = os.path.join(workdir, "live_view")
+    html = os.path.join(workdir, "live_map.html")
+    torch.cuda.reset_peak_memory_stats()
+    writer = _directory_writer(path, pngs)
+    t0 = time.perf_counter()
+    with _SnapshotProbe() as probe:
+        slam, poses, q, t, summary, launches = _run_slam(
+            ["--live", f"dir:{path}"], workdir, "live", "cuda",
+            SLICE_FLAGS + ["--live_viewer_dir", view, "--live_viewer_port", "0",
+                           "--live_viewer_interval", "1", "--export_viewer", html])
+    wall = time.perf_counter() - t0
+    writer.join(timeout=60)
+    shapes = _shapes()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ate = synthetic.ate_rmse(poses, gt)
+    names = _stream_names(FRAMES)
+    depth_ms = _decode_ms(os.path.join(path, "depth", names[0]), _imread_depth)
+    color_ms = _decode_ms(os.path.join(path, "rgb", names[0]), _imread_color)
+    with open(os.path.join(view, "map_data.json")) as f:
+        generation = json.load(f)["generation"]
+    with open(html) as f:
+        html_text = f.read()
+    keyframes = len(summary["keyframe_frames"])
+    print(f"live (dir): {FRAMES} frames at {WIDTH}x{HEIGHT} arriving at {LIVE_FPS:.0f} FPS "
+          f"on cuda, {wall:.1f} s wall; ATE {ate:.3e} m (limit {ATE_LIMIT_M}); "
+          f"{_frame_medians(summary)}; {_lag_summary(summary)}; PNG decode per VGA frame "
+          f"(host, median of 10) depth {depth_ms:.2f} ms, color {color_ms:.2f} ms with "
+          f"{native_loader.decoder_name()}; viewer snapshots {len(probe.ms)} "
+          f"({_ms_summary(probe.ms)}), map_data.json generation {generation}, HTML "
+          f"{len(html_text)} bytes written in {summary['export_viewer_s'] * 1000:.1f} ms; "
+          f"keyframes {keyframes}; BA iterations per call {summary['ba_iterations']}; "
+          f"surfels {summary['surfels']}; peak memory {peak_mb:.1f} MiB; launches "
+          f"{launches}; K1 shapes {shapes[kernels.BILATERAL]} ({SMI})")
+    checks = {
+        f"{FRAMES} frames processed": len(poses) == len(summary["frame_ms"]) == FRAMES,
+        "K1 once per frame at 480x640": shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH): FRAMES},
+        "K2 launched": launches[kernels.GATHER] > 0,
+        "ATE below the limit": ate < ATE_LIMIT_M,
+        "a snapshot per keyframe and a final one":
+            generation == len(probe.ms) == keyframes + 1 and keyframes >= 3,
+        "HTML above 10 kB with kf_poses": len(html_text) > 10_000 and '"kf_poses"' in html_text,
+        "a lag per frame": len(summary["live_lag_ms"]) == FRAMES,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"live checks failed: {failed}")
+    return slam, q, t, launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_tcp(workdir: str, data: str, q_dir, t_dir) -> None:
+    """The same 30 frames sent with send_frame at 30 FPS to `cli.run --live
+    tcp:<port>`; poses held to the directory run."""
+    video = load_tum_dataset(data)
+    frames = [(video.depth_u16(i), video.color_u8(i)) for i in range(FRAMES)]
+    port = _free_port()
+    sent = []
+
+    def client():
+        deadline = time.monotonic() + 60.0
+        while True:  # the CLI opens the port once it has parsed its flags
+            try:
+                sock = socket.create_connection(("127.0.0.1", port), timeout=5)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+        with sock:
+            t0 = time.perf_counter()
+            for i, (depth, rgb) in enumerate(frames):
+                time.sleep(max(0.0, t0 + i / LIVE_FPS - time.perf_counter()))
+                live_inputs.send_frame(sock, i / LIVE_FPS, depth, rgb, video.camera)
+                sent.append(i)
+
+    sender = threading.Thread(target=client, daemon=True)
+    sender.start()
+    t0 = time.perf_counter()
+    _, poses, q, t, summary, launches = _run_slam(
+        ["--live", f"tcp:{port}"], workdir, "live_tcp", "cuda", SLICE_FLAGS)
+    wall = time.perf_counter() - t0
+    sender.join(timeout=60)
+    dq, dt = float(np.abs(q - q_dir).max()), float(np.abs(t - t_dir).max())
+    print(f"live (tcp): {len(sent)} frames sent at {LIVE_FPS:.0f} FPS, {len(poses)} "
+          f"processed on cuda in {wall:.1f} s wall; against the directory run max |dq| "
+          f"{dq:.3e}, max |dt| {dt:.3e} (atol {POSE_ATOL}); {_frame_medians(summary)}; "
+          f"{_lag_summary(summary)}; launches {launches} ({SMI})")
+    if not (len(sent) == len(poses) == FRAMES and dq <= POSE_ATOL and dt <= POSE_ATOL
+            and launches[kernels.BILATERAL] == FRAMES):
+        raise AssertionError("the TCP stream disagrees with the directory stream")
+
+
+def phase_viewer_controls(workdir: str, slam) -> None:
+    """tests/test_viewer.py:140-185 on the card: commands sent over HTTP
+    /control to a LiveViewer on a free port, applied on this thread by the
+    front end, on the finished directory run's state."""
+    viewer = LiveViewer(os.path.join(workdir, "controls"), port=0, interval=1)
+    slam.live_viewer = viewer
+    ba, ks = slam.direct_ba, slam.direct_ba.keyframes
+    base = f"http://127.0.0.1:{viewer.port}/control?cmd="
+
+    def send(*cmds) -> float:
+        """Queue the commands over HTTP and apply them; the host ms to
+        apply (BA, densify, snapshots; synchronized)."""
+        for cmd in cmds:
+            urllib.request.urlopen(base + urllib.parse.quote(cmd), timeout=10).read()
+        t0 = time.perf_counter()
+        viewer.wait_if_paused(on_wake=slam._apply_viewer_commands)
+        torch.cuda.synchronize()
+        return 1000.0 * (time.perf_counter() - t0)
+
+    try:
+        calls, surfels, gen = len(ba.iterations_run), ba.surfel_count, viewer.generation
+        ms_ba = send("ba")
+        ms_densify = send("densify")
+        send("set:keyframe_interval=5", "set:max_surfel_count=1")
+        slot = next(s for s in ks.live_slots_in_time_order() if s != slam.base_kf_id)
+        before = ks.t[slot].cpu().clone()
+        ms_move = send(f"move_kf:{slot}:0.05,0,0")
+        moved = (ks.t[slot].cpu() - before).numpy()
+        live = ks.live_count
+        ms_delete = send(f"delete_kf:{slot}")
+        after_delete, gen_commands = ks.live_count, viewer.generation
+        q0, t0_, live0 = ks.q.clone(), ks.t.clone(), ks.live_count
+        send(f"delete_kf:{slam.base_kf_id}", "move_kf:banana", "delete_kf:xyz",
+             "move_kf:99:1,0,0", "set:keyframe_interval=x")
+        unchanged = (torch.equal(ks.q, q0) and torch.equal(ks.t, t0_)
+                     and ks.live_count == live0 and slam.config.keyframe_interval == 5)
+    finally:
+        viewer.close()
+        slam.live_viewer = None
+    print(f"viewer controls over HTTP on cuda: ba {ms_ba:.1f} ms ({ba.iterations_run[calls]} "
+          f"iterations), densify {ms_densify:.1f} ms (surfels {surfels} -> {ba.surfel_count}), "
+          f"move_kf {ms_move:.1f} ms (slot {slot} moved by {moved}), delete_kf {ms_delete:.1f} "
+          f"ms (live keyframes {live} -> {after_delete}), each with its snapshot; "
+          f"generation {gen} -> {gen_commands}; refused commands left the state "
+          f"unchanged: {unchanged} ({SMI})")
+    checks = {
+        "BA ran": len(ba.iterations_run) == calls + 1,
+        "densify added surfels": ba.surfel_count > surfels,
+        "config edited through the whitelist": (slam.config.keyframe_interval == 5
+                                                and slam.config.max_surfel_count != 1),
+        "keyframe moved 0.05 m": abs(moved[0] - 0.05) < 1e-6 and np.abs(moved[1:]).max() < 1e-6,
+        "live count dropped by one": after_delete == live - 1,
+        "a snapshot per command but set:": gen_commands == gen + 4,
+        "base delete and malformed commands changed nothing": unchanged,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"viewer control checks failed: {failed}")
+
+
+def phase_cpu_live(workdir: str) -> None:
+    """phase_cpu's 160x120 sequence as a finished directory stream through
+    `cli.run --live dir:` on the card and on the CPU."""
+    small = os.path.join(workdir, "small")
+    path = os.path.join(workdir, "small_live")
+    _stream_dir(path, os.path.join(small, "calibration.txt"))
+    for name, (depth, rgb) in zip(_stream_names(SMALL_FRAMES), _dataset_pngs(small)):
+        with open(os.path.join(path, "depth", name), "wb") as f:
+            f.write(depth)
+        with open(os.path.join(path, "rgb", name), "wb") as f:
+            f.write(rgb)
+    open(os.path.join(path, "end"), "w").close()
+    runs = {dev: _run(["--live", f"dir:{path}"], workdir, f"small_live_{dev}", dev, SMALL_FLAGS)
+            for dev in ("cuda", "cpu")}
+    (_, qg, tg, sg, lg), (_, qc, tc, sc, _) = runs["cuda"], runs["cpu"]
+    dq, dt = float(np.abs(qg - qc).max()), float(np.abs(tg - tc).max())
+    ds = abs(sg["surfels"] - sc["surfels"]) / max(sc["surfels"], 1)
+    print(f"cpu vs cuda, live 160x120 BA stream ({SMALL_FRAMES} frames): max |dq| {dq:.3e}, "
+          f"max |dt| {dt:.3e} (atol {POSE_ATOL}); surfels cuda {sg['surfels']} cpu "
+          f"{sc['surfels']} (rel diff {ds:.4f}, limit {SURFEL_RTOL}); cuda launches {lg} ({SMI})")
+    if not (len(qg) == len(qc) == SMALL_FRAMES and dq <= POSE_ATOL and dt <= POSE_ATOL
+            and ds <= SURFEL_RTOL):
+        raise AssertionError("CPU and CUDA disagree on the live stream")
+
+
+def phase_sdk() -> None:
+    """The vendor-SDK inputs refuse to start without their SDK."""
+    messages = {}
+    for spec in ("realsense", "k4a", "structure"):
+        try:
+            live_inputs.open_live_input(spec, BadSlamConfig()).start()
+        except RuntimeError as e:
+            messages[spec] = str(e)
+        else:
+            raise AssertionError(f"the {spec} input started without its SDK")
+    print(f"sdk inputs: {messages} ({SMI})")
+    if not all("requires its SDK" in m for m in messages.values()):
+        raise AssertionError("an SDK input refused with another error")
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -1266,11 +1589,17 @@ def main(argv=None) -> int:
             _phase("cpu_calibration", phase_cpu_calibration, workdir)
             loop_launches = _phase("loop", phase_loop, workdir, off_job)
             _phase("cpu_loop", phase_cpu_loop, workdir)
+            live_slam, q_live, t_live, live_launches = _phase("live", phase_live, workdir, data)
+            _phase("tcp", phase_tcp, workdir, data, q_live, t_live)
+            _phase("viewer_controls", phase_viewer_controls, workdir, live_slam)
+            _phase("cpu_live", phase_cpu_live, workdir)
+            _phase("sdk", phase_sdk)
         finally:
             if off_job.poll() is None:
                 off_job.kill()
                 off_job.wait()
     print(f"launches on the slice's path (loop detection off): {slice_launches}")
+    print(f"launches on the live path (directory stream with the viewer): {live_launches}")
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
         # K1 and K2 are on the SLAM path: their launches are those of the

@@ -21,6 +21,8 @@ Tolerances:
     are threshold tests on float values).
   * a loop closure's gates, pose graph and deformation on CUDA vs CPU:
     poses and trajectory atol 1e-5, the same decisions.
+  * a live directory stream through run_live on CUDA vs CPU: poses atol
+    1e-4, surfel counts within 1%.
 """
 
 import numpy as np
@@ -410,3 +412,65 @@ def test_loop_closure_cuda_matches_cpu(cuda):
     for name in ("kq", "kt", "traj_q", "traj_t"):
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), atol=1e-5, rtol=0)
     assert float((card.kt.cpu() - torch.from_numpy(t)).abs().max()) > 1e-2
+
+
+def _live_run(device, path, viewer_dir=None):
+    """run_live over a finished directory stream (tests/test_torch_live.py's
+    96x72 frames and configuration) on one device."""
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch.frontend import BadSlam
+    from badslam_torch.io.live_inputs import open_live_input
+    from badslam_torch.viz.viewer import LiveViewer
+
+    inp = open_live_input(f"dir:{path}")
+    try:
+        video = inp.start(max_frames=32)
+        slam = BadSlam(BadSlamConfig(num_scales=3, keyframe_interval=4,
+                                     max_num_ba_iterations_per_keyframe=2,
+                                     max_surfel_count=1 << 12, tracking_max_iterations=8,
+                                     enable_loop_detection=False), video, device)
+        if viewer_dir is not None:
+            slam.live_viewer = LiveViewer(viewer_dir, port=None, interval=1)
+        processed = slam.run_live()
+    finally:
+        inp.stop()
+    return slam, processed
+
+
+@pytest.mark.cuda
+def test_run_live_cuda_matches_cpu(cuda, tmp_path):
+    """A live directory stream on the card against the CPU: poses atol 1e-4,
+    surfel counts within 1%, K1 once per frame and K2 launched on the card;
+    the live viewer's snapshots (device reads) on the card."""
+    import json
+    import os
+
+    from badslam_torch.io.png import write_png
+
+    cam = synthetic.default_camera(96, 72)
+    scene = synthetic.random_plane_scene(np.random.default_rng(0), 3)
+    path = str(tmp_path / "stream")
+    os.makedirs(os.path.join(path, "depth"))
+    os.makedirs(os.path.join(path, "rgb"))
+    with open(os.path.join(path, "calibration.txt"), "w") as f:
+        f.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy}\n")
+    for i, pose in enumerate(synthetic.smooth_trajectory(8, scale=0.003)):
+        depth, inten = synthetic.render_scene(cam, scene, pose)
+        g = np.clip(inten * 255 + 0.5, 0, 255).astype(np.uint8)
+        write_png(os.path.join(path, "depth", f"{i:03d}.png"),
+                  np.clip(depth * 5000.0, 0, 65535).astype(np.uint16))
+        write_png(os.path.join(path, "rgb", f"{i:03d}.png"), np.stack([g, g, g], -1))
+    open(os.path.join(path, "end"), "w").close()
+
+    kernels.reset_launch_counts()
+    card, n_card = _live_run(cuda, path, str(tmp_path / "view"))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[kernels.BILATERAL] == 8
+    assert kernels.launch_counts[kernels.GATHER] > 0
+    cpu, n_cpu = _live_run("cpu", path)
+    assert n_card == n_cpu == 8
+    torch.testing.assert_close(card.traj_q[:8].cpu(), cpu.traj_q[:8], atol=1e-4, rtol=0)
+    torch.testing.assert_close(card.traj_t[:8].cpu(), cpu.traj_t[:8], atol=1e-4, rtol=0)
+    assert abs(card.direct_ba.surfel_count - cpu.direct_ba.surfel_count) <= 0.01 * cpu.direct_ba.surfel_count
+    with open(tmp_path / "view" / "map_data.json") as f:
+        assert json.load(f)["generation"] == 2  # one snapshot per keyframe

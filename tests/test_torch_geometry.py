@@ -121,6 +121,8 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.loop.pose_graph, badslam_torch.loop.ransac\n"
         "import badslam_torch.loop.thread, badslam_torch.loop.vocabulary\n"
         "import badslam_torch.geometry.se3_np\n"
+        "import badslam_torch.io.live_inputs, badslam_torch.io.native_loader\n"
+        "import badslam_torch.viz.viewer, badslam_torch.utils.convergence\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"

@@ -193,25 +193,28 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
     np.testing.assert_allclose(slam.traj_q[0].numpy(), gt[0].q, atol=1e-6)
 
 
-@pytest.mark.parametrize("argv, what", [
-    (["--n_devices", "2"], "multi-device slice"),
-    (["--pyramid_level_for_depth", "1"], "must equal pyramid_level_for_color"),
+@pytest.mark.parametrize("argv, error, what", [
+    (["--n_devices", "2"], NotImplementedError, "multi-device slice"),
+    (["--pyramid_level_for_depth", "1"], NotImplementedError,
+     "must equal pyramid_level_for_color"),
     (["--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
-      "--median_filter_and_densify_iterations", "1"], "median filter"),
-    (["--export_point_cloud", "x.ply", "--export_viewer", "v"], "map viewer"),
-    (["--save_timings", "t.txt"], "timing rows"),
-    (["--live_viewer_dir", "v"], "map viewer"),
-    (["--live", "dir:x"], "live input"),
-    (["--autotune"], "tuned variants"),
+      "--median_filter_and_densify_iterations", "1"], NotImplementedError, "median filter"),
+    (["--export_point_cloud", "x.ply", "--live", "webcam"], ValueError, "unknown live input"),
+    (["--save_timings", "t.txt"], NotImplementedError, "timing rows"),
+    (["--live_viewer_dir", "v", "--live", "k4a"], RuntimeError, "requires its SDK"),
+    (["--live", "dir:x", "--load_state", "s.npz"], ValueError, "cannot resume a --live stream"),
+    (["--autotune"], NotImplementedError, "tuned variants"),
 ], ids=["n_devices", "pyramid_level", "median", "point_cloud", "save_timings",
         "live_viewer", "live", "autotune"])
-def test_later_slices_are_refused(tmp_path, argv, what):
-    """What the port still refuses, before it reads the dataset: the later
-    slices' settings and flags, and the JAX package's own refusals of the
-    input pyramid (unequal levels; a level with the median filter)."""
+def test_later_slices_are_refused(tmp_path, argv, error, what):
+    """What the port refuses, before it reads the dataset: the later
+    slices' settings and flags, the JAX package's own refusals of the input
+    pyramid (unequal levels; a level with the median filter), and live
+    sources it cannot open (an unknown one, an SDK input without its SDK)
+    or resume (a snapshot needs the frames a live stream does not keep)."""
     base = ["--max_num_ba_iterations_per_keyframe", "0",
             "--enable_loop_detection", "false"]
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(error, match=what):
         torch_main([str(tmp_path), "--device", "cpu", *base, *argv])
 
 
