@@ -59,6 +59,45 @@ def _renormalized(normal, nsum, cnt, use):
 # ---------------------------------------------------------------------------
 # Activation + normals from one association pass
 # ---------------------------------------------------------------------------
+#
+# Each stage is a per-batch accumulation (`*_chunk`, over a KeyframeStack
+# of up to KEYFRAME_BATCH keyframes) and a per-surfel finish, as in the JAX
+# package (_normals_chunk/_normals_finish, _pos1d_chunk, _pos3d_chunk): the
+# multi-device path (parallel/streamed.py) feeds the same bodies batches
+# whose planes come from the shard that holds them.
+
+
+def _act_normals_init(smap):
+    n = smap.capacity
+    dev = smap.pos.device
+    return (torch.zeros(n, dtype=torch.bool, device=dev),
+            torch.zeros((n, 3), dtype=smap.normal.dtype, device=dev),
+            torch.zeros(n, dtype=torch.int64, device=dev))
+
+
+def _act_normals_chunk(carry, b: KeyframeStack, active_strict, participating,
+                       smap, cam, baseline_fx, update_normals):
+    """One batch of keyframes `b` with their strictly-active and
+    participating flags: carry = (active, normal sum, observation count)."""
+    act, nsum, cnt = carry
+    _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid, b.q, b.t,
+                        b.depth, b.nx, b.ny, baseline_fx)
+    act = act | torch.any(a.valid & active_strict[:, None], dim=0)
+    if update_normals:
+        hit = a.valid & participating[:, None]
+        gn = _measured_normals(b.q, b.nx, b.ny, a)
+        nsum = nsum + torch.where(hit[..., None], gn, 0.0).sum(dim=0)
+        cnt = cnt + hit.sum(dim=0)
+    return act, nsum, cnt
+
+
+def _act_normals_finish(smap, carry, update_normals):
+    act, nsum, cnt = carry
+    act = act & smap.valid
+    smap = smap._replace(active=act)
+    if not update_normals:
+        return smap
+    return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, act))
 
 
 def update_activation_and_normals(smap, cam, kstack: KeyframeStack,
@@ -71,44 +110,39 @@ def update_activation_and_normals(smap, cam, kstack: KeyframeStack,
     keyframes, from one association pass. Associations use the validity
     mask alone, which is exact: a surfel's association does not depend on
     its active flag."""
-    n = smap.capacity
-    dev = smap.pos.device
-    act = torch.zeros(n, dtype=torch.bool, device=dev)
-    nsum = torch.zeros((n, 3), dtype=smap.normal.dtype, device=dev)
-    cnt = torch.zeros(n, dtype=torch.int64, device=dev)
+    carry = _act_normals_init(smap)
     visit = participating | active_strict if update_normals else active_strict
     for s in keyframe_batches(visit):
-        _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid,
-                            kstack.q[s], kstack.t[s], kstack.depth[s],
-                            kstack.nx[s], kstack.ny[s], baseline_fx)
-        act = act | torch.any(a.valid & active_strict[s][:, None], dim=0)
-        if update_normals:
-            hit = a.valid & participating[s][:, None]
-            gn = _measured_normals(kstack.q[s], kstack.nx[s], kstack.ny[s], a)
-            nsum = nsum + torch.where(hit[..., None], gn, 0.0).sum(dim=0)
-            cnt = cnt + hit.sum(dim=0)
-    act = act & smap.valid
-    smap = smap._replace(active=act)
-    if not update_normals:
-        return smap
-    return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, act))
+        carry = _act_normals_chunk(carry, kstack.rows(s), active_strict[s],
+                                   participating[s], smap, cam, baseline_fx,
+                                   update_normals)
+    return _act_normals_finish(smap, carry, update_normals)
+
+
+def _normals_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
+    """One batch of the normal averaging over the active surfels:
+    carry = (normal sum, observation count)."""
+    nsum, cnt = carry
+    _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
+                        b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
+    gn = _measured_normals(b.q, b.nx, b.ny, a)
+    return (nsum + torch.where(a.valid[..., None], gn, 0.0).sum(dim=0),
+            cnt + a.valid.sum(dim=0))
+
+
+def _normals_finish(smap, carry):
+    nsum, cnt = carry
+    return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, smap.valid))
 
 
 def update_surfel_normals(smap, cam, kstack: KeyframeStack, baseline_fx: float):
     """Step (a) alone: re-estimate the active surfels' normals from the
     keyframes of kstack.mask."""
-    n = smap.capacity
-    dev = smap.pos.device
-    nsum = torch.zeros((n, 3), dtype=smap.normal.dtype, device=dev)
-    cnt = torch.zeros(n, dtype=torch.int64, device=dev)
+    _, nsum, cnt = _act_normals_init(smap)
+    carry = (nsum, cnt)
     for s in keyframe_batches(kstack.mask):
-        _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
-                            kstack.q[s], kstack.t[s], kstack.depth[s],
-                            kstack.nx[s], kstack.ny[s], baseline_fx)
-        gn = _measured_normals(kstack.q[s], kstack.nx[s], kstack.ny[s], a)
-        nsum = nsum + torch.where(a.valid[..., None], gn, 0.0).sum(dim=0)
-        cnt = cnt + a.valid.sum(dim=0)
-    return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, smap.valid))
+        carry = _normals_chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
+    return _normals_finish(smap, carry)
 
 
 # ---------------------------------------------------------------------------
@@ -128,83 +162,110 @@ def _depth_residual(cam, a, dtype):
     return r, -inv_stddev
 
 
+def _pos_init(smap, use_descriptor):
+    """Zeroed accumulators: (H, b) along the normal, or the 9 entries of
+    the joint position + descriptor system."""
+    def z():
+        return torch.zeros(smap.capacity, dtype=smap.pos.dtype, device=smap.pos.device)
+
+    return tuple(z() for _ in range(9 if use_descriptor else 2))
+
+
+def _pos1d_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
+    """One batch of the 1-D position system from depth residuals alone."""
+    H, bb = carry
+    _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
+                        b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
+    r, J = _depth_residual(cam, a, smap.pos.dtype)
+    w = torch.where(a.valid, robust.depth_residual_weight(r), 0.0)
+    return H + torch.sum(w * J * J, dim=0), bb + torch.sum(w * r * J, dim=0)
+
+
+def _pos1d_finish(smap, carry):
+    H, b = carry
+    upd = smap.valid & smap.active & (H > 1e-6)
+    step = torch.where(upd, -b / torch.clamp_min(H, 1e-6), 0.0)
+    return smap._replace(pos=smap.pos + step[:, None] * smap.normal)
+
+
+def _pos3d_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth):
+    """One batch of the joint position + descriptor system (3x3 per surfel)."""
+    dtype = smap.pos.dtype
+    H00, H01, H02, H11, H12, H22, b0, b1, b2 = carry
+    ftg, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
+                          b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
+    hit = a.valid
+    if use_depth:
+        r, Jd = _depth_residual(cam, a, dtype)
+        w = torch.where(hit, robust.depth_residual_weight(r), 0.0)
+        H00 = H00 + torch.sum(w * Jd * Jd, dim=0)
+        b0 = b0 + torch.sum(w * r * Jd, dim=0)
+
+    # Descriptor residuals at the tangent points.
+    inten = b.intensity
+    t1x, t1y, t2x, t2y, t_ok = tangent_projections(
+        smap.pos, smap.normal, smap.radius2, ftg.q, ftg.t, cam)
+    dhit = hit & t_ok
+    ic, c_dx, c_dy = bilinear_and_gradient(inten, a.pxy_x, a.pxy_y)
+    i1, t1_dx, t1_dy = bilinear_and_gradient(inten, t1x, t1y)
+    i2, t2_dx, t2_dy = bilinear_and_gradient(inten, t2x, t2y)
+    r1 = torch.where(dhit, 180.0 * (i1 - ic) - smap.desc[:, 0], 0.0)
+    r2 = torch.where(dhit, 180.0 * (i2 - ic) - smap.desc[:, 1], 0.0)
+    w1 = torch.where(dhit, robust.descriptor_residual_weight(r1), 0.0)
+    w2 = torch.where(dhit, robust.descriptor_residual_weight(r2), 0.0)
+
+    # d residual / d (position along the normal), fx/fy folded into the
+    # terms (kernel_opt_geometry.cu:188-196).
+    gx1 = 180.0 * (t1_dx - c_dx)
+    gy1 = 180.0 * (t1_dy - c_dy)
+    gx2 = 180.0 * (t2_dx - c_dx)
+    gy2 = 180.0 * (t2_dy - c_dy)
+    safe_z = torch.where(dhit, a.lz, 1.0)
+    term1 = -cam.fx * (a.nlx * a.lz - a.nlz * a.lx)
+    term2 = -cam.fy * (a.nly * a.lz - a.nlz * a.ly)
+    term3 = 1.0 / (safe_z * safe_z)
+    jp1 = -(gx1 * term1 + gy1 * term2) * term3
+    jp2 = -(gx2 * term1 + gy2 * term2) * term3
+    jd = -1.0  # d residual / d descriptor
+
+    H00 = H00 + torch.sum(w1 * jp1 * jp1 + w2 * jp2 * jp2, dim=0)
+    H01 = H01 + torch.sum(w1 * jp1 * jd, dim=0)
+    H02 = H02 + torch.sum(w2 * jp2 * jd, dim=0)
+    H11 = H11 + torch.sum(w1 * jd * jd, dim=0)
+    H22 = H22 + torch.sum(w2 * jd * jd, dim=0)
+    b0 = b0 + torch.sum(w1 * r1 * jp1 + w2 * r2 * jp2, dim=0)
+    b1 = b1 + torch.sum(w1 * r1 * jd, dim=0)
+    b2 = b2 + torch.sum(w2 * r2 * jd, dim=0)
+    return H00, H01, H02, H11, H12, H22, b0, b1, b2
+
+
+def _pos_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth,
+               use_descriptor):
+    if use_descriptor:
+        return _pos3d_chunk(carry, b, smap, cam, baseline_fx, use_depth)
+    return _pos1d_chunk(carry, b, smap, cam, baseline_fx)
+
+
+def _pos_finish(smap, carry, use_descriptor):
+    if use_descriptor:
+        return _pos3d_finish(smap, carry)
+    return _pos1d_finish(smap, carry)
+
+
 def _position_step(smap, cam, kstack: KeyframeStack, baseline_fx: float,
                    use_depth: bool, use_descriptor: bool):
     """Sum the per-surfel position (+descriptor) Gauss-Newton system over
     the masked keyframes and solve it."""
-    n = smap.capacity
-    dev = smap.pos.device
-    dtype = smap.pos.dtype
+    carry = _pos_init(smap, use_descriptor)
+    for s in keyframe_batches(kstack.mask):
+        carry = _pos_chunk(carry, kstack.rows(s), smap, cam, baseline_fx,
+                           use_depth, use_descriptor)
+    return _pos_finish(smap, carry, use_descriptor)
+
+
+def _pos3d_finish(smap, carry):
+    H00, H01, H02, H11, H12, H22, b0, b1, b2 = carry
     upd_mask = smap.valid & smap.active
-    batches = keyframe_batches(kstack.mask)
-
-    def z():
-        return torch.zeros(n, dtype=dtype, device=dev)
-
-    if not use_descriptor:
-        # 1-D position along the normal from depth residuals alone.
-        H, b = z(), z()
-        for s in batches:
-            _, a = _assoc_batch(cam, smap.pos, smap.normal, upd_mask,
-                                kstack.q[s], kstack.t[s], kstack.depth[s],
-                                kstack.nx[s], kstack.ny[s], baseline_fx)
-            r, J = _depth_residual(cam, a, dtype)
-            w = torch.where(a.valid, robust.depth_residual_weight(r), 0.0)
-            H = H + torch.sum(w * J * J, dim=0)
-            b = b + torch.sum(w * r * J, dim=0)
-        upd = upd_mask & (H > 1e-6)
-        step = torch.where(upd, -b / torch.clamp_min(H, 1e-6), 0.0)
-        return smap._replace(pos=smap.pos + step[:, None] * smap.normal)
-
-    # Position + 2 descriptor components jointly (3x3 per surfel).
-    H00, H01, H02, H11, H12, H22, b0, b1, b2 = (z() for _ in range(9))
-    for s in batches:
-        ftg, a = _assoc_batch(cam, smap.pos, smap.normal, upd_mask,
-                              kstack.q[s], kstack.t[s], kstack.depth[s],
-                              kstack.nx[s], kstack.ny[s], baseline_fx)
-        hit = a.valid
-        if use_depth:
-            r, Jd = _depth_residual(cam, a, dtype)
-            w = torch.where(hit, robust.depth_residual_weight(r), 0.0)
-            H00 = H00 + torch.sum(w * Jd * Jd, dim=0)
-            b0 = b0 + torch.sum(w * r * Jd, dim=0)
-
-        # Descriptor residuals at the tangent points.
-        inten = kstack.intensity[s]
-        t1x, t1y, t2x, t2y, t_ok = tangent_projections(
-            smap.pos, smap.normal, smap.radius2, ftg.q, ftg.t, cam)
-        dhit = hit & t_ok
-        ic, c_dx, c_dy = bilinear_and_gradient(inten, a.pxy_x, a.pxy_y)
-        i1, t1_dx, t1_dy = bilinear_and_gradient(inten, t1x, t1y)
-        i2, t2_dx, t2_dy = bilinear_and_gradient(inten, t2x, t2y)
-        r1 = torch.where(dhit, 180.0 * (i1 - ic) - smap.desc[:, 0], 0.0)
-        r2 = torch.where(dhit, 180.0 * (i2 - ic) - smap.desc[:, 1], 0.0)
-        w1 = torch.where(dhit, robust.descriptor_residual_weight(r1), 0.0)
-        w2 = torch.where(dhit, robust.descriptor_residual_weight(r2), 0.0)
-
-        # d residual / d (position along the normal), fx/fy folded into the
-        # terms (kernel_opt_geometry.cu:188-196).
-        gx1 = 180.0 * (t1_dx - c_dx)
-        gy1 = 180.0 * (t1_dy - c_dy)
-        gx2 = 180.0 * (t2_dx - c_dx)
-        gy2 = 180.0 * (t2_dy - c_dy)
-        safe_z = torch.where(dhit, a.lz, 1.0)
-        term1 = -cam.fx * (a.nlx * a.lz - a.nlz * a.lx)
-        term2 = -cam.fy * (a.nly * a.lz - a.nlz * a.ly)
-        term3 = 1.0 / (safe_z * safe_z)
-        jp1 = -(gx1 * term1 + gy1 * term2) * term3
-        jp2 = -(gx2 * term1 + gy2 * term2) * term3
-        jd = -1.0  # d residual / d descriptor
-
-        H00 = H00 + torch.sum(w1 * jp1 * jp1 + w2 * jp2 * jp2, dim=0)
-        H01 = H01 + torch.sum(w1 * jp1 * jd, dim=0)
-        H02 = H02 + torch.sum(w2 * jp2 * jd, dim=0)
-        H11 = H11 + torch.sum(w1 * jd * jd, dim=0)
-        H22 = H22 + torch.sum(w2 * jd * jd, dim=0)
-        b0 = b0 + torch.sum(w1 * r1 * jp1 + w2 * r2 * jp2, dim=0)
-        b1 = b1 + torch.sum(w1 * r1 * jd, dim=0)
-        b2 = b2 + torch.sum(w2 * r2 * jd, dim=0)
-
     # Vectorized 3x3 Cholesky solve (kernel_opt_geometry.cu:273-340).
     eps = 1e-6
     H00 = H00 + eps

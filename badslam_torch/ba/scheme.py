@@ -24,8 +24,27 @@ iterations runs (no early exit) and is followed by the intrinsics step
 deformation and re-derives the keyframes' planes; the port does the same.
 The PCG solver (``ba/pcg.py``) works on this same state.
 
-Not here: the multi-device branches, the staged profiling path and the
-pow-2 keyframe and surfel buckets (they bound XLA recompiles).
+Multi-device BA (``config.n_devices > 1``, or an explicit ``mesh``): the
+canonical map and keyframe store stay on ``device``; each BA call splits
+its working prefix into D row blocks over the mesh and writes them back at
+the end (the JAX package's per-call device_put of its working slice), and
+runs every stage through ``parallel/streamed.py``. The keyframe planes are
+replicated to each device of the mesh, or, when replicating them would
+exceed ``plane_replication_budget_mb`` (``_plane_streaming_wanted``, the
+JAX package's host-only formula), streamed: shard i holds the slots
+[i K/D, (i+1) K/D) of the K-slot store. Either way a block on the store's
+own device is a view of its tensors and one elsewhere a copy, refreshed at
+the next call for the slots whose planes changed, and rebuilt when the
+store grows (the slots' owners change). Both layouts keep the one-device
+iteration structure, the early exit included; the JAX package's streamed
+mode runs every iteration instead, only because its early exit lives
+inside its fused one-device program (a deviation there). The calls the
+JAX package sends through its host loop (the fixed window of the final
+BA, self-calibration) and the PCG solver run on ``device`` with the whole
+map, as without a mesh; their results are the same either way.
+
+Not here: the staged profiling path and the pow-2 keyframe and surfel
+buckets (they bound XLA recompiles).
 """
 
 from __future__ import annotations
@@ -35,6 +54,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from badslam_torch import parallel
 from badslam_torch.ba.geometry_opt import (
     _position_step,
     update_activation_and_normals,
@@ -57,13 +77,26 @@ COVISIBLE_ACTIVE = kfs.COVISIBLE_ACTIVE
 class DirectBA:
     def __init__(self, cam, config: Optional[BadSlamConfig] = None,
                  surfel_capacity: Optional[int] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 mesh: Optional[parallel.Mesh] = None):
         self.config = config or BadSlamConfig()
         self.cam = cam
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                f"not available")
+        # The device mesh of multi-device BA: given, or n_devices shards
+        # (cuda:0..n-1 on CUDA, raising when fewer cards are visible).
+        n = self.config.n_devices
+        if mesh is not None and n > 1 and mesh.size != n:
+            raise ValueError(f"a mesh of {mesh.size} shards for config.n_devices={n}")
+        if mesh is None and n > 1:
+            mesh = parallel.make_mesh(n, self.device)
+        self.mesh = mesh
+        # The keyframe planes over the mesh, and whether the last BA call
+        # streamed them.
+        self._planes = None
+        self._streaming = False
         cap = surfel_capacity or self.config.max_surfel_count
         self.surfels = sf.empty_map(cap, self.device)
         self.keyframes = KeyframeStore(cam, self.device,
@@ -85,6 +118,8 @@ class DirectBA:
         self.cg_steps = []
         self.intrinsics_spans = Spans(self.device)
         self.pcg_spans = Spans(self.device)
+        # Elapsed time of each bundle_adjustment call.
+        self.ba_spans = Spans(self.device)
 
     # ------------------------------------------------------------------
 
@@ -123,9 +158,52 @@ class DirectBA:
         self.surfels = sf.write_back(self.surfels, view)
         return created
 
+    # ------------------------------------------------------------------
+    # Multi-device state
+    # ------------------------------------------------------------------
+
+    def _plane_streaming_wanted(self) -> bool:
+        """True when the mesh should stream the keyframe planes instead of
+        replicating them: their replicated footprint (f32 depth, nx, ny,
+        radius2, intensity and u8 rgb per pixel) exceeds
+        plane_replication_budget_mb, and the keyframe and surfel capacities
+        divide over the mesh (badslam_tpu/ba/scheme.py:489, host-only)."""
+        if self.mesh is None:
+            return False
+        n = self.mesh.size
+        ks = self.keyframes
+        if ks.capacity % n != 0 or self.surfels.capacity % n != 0:
+            return False
+        mb = ks.capacity * self.cam.height * self.cam.width * 23 / 1e6
+        return mb > self.config.plane_replication_budget_mb
+
+    def mesh_planes(self, streamed: bool) -> parallel.Planes:
+        """The keyframe planes over the mesh: rebuilt when the store, its
+        storage or the layout changed, else refreshed for the slots whose
+        planes were written since the last call."""
+        ks = self.keyframes
+        p = self._planes
+        if p is None or not p.built_from(ks, streamed):
+            self._planes = parallel.Planes.of_store(self.mesh, ks, streamed)
+        elif ks.changed_slots:
+            p.refresh(ks.changed_slots)
+        ks.changed_slots.clear()
+        return self._planes
+
+    # ------------------------------------------------------------------
+    # Stages: one device, or the mesh when the map is a ShardedMap
+    # ------------------------------------------------------------------
+
     def _create_surfels(self, smap, ids, filter_new_surfels=True):
         ks = self.keyframes
         c = self.config
+        if isinstance(smap, parallel.ShardedMap):
+            k = ks.count
+            return parallel.create_surfels_streamed(
+                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k], ids,
+                ks.covis, ks.valid, self.min_observation_count(),
+                baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
+                filter_new_surfels=filter_new_surfels)
         return sf.create_surfels_for_keyframes(
             smap, self.cam, ks.stack(), ids, ks.covis,
             self.min_observation_count(), baseline_fx=c.baseline_fx,
@@ -134,10 +212,77 @@ class DirectBA:
 
     def _merge_surfels(self, smap, ids):
         c = self.config
+        if isinstance(smap, parallel.ShardedMap):
+            ks = self.keyframes
+            return parallel.merge_surfels_streamed(
+                self.mesh, smap, self.cam, self._planes, ks.q[:ks.count],
+                ks.t[:ks.count], ids, baseline_fx=c.baseline_fx,
+                cell_size=c.sparse_surfel_cell_size,
+                merge_dist_factor=c.surfel_merge_dist_factor)
         return sf.merge_surfels_for_keyframes(
             smap, self.cam, self.keyframes.stack(), ids,
             baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
             merge_dist_factor=c.surfel_merge_dist_factor)
+
+    def _compact(self, smap):
+        if isinstance(smap, parallel.ShardedMap):
+            return parallel.compact_surfels_streamed(self.mesh, smap)
+        return sf.compact_surfels(smap)
+
+    def _delete_surfels(self, smap):
+        ks = self.keyframes
+        k = ks.count
+        c = self.config
+        if isinstance(smap, parallel.ShardedMap):
+            return parallel.delete_surfels_streamed(
+                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
+                ks.valid[:k], self.min_observation_count(),
+                baseline_fx=c.baseline_fx)
+        return sf.delete_surfels_and_update_radii(
+            smap, self.cam, ks.stack(), self.min_observation_count(),
+            baseline_fx=c.baseline_fx)
+
+    def _geometry(self, smap, active_strict, participating, optimize_geometry):
+        """Surfel activation and normals, then (with optimize_geometry) the
+        positions and descriptors over the participating keyframes."""
+        c = self.config
+        ks = self.keyframes
+        k = ks.count
+        if isinstance(smap, parallel.ShardedMap):
+            with record_function("ba/activation_geometry"):
+                return parallel.activation_geometry_streamed(
+                    self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
+                    active_strict, participating, baseline_fx=c.baseline_fx,
+                    use_depth=c.use_geometric_residuals,
+                    use_descriptor=c.use_photometric_residuals,
+                    optimize_geometry=optimize_geometry)
+        full_stack = ks.stack()
+        with record_function("ba/activation_normals"):
+            smap = update_activation_and_normals(
+                smap, self.cam, full_stack, active_strict, participating,
+                baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
+        if optimize_geometry:
+            with record_function("ba/position"):
+                smap = _position_step(
+                    smap, self.cam, full_stack._replace(mask=participating),
+                    baseline_fx=c.baseline_fx, use_depth=c.use_geometric_residuals,
+                    use_descriptor=c.use_photometric_residuals)
+        return smap
+
+    def _poses(self, smap, participating):
+        c = self.config
+        ks = self.keyframes
+        k = ks.count
+        if isinstance(smap, parallel.ShardedMap):
+            return parallel.optimize_poses_streamed(
+                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
+                participating, baseline_fx=c.baseline_fx,
+                use_depth=c.use_geometric_residuals,
+                use_descriptor=c.use_photometric_residuals, max_iterations=30)
+        return optimize_keyframe_poses(
+            smap, self.cam, ks.stack()._replace(mask=participating),
+            baseline_fx=c.baseline_fx, use_depth=c.use_geometric_residuals,
+            use_descriptor=c.use_photometric_residuals, max_iterations=30)
 
     def _scheme_end_tasks(self, smap, do_surfel_updates: bool):
         """PerformBASchemeEndTasks (direct_ba.cc:566-653): a final merge
@@ -150,16 +295,28 @@ class DirectBA:
                     ks.last_active_iter[:k] == self.ba_iteration_count)
                 smap = self._merge_surfels(
                     smap, torch.nonzero(recently_active).flatten().tolist())
-            smap = sf.delete_surfels_and_update_radii(
-                smap, self.cam, ks.stack(), self.min_observation_count(),
-                baseline_fx=self.config.baseline_fx)
-            return sf.compact_surfels(smap)
+            return self._compact(self._delete_surfels(smap))
+
+    def _split(self, view):
+        """The working view over the mesh (planes brought up to date), or
+        the view itself without a mesh."""
+        if self.mesh is None:
+            return view
+        self._streaming = self._plane_streaming_wanted()
+        self.mesh_planes(self._streaming)
+        return parallel.shard_rows(self.mesh, view)
+
+    def _join(self, smap):
+        if isinstance(smap, parallel.ShardedMap):
+            return parallel.gather_rows(self.mesh, smap, self.device)
+        return smap
 
     def perform_ba_scheme_end_tasks(self, do_surfel_updates: bool = True) -> None:
         if self.keyframes.count == 0:
             return
-        view = self._scheme_end_tasks(self._working_map(0), do_surfel_updates)
-        self.surfels = sf.write_back(self.surfels, view)
+        view = self._scheme_end_tasks(self._split(self._working_map(0)),
+                                      do_surfel_updates)
+        self.surfels = sf.write_back(self.surfels, self._join(view))
 
     # ------------------------------------------------------------------
     # Intrinsics / self-calibration
@@ -212,7 +369,6 @@ class DirectBA:
         ks.last_covis_iter[:k] = torch.where(newly_covis, ba_iter, lc)
         create_ids = torch.nonzero(newly_active).flatten().tolist()
 
-        full_stack = ks.stack()
         if optimize_geometry and do_surfel_updates:
             with record_function("ba/create"):
                 smap, _ = self._create_surfels(smap, create_ids)
@@ -220,29 +376,14 @@ class DirectBA:
         active_strict = valid & (activation == ACTIVE)
         participating = valid & ((activation == ACTIVE)
                                  | (activation == COVISIBLE_ACTIVE))
-        kstack = full_stack._replace(mask=participating)
-        with record_function("ba/activation_normals"):
-            smap = update_activation_and_normals(
-                smap, self.cam, full_stack, active_strict, participating,
-                baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
-        if optimize_geometry:
-            with record_function("ba/position"):
-                smap = _position_step(
-                    smap, self.cam, kstack, baseline_fx=c.baseline_fx,
-                    use_depth=c.use_geometric_residuals,
-                    use_descriptor=c.use_photometric_residuals)
+        smap = self._geometry(smap, active_strict, participating, optimize_geometry)
         if do_surfel_updates:
             with record_function("ba/merge_compact"):
-                smap = self._merge_surfels(smap, create_ids)
-                smap = sf.compact_surfels(smap)
+                smap = self._compact(self._merge_surfels(smap, create_ids))
 
         if optimize_poses:
             with record_function("ba/poses"):
-                result = optimize_keyframe_poses(
-                    smap, self.cam, kstack, baseline_fx=c.baseline_fx,
-                    use_depth=c.use_geometric_residuals,
-                    use_descriptor=c.use_photometric_residuals,
-                    max_iterations=30)
+                result = self._poses(smap, participating)
             ks.set_poses(result.q, result.t, participating)
             activation = torch.where(
                 participating, torch.where(result.moved, ACTIVE, INACTIVE),
@@ -280,20 +421,41 @@ class DirectBA:
         `increase_ba_iteration_count` false (the parallel-BA drain) the
         scheme-end tasks of the previous epoch run first when the epoch has
         changed, and none run at the end."""
-        c = self.config
-        ks = self.keyframes
-        k = ks.count
-        if k == 0:
+        if self.keyframes.count == 0:
             return 0
         fixed_window = active_keyframe_window is not None
         if activate_all is None:
             activate_all = self.config.disable_deactivation and not fixed_window
 
+        with self.ba_spans.span():
+            iterations = self._bundle_adjustment(
+                optimize_poses, optimize_geometry, do_surfel_updates,
+                max_iterations, increase_ba_iteration_count, activate_all,
+                optimize_depth_intrinsics, optimize_color_intrinsics,
+                active_keyframe_window)
+        self.iterations_run.append(iterations)
+        return iterations
+
+    def _bundle_adjustment(self, optimize_poses, optimize_geometry,
+                           do_surfel_updates, max_iterations,
+                           increase_ba_iteration_count, activate_all,
+                           optimize_depth_intrinsics, optimize_color_intrinsics,
+                           active_keyframe_window) -> int:
+        c = self.config
+        ks = self.keyframes
+        k = ks.count
+        fixed_window = active_keyframe_window is not None
+        intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
         # Each valid keyframe creates surfels at most once per epoch: those
         # not yet active in this one bound what the call can create.
         new_keyframes = int((ks.valid[:k] & (
             ks.last_active_iter[:k] != self.ba_iteration_count)).sum())
         smap = self._working_map(new_keyframes)
+        # The JAX package's host-loop calls (every iteration runs) keep the
+        # whole map on this device.
+        host_loop = fixed_window or intrinsics
+        if not host_loop:
+            smap = self._split(smap)
 
         if (not increase_ba_iteration_count
                 and self.ba_iteration_count != self.last_ba_iteration_count):
@@ -302,15 +464,18 @@ class DirectBA:
 
         # Reset the surfel active flags for this BA block
         # (direct_ba_alternating.cc:338).
-        smap = smap._replace(active=torch.zeros_like(smap.active))
+        if isinstance(smap, parallel.ShardedMap):
+            smap = smap._replace(shards=tuple(
+                s._replace(active=torch.zeros_like(s.active)) for s in smap.shards))
+        else:
+            smap = smap._replace(active=torch.zeros_like(smap.active))
 
         if activate_all:
             # The early-exit test runs before the first iteration; with the
             # activate-all window every valid keyframe enters it active.
             ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
-        intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
         iterations = 0
-        while iterations < max_iterations and (fixed_window or intrinsics or bool(
+        while iterations < max_iterations and (host_loop or bool(
                 (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
             if fixed_window:
                 ks.set_activation_window(*active_keyframe_window)
@@ -326,8 +491,7 @@ class DirectBA:
         if increase_ba_iteration_count:
             smap = self._scheme_end_tasks(smap, do_surfel_updates)
             self.ba_iteration_count += 1
-        self.surfels = sf.write_back(self.surfels, smap)
-        self.iterations_run.append(iterations)
+        self.surfels = sf.write_back(self.surfels, self._join(smap))
         return iterations
 
     # ------------------------------------------------------------------

@@ -28,8 +28,12 @@ snapshot, so ``--load_state`` is refused with it. ``--export_viewer``
 writes a self-contained HTML map viewer after the run;
 ``--live_viewer_dir`` serves a map view during the run (a snapshot every
 ``--live_viewer_interval`` keyframes, each a device read) with run, pause,
-step and command buttons. ``--n_devices`` above 1, ``--save_timings`` and
-``--autotune`` are refused, naming why.
+step and command buttons. ``--n_devices N`` runs BA over a mesh of N
+shards: cuda:0..N-1 with ``--device cuda`` (it raises when fewer cards are
+visible), N shards on the one CPU with ``--device cpu``; the planes are
+streamed instead of replicated above ``--plane_replication_budget_mb``
+(0 forces streaming). ``--save_timings`` and ``--autotune`` are refused,
+naming why.
 """
 
 from __future__ import annotations
@@ -225,8 +229,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def run(argv=None):
-    """What `main` does; returns the BadSlam after its run and exports."""
+def run(argv=None, mesh=None):
+    """What `main` does; returns the BadSlam after its run and exports.
+    `mesh` (a parallel.Mesh of --n_devices shards) overrides the mesh that
+    --n_devices would build, e.g. to put several shards on one card."""
     args = build_parser().parse_args(argv)
     refused = [f"--{name}: {why}" for name, why in _LATER_FLAGS.items()
                if getattr(args, name) is not None]
@@ -266,7 +272,7 @@ def run(argv=None):
             timings["load_state_s"] = time.perf_counter() - t0
             start = slam.last_frame_index + 1
         else:
-            slam = BadSlam(config, video, device)
+            slam = BadSlam(config, video, device, mesh=mesh)
             start = None
         if args.live_viewer_dir:
             viewer = LiveViewer(args.live_viewer_dir, port=args.live_viewer_port,
@@ -349,6 +355,7 @@ def _finish(slam, args, device, timings: dict) -> None:
                        "cg_steps": ba.cg_steps,
                        "intrinsics_step_ms": ba.intrinsics_spans.ms(),
                        "pcg_iteration_ms": ba.pcg_spans.ms(),
+                       "ba_call_ms": ba.ba_spans.ms(),
                        "keyframes": ba.keyframes.live_count,
                        "surfels": ba.surfel_count,
                        "live_lag_ms": [[i, 1000.0 * s] for i, s in slam.live_lag_s],

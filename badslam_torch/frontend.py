@@ -39,7 +39,10 @@ runtime config edits, keyframe move and delete).
 Everything runs eagerly on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
 map and the keyframes) lives on that device; the tracker and BA read one
-flag per Gauss-Newton or BA iteration back to the host.
+flag per Gauss-Newton or BA iteration back to the host. With
+``n_devices > 1`` each BA call runs over a mesh of devices
+(``ba/scheme.py``), and the map and keyframes stay on the one device
+between calls.
 """
 
 from __future__ import annotations
@@ -80,9 +83,6 @@ def check_supported(config: BadSlamConfig) -> None:
     """Raise NotImplementedError naming each setting of this configuration
     that the port does not do yet, with the later slice that brings it."""
     out = []
-    if config.n_devices > 1:
-        out.append("n_devices > 1: BA over several devices comes with the "
-                   "multi-device slice; run with --n_devices 0 or 1")
     # The input pyramid's refusals are the JAX package's (one shared camera;
     # the reference FATALs on downscaling with the median filter,
     # bad_slam.cc:671-673).
@@ -128,7 +128,7 @@ class BadSlam:
 
     def __init__(self, config: BadSlamConfig, video: RGBDVideo,
                  device: torch.device | str,
-                 surfel_capacity: Optional[int] = None):
+                 surfel_capacity: Optional[int] = None, mesh=None):
         check_supported(config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -158,8 +158,10 @@ class BadSlam:
             self.cam = self.cam.scaled(0.5 ** self.input_level)
         self.cams_pyramid = tuple(
             self.cam.pyramid_level(i) for i in range(config.num_scales))
+        # BA over a device mesh with config.n_devices > 1 (or the given
+        # `mesh`, a parallel.Mesh); the rest of the pipeline stays on device.
         self.direct_ba = DirectBA(self.cam, config, surfel_capacity,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
 
         # Base keyframe state.
         self.base_kf_id: Optional[int] = None

@@ -37,25 +37,31 @@ _INITIAL_CAPACITY = 8
 KEYFRAME_BATCH = 8
 
 
+def id_batches(ids) -> List[List[int]]:
+    """Host slot ids in batches of up to KEYFRAME_BATCH."""
+    ids = list(ids)
+    return [ids[i:i + KEYFRAME_BATCH] for i in range(0, len(ids), KEYFRAME_BATCH)]
+
+
+def index_of(ids: List[int], device):
+    """A slice where the ids are consecutive (a view of the stacked
+    planes), else an index tensor on `device`."""
+    if ids[-1] - ids[0] == len(ids) - 1:
+        return slice(ids[0], ids[-1] + 1)
+    return torch.tensor(ids, device=device)
+
+
 def keyframe_batches(mask: torch.Tensor) -> list:
     """The set slots of a [K] bool keyframe mask (one device read), in
     batches of up to KEYFRAME_BATCH, each as a slice where the slots are
-    consecutive (a view of the stacked planes) or else as an index
-    tensor."""
-    ids = torch.nonzero(mask).flatten().tolist()
-    device = mask.device
-    out = []
-    for i in range(0, len(ids), KEYFRAME_BATCH):
-        chunk = ids[i:i + KEYFRAME_BATCH]
-        if chunk[-1] - chunk[0] == len(chunk) - 1:
-            out.append(slice(chunk[0], chunk[-1] + 1))
-        else:
-            out.append(torch.tensor(chunk, device=device))
-    return out
+    consecutive or else as an index tensor."""
+    return [index_of(b, mask.device)
+            for b in id_batches(torch.nonzero(mask).flatten().tolist())]
 
 
 class KeyframeStack(NamedTuple):
-    """The slice of keyframe state that BA passes read."""
+    """The slice of keyframe state that BA passes read (a plane a pass does
+    not read may be None)."""
 
     depth: torch.Tensor      # [K, H, W] f32, 0 invalid
     nx: torch.Tensor         # [K, H, W]
@@ -65,6 +71,10 @@ class KeyframeStack(NamedTuple):
     q: torch.Tensor          # [K, 4] global_T_frame rotation (wxyz)
     t: torch.Tensor          # [K, 3] global_T_frame translation
     mask: torch.Tensor       # [K] bool: takes part in the current operation
+
+    def rows(self, s) -> "KeyframeStack":
+        """The keyframes at `s` (a slice or an index tensor)."""
+        return KeyframeStack(*(None if x is None else x[s] for x in self))
 
 
 def covisibility_row(cam, q, t, min_d, max_d, valid, new_id: int) -> torch.Tensor:
@@ -137,6 +147,10 @@ class KeyframeStore:
         self.count = 0  # high-water slot count
         self.frame_indices: List[int] = []
         self.free_slots: List[int] = []
+        # Slots whose planes were written since a multi-device BA last
+        # copied them to its shards (ba/scheme.py); a reallocation by
+        # _grow replaces every plane tensor and is seen there by itself.
+        self.changed_slots: set = set()
         self._grow(max(1, capacity))
 
     # ------------------------------------------------------------------
@@ -228,6 +242,7 @@ class KeyframeStore:
         self.min_depth[kf] = torch.where(v, frame.depth, math.inf).min()
         self.max_depth[kf] = torch.where(v, frame.depth, 0.0).max()
         self.valid[kf] = True
+        self.changed_slots.add(kf)
         self.activation[kf] = ACTIVE
         self.last_active_iter[kf] = -1
         self.last_covis_iter[kf] = -1
@@ -298,6 +313,7 @@ class KeyframeStore:
             return
         depth, nx, ny, radius2 = recalibrate_planes(
             cam, self.raw_depth[ids], a, cfactor, cell_size)
+        self.changed_slots.update(ids.tolist())
         self.depth[ids] = depth
         self.nx[ids] = nx
         self.ny[ids] = ny

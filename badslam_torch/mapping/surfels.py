@@ -187,6 +187,111 @@ def _rgb_planes(rgb: torch.Tensor) -> torch.Tensor:
     return rgb.movedim(-1, -3).to(torch.float32).contiguous()
 
 
+class Candidates(NamedTuple):
+    """One candidate surfel per sparsification cell of a keyframe."""
+
+    valid: torch.Tensor    # [Hc*Wc] bool: a valid pixel in a free cell
+    cx: torch.Tensor       # [Hc*Wc] the candidate pixel
+    cy: torch.Tensor
+    pos: torch.Tensor      # [Hc*Wc, 3] global position
+    normal: torch.Tensor   # [Hc*Wc, 3] global normal
+    radius2: torch.Tensor  # [Hc*Wc]
+
+
+def surfel_candidates(cam, kf_q, kf_t, depth, f_nx, f_ny, radius2,
+                      occupied: torch.Tensor, cell_size: int,
+                      dtype=torch.float32) -> Candidates:
+    """The lowest valid pixel of each cell that no surfel supports
+    (`occupied`, [Hc*Wc] bool), unprojected to the world."""
+    h, w = depth.shape
+    hc, wc = h // cell_size, w // cell_size
+    dev = depth.device
+    ys = torch.arange(h, device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, device=dev)[None, :].expand(h, w)
+    flag = (depth > 0) & (xs >= 1) & (ys >= 1) & (xs < w - 1) & (ys < h - 1)
+    pri = torch.where(flag, ys * w + xs, _BIG)
+    best = (pri[: hc * cell_size, : wc * cell_size]
+            .reshape(hc, cell_size, wc, cell_size).permute(0, 2, 1, 3)
+            .reshape(hc * wc, cell_size * cell_size).amin(dim=-1))
+    cand_valid = (best < _BIG) & ~occupied
+    best = torch.where(cand_valid, best, 0)
+    cy = best // w
+    cx = best - cy * w
+
+    c_depth = gather_nearest(depth, cx, cy)
+    un_x = cam.fx_inv * cx.to(dtype) + cam.cx_inv
+    un_y = cam.fy_inv * cy.to(dtype) + cam.cy_inv
+    p_local = torch.stack([c_depth * un_x, c_depth * un_y, c_depth], dim=-1)
+    R_g = se3.quat_to_matrix(kf_q)
+    p_global = transform3(R_g, kf_t, p_local)
+    c_nx = gather_nearest(f_nx, cx, cy)
+    c_ny = gather_nearest(f_ny, cx, cy)
+    n_global = rotate3(R_g, torch.stack([c_nx, c_ny, normal_z(c_nx, c_ny)], dim=-1))
+    return Candidates(cand_valid, cx, cy, p_global, n_global,
+                      gather_nearest(radius2, cx, cy))
+
+
+def observation_counts(carry, cand: Candidates, b: KeyframeStack, cam,
+                       baseline_fx: float):
+    """Add the observations and free-space violations of the candidates in
+    a batch of keyframes `b` to carry = (obs, fsv)."""
+    obs, fsv = carry
+    ftg = se3.inverse(se3.SE3(b.q, b.t))
+    a = associate_surfels_with_frame(
+        cam, cand.pos, cand.normal, cand.valid, ftg.q, ftg.t,
+        b.depth, b.nx, b.ny, baseline_fx)
+    return obs + a.valid.sum(dim=0), fsv + a.free_space_violation.sum(dim=0)
+
+
+def candidate_descriptors_and_colors(cam, kf_q, kf_t, cand: Candidates,
+                                     intensity, rgb=None, dtype=torch.float32):
+    """Descriptors from the tangent points in the keyframe itself, and the
+    creation-time color: the keyframe's RGB at the candidate pixel, or gray
+    from the intensity."""
+    ftg_own = se3.inverse(se3.SE3(kf_q, kf_t))
+    t1x, t1y, t2x, t2y, _ = tangent_projections(
+        cand.pos, cand.normal, cand.radius2, ftg_own.q, ftg_own.t, cam)
+    c_x = cand.cx.to(dtype) + 0.5
+    c_y = cand.cy.to(dtype) + 0.5
+    i_c = bilinear(intensity, c_x, c_y)
+    desc = torch.stack([180.0 * (bilinear(intensity, t1x, t1y) - i_c),
+                        180.0 * (bilinear(intensity, t2x, t2y) - i_c)], dim=-1)
+    if rgb is not None:
+        planes = _rgb_planes(rgb)
+        color = torch.stack([bilinear(planes[ch], c_x, c_y) for ch in range(3)],
+                            dim=-1)
+    else:
+        gray = 255.0 * i_c
+        color = torch.stack([gray, gray, gray], dim=-1)
+    return desc, color
+
+
+def append_surfels(smap: SurfelMap, keep: torch.Tensor, cand: Candidates,
+                   desc, color, limit: int, row0: int = 0):
+    """Append the kept candidates after `count` (global rows, in candidate
+    order); rows at or beyond `limit` are dropped. `smap` holds the global
+    rows [row0, row0 + capacity): only those are written, and `count` is
+    the global count. Returns (new map, number created)."""
+    n = smap.capacity
+    dest = smap.count + torch.cumsum(keep.to(torch.int64), dim=0) - 1
+    ok = keep & (dest < limit)
+    loc = dest - row0
+    here = ok & (loc >= 0) & (loc < n)
+    loc = loc[here]
+    new = {}
+    for name, values in (("pos", cand.pos), ("normal", cand.normal),
+                         ("radius2", cand.radius2), ("color", color), ("desc", desc)):
+        arr = getattr(smap, name).clone()
+        arr[loc] = values[here]
+        new[name] = arr
+    for name in ("valid", "active"):  # new surfels start active
+        arr = getattr(smap, name).clone()
+        arr[loc] = True
+        new[name] = arr
+    created = ok.sum()
+    return SurfelMap(count=smap.count + created, **new), created
+
+
 def create_surfels_for_keyframe(
     smap: SurfelMap, cam,
     kf_q, kf_t,                          # global_T_frame of the keyframe
@@ -203,88 +308,21 @@ def create_surfels_for_keyframe(
     candidate pixel per cell (the lowest pixel index), kept when enough
     covisible keyframes observe it without a free-space violation.
     Returns (new map, number created)."""
-    h, w = depth.shape
-    hc, wc = h // cell_size, w // cell_size
-    n = smap.capacity
-    dev = depth.device
-    dtype = smap.pos.dtype
-
     occ = occupied_cells(smap, cam, kf_q, kf_t, depth, f_nx, f_ny,
                          baseline_fx, cell_size).reshape(-1)
-
-    ys = torch.arange(h, device=dev)[:, None].expand(h, w)
-    xs = torch.arange(w, device=dev)[None, :].expand(h, w)
-    flag = (depth > 0) & (xs >= 1) & (ys >= 1) & (xs < w - 1) & (ys < h - 1)
-    pri = torch.where(flag, ys * w + xs, _BIG)
-    best = (pri[: hc * cell_size, : wc * cell_size]
-            .reshape(hc, cell_size, wc, cell_size).permute(0, 2, 1, 3)
-            .reshape(hc * wc, cell_size * cell_size).amin(dim=-1))
-    cand_valid = (best < _BIG) & ~occ
-    best = torch.where(cand_valid, best, 0)
-    cy = best // w
-    cx = best - cy * w
-
-    c_depth = gather_nearest(depth, cx, cy)
-    un_x = cam.fx_inv * cx.to(dtype) + cam.cx_inv
-    un_y = cam.fy_inv * cy.to(dtype) + cam.cy_inv
-    p_local = torch.stack([c_depth * un_x, c_depth * un_y, c_depth], dim=-1)
-    R_g = se3.quat_to_matrix(kf_q)
-    p_global = transform3(R_g, kf_t, p_local)
-    c_nx = gather_nearest(f_nx, cx, cy)
-    c_ny = gather_nearest(f_ny, cx, cy)
-    n_global = rotate3(R_g, torch.stack([c_nx, c_ny, normal_z(c_nx, c_ny)], dim=-1))
-    c_radius2 = gather_nearest(radius2, cx, cy)
-
+    cand = surfel_candidates(cam, kf_q, kf_t, depth, f_nx, f_ny, radius2, occ,
+                             cell_size, smap.pos.dtype)
     if filter_new_surfels:
-        obs = torch.ones_like(best)  # self-observation
-        fsv = torch.zeros_like(best)
+        carry = (torch.ones_like(cand.cx), torch.zeros_like(cand.cx))  # self-observation
         for s in keyframe_batches(covis.mask):
-            ftg = se3.inverse(se3.SE3(covis.q[s], covis.t[s]))
-            a = associate_surfels_with_frame(
-                cam, p_global, n_global, cand_valid, ftg.q, ftg.t,
-                covis.depth[s], covis.nx[s], covis.ny[s], baseline_fx)
-            obs = obs + a.valid.sum(dim=0)
-            fsv = fsv + a.free_space_violation.sum(dim=0)
-        keep = cand_valid & (obs >= min_observation_count) & (fsv <= obs)
+            carry = observation_counts(carry, cand, covis.rows(s), cam, baseline_fx)
+        obs, fsv = carry
+        keep = cand.valid & (obs >= min_observation_count) & (fsv <= obs)
     else:
-        keep = cand_valid
-
-    # Descriptors from the tangent points in the keyframe itself.
-    ftg_own = se3.inverse(se3.SE3(kf_q, kf_t))
-    t1x, t1y, t2x, t2y, _ = tangent_projections(
-        p_global, n_global, c_radius2, ftg_own.q, ftg_own.t, cam)
-    c_x = cx.to(dtype) + 0.5
-    c_y = cy.to(dtype) + 0.5
-    i_c = bilinear(intensity, c_x, c_y)
-    desc = torch.stack([180.0 * (bilinear(intensity, t1x, t1y) - i_c),
-                        180.0 * (bilinear(intensity, t2x, t2y) - i_c)], dim=-1)
-
-    # Creation-time color: the keyframe's RGB at the candidate pixel, or
-    # gray from the intensity.
-    if rgb is not None:
-        planes = _rgb_planes(rgb)
-        color = torch.stack([bilinear(planes[ch], c_x, c_y) for ch in range(3)],
-                            dim=-1)
-    else:
-        gray = 255.0 * i_c
-        color = torch.stack([gray, gray, gray], dim=-1)
-
-    # Append after `count`; candidates beyond the capacity are dropped.
-    dest = smap.count + torch.cumsum(keep.to(torch.int64), dim=0) - 1
-    ok = keep & (dest < n)
-    dest = dest[ok]
-    new = {}
-    for name, values in (("pos", p_global), ("normal", n_global),
-                         ("radius2", c_radius2), ("color", color), ("desc", desc)):
-        arr = getattr(smap, name).clone()
-        arr[dest] = values[ok]
-        new[name] = arr
-    for name in ("valid", "active"):  # new surfels start active
-        arr = getattr(smap, name).clone()
-        arr[dest] = True
-        new[name] = arr
-    created = ok.sum()
-    return SurfelMap(count=smap.count + created, **new), created
+        keep = cand.valid
+    desc, color = candidate_descriptors_and_colors(cam, kf_q, kf_t, cand, intensity,
+                                                   rgb, smap.pos.dtype)
+    return append_surfels(smap, keep, cand, desc, color, smap.capacity)
 
 
 def create_surfels_for_keyframes(
@@ -324,6 +362,42 @@ def update_surfel_activation(smap: SurfelMap, cam, kstack: KeyframeStack,
         update_normals=False)
 
 
+def _delete_init(smap: SurfelMap):
+    n = smap.capacity
+    dev = smap.pos.device
+    return (torch.zeros(n, dtype=torch.int64, device=dev),
+            torch.zeros(n, dtype=torch.int64, device=dev),
+            torch.full((n,), math.inf, dtype=smap.radius2.dtype, device=dev))
+
+
+def _delete_chunk(carry, b: KeyframeStack, smap: SurfelMap, cam, baseline_fx):
+    """One batch of keyframes: carry = (observations, free-space violations,
+    smallest observed pixel radius^2) per surfel."""
+    obs, fsv, min_r2 = carry
+    ftg = se3.inverse(se3.SE3(b.q, b.t))
+    a = _associate(smap, cam, ftg.q, ftg.t, b.depth, b.nx, b.ny, baseline_fx)
+    hit = a.valid
+    pr2 = gather_nearest(b.radius2, a.px, a.py)
+    return (obs + hit.sum(dim=0), fsv + a.free_space_violation.sum(dim=0),
+            torch.minimum(min_r2, torch.where(hit, pr2, math.inf).amin(dim=0)))
+
+
+def _delete_finish(smap: SurfelMap, carry, min_observation_count: int):
+    """The surfels to delete and the new radii; returns (map, number
+    deleted), the map's count lowered by that number."""
+    obs, fsv, min_r2 = carry
+    delete = smap.valid & ((obs < min_observation_count) | (fsv > obs))
+    new_valid = smap.valid & ~delete
+    deleted = delete.sum()
+    return smap._replace(
+        valid=new_valid,
+        active=smap.active & new_valid,
+        radius2=torch.where(new_valid & torch.isfinite(min_r2), min_r2,
+                            smap.radius2),
+        count=smap.count - deleted,
+    ), deleted
+
+
 def delete_surfels_and_update_radii(smap: SurfelMap, cam, kstack: KeyframeStack,
                                     min_observation_count: int,
                                     baseline_fx: float) -> SurfelMap:
@@ -331,29 +405,10 @@ def delete_surfels_and_update_radii(smap: SurfelMap, cam, kstack: KeyframeStack,
     keyframes or with more free-space violations than observations; set the
     others' radius^2 to the smallest observed pixel radius^2
     (DeleteSurfelsAndUpdateRadiiCUDA, kernel_delete_surfels.cu)."""
-    n = smap.capacity
-    dev = smap.pos.device
-    obs = torch.zeros(n, dtype=torch.int64, device=dev)
-    fsv = torch.zeros(n, dtype=torch.int64, device=dev)
-    min_r2 = torch.full((n,), math.inf, dtype=smap.radius2.dtype, device=dev)
+    carry = _delete_init(smap)
     for s in keyframe_batches(kstack.mask):
-        ftg = se3.inverse(se3.SE3(kstack.q[s], kstack.t[s]))
-        a = _associate(smap, cam, ftg.q, ftg.t, kstack.depth[s], kstack.nx[s],
-                       kstack.ny[s], baseline_fx)
-        hit = a.valid
-        obs = obs + hit.sum(dim=0)
-        fsv = fsv + a.free_space_violation.sum(dim=0)
-        pr2 = gather_nearest(kstack.radius2[s], a.px, a.py)
-        min_r2 = torch.minimum(min_r2, torch.where(hit, pr2, math.inf).amin(dim=0))
-    delete = smap.valid & ((obs < min_observation_count) | (fsv > obs))
-    new_valid = smap.valid & ~delete
-    return smap._replace(
-        valid=new_valid,
-        active=smap.active & new_valid,
-        radius2=torch.where(new_valid & torch.isfinite(min_r2), min_r2,
-                            smap.radius2),
-        count=smap.count - delete.sum(),
-    )
+        carry = _delete_chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
+    return _delete_finish(smap, carry, min_observation_count)[0]
 
 
 def compact_surfels(smap: SurfelMap) -> SurfelMap:

@@ -24,11 +24,15 @@
   plain version.
 * Counts: ``launch_counts[name]`` goes up by one for each launch of that
   kernel, and nowhere else, so a run can show that it went through it;
-  ``launch_shapes[name]`` counts the launches per image shape.
+  ``launch_shapes[name]`` counts the launches per image shape and
+  ``launch_tags[name]`` per tag: the shard whose work launched it on a
+  multi-device mesh (``launch_tag``, set by ``parallel.mesh.on_shard``),
+  else None.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,6 +65,9 @@ SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 # The same launches, per image shape ((H, W), or (B, H, W) for K2).
 launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
+# The same launches, per tag (the launching thread's launch_tag).
+launch_tags: Dict[str, Counter] = {name: Counter() for name in SOURCES}
+_tag = threading.local()
 
 # Seconds spent in nvcc by this process, per source (0 when the library
 # was cached), and what ptxas said about each kernel's registers, shared
@@ -76,6 +83,24 @@ def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
         launch_shapes[name].clear()
+        launch_tags[name].clear()
+
+
+@contextlib.contextmanager
+def launch_tag(tag):
+    """Count this thread's launches under `tag` while in the block."""
+    old = getattr(_tag, "value", None)
+    _tag.value = tag
+    try:
+        yield
+    finally:
+        _tag.value = old
+
+
+def _count(name: str, shape) -> None:
+    launch_counts[name] += 1
+    launch_shapes[name][shape] += 1
+    launch_tags[name][getattr(_tag, "value", None)] += 1
 
 
 def _nvcc() -> str:
@@ -200,8 +225,7 @@ def bilateral_filter_and_cutoff_cuda(
                  2.0 * sigma_inv_depth * sigma_inv_depth, stream)
     if err != 0:
         raise RuntimeError(f"bilateral filter kernel launch failed: CUDA error {err}")
-    launch_counts[BILATERAL] += 1
-    launch_shapes[BILATERAL][(h, w)] += 1
+    _count(BILATERAL, (h, w))
     return out
 
 
@@ -293,8 +317,7 @@ def gather_cuda(img: torch.Tensor, px: torch.Tensor,
                  b, px.shape[1], h, w, stream)
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
-    launch_counts[GATHER] += 1
-    launch_shapes[GATHER][(b, h, w)] += 1
+    _count(GATHER, (b, h, w))
     return out
 
 
@@ -321,6 +344,5 @@ def gather_onehot_cuda(img: torch.Tensor, px: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"one-hot gather kernel launch failed: CUDA error {err}")
-    launch_counts[GATHER_ONEHOT] += 1
-    launch_shapes[GATHER_ONEHOT][(h, w)] += 1
+    _count(GATHER_ONEHOT, (h, w))
     return out

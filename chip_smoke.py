@@ -129,10 +129,24 @@ failure, so any failure exits non-zero before the last line is printed):
    1e-4, surfel counts within 1%).
 21. The vendor-SDK inputs: RealSense, Azure Kinect and Structure Core each
    refuse to start without their SDK (RuntimeError).
-22. The nvidia-smi line again, one JSON line of the kernels, then the last
+22. Multi-device BA (multi): the slice's sequence and flags through
+   `cli.run` with `--n_devices 2` on a 2-shard mesh (cuda:0 and cuda:1
+   when two cards are visible, else both shards on cuda:0; it prints
+   which), once with the planes replicated (integrated) and once streamed
+   (`--plane_replication_budget_mb 0`). Each is held to the single-device
+   slice of this call: poses to 1e-4, equal surfel counts, K1 once per
+   frame and K2 launched by both shards' work; prints the ATE, per-frame
+   medians, BA ms per call (and the slice's), K2 launches per shard, the
+   plane bytes each shard holds, peak memory per card. Then
+   `parallel.dryrun.dryrun_multichip(4)` on four shards of cuda:0.
+23. The card against the CPU on the mesh (cpu_multi): phase 7's 160x120,
+   13-frame sequence with a 2-shard mesh on the card and a 2-shard mesh on
+   the CPU, integrated and streamed (poses to 1e-4, surfel counts within
+   1%).
+24. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
 
-Each of phases 8-21 prints the card's name and power limit beside its
+Each of phases 8-23 prints the card's name and power limit beside its
 numbers.
 """
 
@@ -171,6 +185,8 @@ from badslam_torch.io.dataset import (
 from badslam_torch.io.state import load_calibration
 from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.ops import interp, kernels
+from badslam_torch.parallel import make_mesh
+from badslam_torch.parallel.dryrun import dryrun_multichip
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
 from badslam_torch.ops.preprocess import (
     bilateral_filter_and_cutoff,
@@ -584,17 +600,17 @@ def _ply_points(path: str) -> int:
     raise AssertionError(f"{path}: no vertex count in the PLY header")
 
 
-def _run_slam(data, workdir, tag, device, flags):
-    """The CLI (badslam_torch.cli.run, what cli.main runs) on one device,
-    on a dataset directory or on the source arguments `data` (a list, e.g.
-    ["--live", "dir:<path>"]); returns (BadSlam, poses, q, t, summary,
-    launches)."""
+def _run_slam(data, workdir, tag, device, flags, mesh=None):
+    """The CLI (badslam_torch.cli.run, what cli.main runs) on one device
+    (BA on `mesh`, when given), on a dataset directory or on the source
+    arguments `data` (a list, e.g. ["--live", "dir:<path>"]); returns
+    (BadSlam, poses, q, t, summary, launches)."""
     poses_path = os.path.join(workdir, f"{tag}_poses.txt")
     times_path = os.path.join(workdir, f"{tag}_times.json")
     source = data if isinstance(data, list) else [data]
     kernels.reset_launch_counts()
     slam = cli.run([*source, "--device", device, *flags, "--export_poses", poses_path,
-                    "--export_frame_times", times_path])
+                    "--export_frame_times", times_path], mesh=mesh)
     launches = dict(kernels.launch_counts)
     poses, q, t = _poses(poses_path)
     if not (np.all(np.isfinite(q)) and np.all(np.isfinite(t))):
@@ -604,9 +620,9 @@ def _run_slam(data, workdir, tag, device, flags):
     return slam, poses, q, t, summary, launches
 
 
-def _run(data, workdir, tag, device, flags):
+def _run(data, workdir, tag, device, flags, mesh=None):
     """cli.main on one device; returns (poses, q, t, summary, launches)."""
-    return _run_slam(data, workdir, tag, device, flags)[1:]
+    return _run_slam(data, workdir, tag, device, flags, mesh)[1:]
 
 
 def _write(workdir, name, width, height, frames, seed, planes=6, camera=None,
@@ -679,7 +695,7 @@ def phase_slice(workdir: str) -> tuple:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
-    return data, launches, q, t
+    return data, launches, q, t, summary
 
 
 def phase_profile(data: str, out_dir: str) -> None:
@@ -1548,6 +1564,107 @@ def phase_sdk() -> None:
         raise AssertionError("an SDK input refused with another error")
 
 
+# Multi-device BA (phases 22-23): two shards, on two cards when visible.
+MULTI_SHARDS = 2
+
+
+def _multi_mesh():
+    cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(MULTI_SHARDS)] if cards >= MULTI_SHARDS
+               else ["cuda:0"] * MULTI_SHARDS)
+    return make_mesh(devices=devices), cards
+
+
+def _ms_median(values) -> str:
+    return f"{statistics.median(values):.2f}" if values else "n/a"
+
+
+def phase_multi(workdir: str, data: str, q_slice, t_slice, slice_summary) -> dict:
+    """The slice through `cli.run` with BA over a 2-shard mesh, planes
+    replicated and streamed, held to the single-device slice; then the
+    dry run of every mode on four shards of cuda:0."""
+    mesh, cards = _multi_mesh()
+    print(f"multi: mesh {mesh} ({cards} card(s) visible"
+          f"{'' if cards >= MULTI_SHARDS else ': both shards on cuda:0'}); the slice's "
+          f"BA ms per call {_ms_median(slice_summary['ba_call_ms'])} (median of "
+          f"{len(slice_summary['ba_call_ms'])}), surfels {slice_summary['surfels']} ({SMI})")
+    gt = synthetic.smooth_trajectory(FRAMES)
+    out = {}
+    for mode, extra in (("integrated", []),
+                        ("streamed", ["--plane_replication_budget_mb", "0"])):
+        held = {}
+        for dev in mesh.distinct():
+            torch.cuda.reset_peak_memory_stats(dev)
+            held[str(dev)] = torch.cuda.memory_allocated(dev) / 2**20
+        slam, poses, q, t, summary, launches = _run_slam(
+            data, workdir, f"multi_{mode}", "cuda",
+            SLICE_FLAGS + ["--n_devices", str(MULTI_SHARDS), *extra], mesh=mesh)
+        k2 = {tag: n for tag, n in kernels.launch_tags[kernels.GATHER].items()
+              if tag is not None}
+        ba = slam.direct_ba
+        planes = ba._planes
+        plane_bytes = [planes.nbytes(i) for i in range(mesh.size)]
+        peak = ", ".join(
+            f"{d} {torch.cuda.max_memory_allocated(d) / 2**20:.1f} MiB "
+            f"({torch.cuda.max_memory_allocated(d) / 2**20 - held[str(d)]:.1f} above the "
+            f"{held[str(d)]:.1f} held at its start)" for d in mesh.distinct())
+        ate = synthetic.ate_rmse(poses, gt)
+        dq, dt = float(np.abs(q - q_slice).max()), float(np.abs(t - t_slice).max())
+        print(f"multi {mode}: streaming {ba._streaming}; ATE {ate:.3e} m; against the "
+              f"single-device slice max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol "
+              f"{POSE_ATOL}); surfels {summary['surfels']} (slice "
+              f"{slice_summary['surfels']}); {_frame_medians(summary)}; BA ms per call "
+              f"{_ms_median(summary['ba_call_ms'])} (median of "
+              f"{len(summary['ba_call_ms'])}; calls "
+              f"{', '.join(f'{x:.1f}' for x in summary['ba_call_ms'])}); BA iterations "
+              f"{summary['ba_iterations']}; K2 launches per shard {k2}; plane bytes per "
+              f"shard {plane_bytes} ({[planes.keyframes_held(i) for i in range(mesh.size)]}"
+              f" keyframe slots of {ba.keyframes.capacity}); peak memory {peak}; launches "
+              f"{launches} ({SMI})")
+        checks = {
+            "streaming as asked": ba._streaming == (mode == "streamed"),
+            "poses within atol of the slice": dq <= POSE_ATOL and dt <= POSE_ATOL,
+            "surfels equal to the slice's": summary["surfels"] == slice_summary["surfels"],
+            "K1 once per frame": launches[kernels.BILATERAL] == FRAMES,
+            "K2 on every shard": all(k2.get(i, 0) > 0 for i in range(mesh.size)),
+            f"{FRAMES} poses": len(poses) == FRAMES,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"multi {mode} checks failed: {failed}")
+        out[mode] = {"K1": launches[kernels.BILATERAL], "K2": launches[kernels.GATHER],
+                     "K2 per shard": k2}
+        del slam, ba, planes  # the next run's peak counts none of this run's state
+    t0 = time.perf_counter()
+    result = dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    print(f"multi dryrun_multichip(4) on 4 shards of cuda:0 in "
+          f"{time.perf_counter() - t0:.2f} s: {result} ({SMI})")
+    return out
+
+
+def phase_cpu_multi(workdir: str) -> None:
+    """phase_cpu's 160x120 sequence with BA over a 2-shard mesh on the card
+    and a 2-shard mesh on the CPU, planes replicated and streamed."""
+    small = os.path.join(workdir, "small")
+    mesh, _ = _multi_mesh()
+    for mode, extra in (("integrated", []),
+                        ("streamed", ["--plane_replication_budget_mb", "0"])):
+        flags = SMALL_FLAGS + ["--n_devices", str(MULTI_SHARDS), *extra]
+        (_, qg, tg, sg, lg), (_, qc, tc, sc, _) = (
+            _run(small, workdir, f"small_multi_{mode}_cuda", "cuda", flags, mesh),
+            _run(small, workdir, f"small_multi_{mode}_cpu", "cpu", flags))
+        dq, dt = float(np.abs(qg - qc).max()), float(np.abs(tg - tc).max())
+        ds = abs(sg["surfels"] - sc["surfels"]) / max(sc["surfels"], 1)
+        print(f"cpu vs cuda, 2-shard mesh {mode}, 160x120 BA ({SMALL_FRAMES} frames): max "
+              f"|dq| {dq:.3e}, max |dt| {dt:.3e} (atol {POSE_ATOL}); surfels cuda "
+              f"{sg['surfels']} cpu {sc['surfels']} (rel diff {ds:.4f}, limit "
+              f"{SURFEL_RTOL}); cuda launches {lg} ({SMI})")
+        if not (len(qg) == len(qc) == SMALL_FRAMES and dq <= POSE_ATOL and dt <= POSE_ATOL
+                and ds <= SURFEL_RTOL):
+            raise AssertionError(f"CPU and CUDA disagree on the {mode} mesh")
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -1575,7 +1692,8 @@ def main(argv=None) -> int:
         # are timed alone).
         off_job = start_loop_off(workdir)
         try:
-            data, slice_launches, q_slice, t_slice = _phase("slice", phase_slice, workdir)
+            data, slice_launches, q_slice, t_slice, slice_summary = _phase(
+                "slice", phase_slice, workdir)
             if profile_dir:
                 _phase("profile", phase_profile, data, profile_dir)
             q_odo, t_odo = _phase("odometry", phase_odometry, workdir, data)
@@ -1594,12 +1712,17 @@ def main(argv=None) -> int:
             _phase("viewer_controls", phase_viewer_controls, workdir, live_slam)
             _phase("cpu_live", phase_cpu_live, workdir)
             _phase("sdk", phase_sdk)
+            multi_launches = _phase("multi", phase_multi, workdir, data, q_slice, t_slice,
+                                    slice_summary)
+            _phase("cpu_multi", phase_cpu_multi, workdir)
         finally:
             if off_job.poll() is None:
                 off_job.kill()
                 off_job.wait()
     print(f"launches on the slice's path (loop detection off): {slice_launches}")
     print(f"launches on the live path (directory stream with the viewer): {live_launches}")
+    print(f"launches on the multi-device path (2 shards, integrated / streamed): "
+          f"{multi_launches}")
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
         # K1 and K2 are on the SLAM path: their launches are those of the

@@ -23,6 +23,13 @@ Tolerances:
     poses and trajectory atol 1e-5, the same decisions.
   * a live directory stream through run_live on CUDA vs CPU: poses atol
     1e-4, surfel counts within 1%.
+  * multi-device BA on a 2-shard mesh on the card against a 2-shard mesh
+    on the CPU, from the same keyframes and map (made on the CPU): each
+    stage function of badslam_torch.parallel in turn (poses, positions and
+    normals atol 1e-4, descriptors atol 2e-3: tests/test_torch_ba.py's
+    holds for another float order; surfel counts within 1%), and
+    DirectBA's integrated and streamed calls (poses atol 1e-4, the same
+    iterations, surfel counts within 1%).
 """
 
 import numpy as np
@@ -474,3 +481,133 @@ def test_run_live_cuda_matches_cpu(cuda, tmp_path):
     assert abs(card.direct_ba.surfel_count - cpu.direct_ba.surfel_count) <= 0.01 * cpu.direct_ba.surfel_count
     with open(tmp_path / "view" / "map_data.json") as f:
         assert json.load(f)["generation"] == 2  # one snapshot per keyframe
+
+
+def _mesh_scene(device, mesh=None, **cfg):
+    """Four rendered 128x96 keyframes, each a few mm off its truth, and
+    the surfels of the first (all active); the frames are preprocessed and
+    the surfels created on the CPU, then copied to `device`, so that both
+    devices start from the same state."""
+    from badslam_torch.ba.scheme import DirectBA
+    from badslam_torch.config import BadSlamConfig
+
+    cam = synthetic.default_camera(128, 96)
+    scene = synthetic.random_plane_scene(np.random.default_rng(41), 3)
+    truth = [synthetic.pose(), synthetic.pose(tx=0.03, rz=0.01),
+             synthetic.pose(tx=0.05, ty=0.02), synthetic.pose(ty=-0.03)]
+    bas = [DirectBA(cam, BadSlamConfig(max_surfel_count=1 << 13, **cfg),
+                    surfel_capacity=1 << 13, device=dev, mesh=m)
+           for dev, m in (("cpu", None), (device, mesh))]
+    for i, gt in enumerate(truth):
+        depth, inten = synthetic.render_scene(cam, scene, gt)
+        depth_u16 = np.clip(depth * 5000.0, 0, 65535).astype(np.int32)
+        gray = np.clip(inten * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        frame = _preprocess(cam, depth_u16, np.stack([gray] * 3, axis=-1), "cpu")
+        init = gt if i == 0 else synthetic.pose(tx=float(gt.t[0]) + 0.003,
+                                                ty=float(gt.t[1]) - 0.002, rz=0.001)
+        for ba in bas:
+            ba.add_keyframe(frame._replace(**{k: v.to(ba.device) for k, v in
+                                              frame._asdict().items() if v is not None}),
+                            init, i)
+    bas[0].create_surfels_for_keyframe(0, filter_new_surfels=False)
+    smap = bas[0].surfels._replace(active=bas[0].surfels.valid)
+    ba = bas[1]
+    ba.surfels = smap._replace(**{f: getattr(smap, f).to(ba.device) for f in smap._fields})
+    return cam, ba
+
+
+def _parallel_stages(mesh, device):
+    """The ten functions of parallel/sharded.py and streamed.py on one
+    scene over `mesh` (planes streamed), each result on the CPU."""
+    from badslam_torch import parallel as par
+
+    cam, ba = _mesh_scene(device)
+    ks = ba.keyframes
+    k = ks.count
+    smap = ba.surfels
+    stack = ks.stack()
+    planes = par.Planes.of_store(mesh, ks, streamed=True)
+    out = {}
+    r = par.optimize_keyframe_poses_sharded(mesh, smap, cam, stack)
+    out["poses_sharded"] = (r.q, r.t)
+    out["geometry_sharded"] = par.optimize_geometry_sharded(mesh, smap, cam, stack)
+    out["geometry_streamed"] = par.optimize_geometry_plane_streamed(mesh, smap, cam, stack)
+    out["pose_gn"] = par.estimate_pose_sharded(mesh, smap, cam, ks.q[1], ks.t[1], ks.depth[1],
+                                               ks.nx[1], ks.ny[1], ks.intensity[1])
+    sm = par.shard_rows(mesh, smap)
+    sm, _ = par.create_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], [1, 2],
+                                        ks.covis, ks.valid, 2, baseline_fx=40.0, cell_size=4)
+    out["create"] = par.gather_rows(mesh, sm)
+    part = ks.valid[:k]
+    sm = par.activation_geometry_streamed(
+        mesh, sm, cam, planes, ks.q[:k], ks.t[:k], part, part, baseline_fx=40.0,
+        use_depth=True, use_descriptor=True, optimize_geometry=True)
+    out["activation_geometry"] = par.gather_rows(mesh, sm)
+    sm = par.merge_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], [0, 1, 2],
+                                    baseline_fx=40.0, cell_size=4)
+    out["merge"] = par.gather_rows(mesh, sm)
+    sm = par.delete_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], part, 2,
+                                     baseline_fx=40.0)
+    out["delete"] = par.gather_rows(mesh, sm)
+    sm = par.compact_surfels_streamed(mesh, sm)
+    out["compact"] = par.gather_rows(mesh, sm)
+    r = par.optimize_poses_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], part,
+                                    baseline_fx=40.0, use_depth=True, use_descriptor=True)
+    out["poses_streamed"] = (r.q, r.t)
+    return {name: v._replace(**{f: getattr(v, f).cpu() for f in v._fields})
+            if hasattr(v, "_fields") else tuple(x.cpu() for x in v)
+            for name, v in out.items()}
+
+
+def _assert_stage_maps_close(a, b, what):
+    assert abs(int(a.count) - int(b.count)) <= 0.01 * int(b.count), what
+    both = a.valid & b.valid
+    assert int(both.sum()) >= 0.99 * int(b.valid.sum()), what
+    for name, tol in (("pos", 1e-4), ("normal", 1e-4), ("desc", 2e-3)):
+        torch.testing.assert_close(getattr(a, name)[both], getattr(b, name)[both],
+                                   atol=tol, rtol=0, msg=lambda m: f"{what}: {name}: {m}")
+
+
+@pytest.mark.cuda
+def test_parallel_stages_cuda_match_cpu(cuda):
+    from badslam_torch.parallel import make_mesh
+
+    kernels.reset_launch_counts()
+    card = _parallel_stages(make_mesh(devices=[cuda, cuda]), cuda)
+    torch.cuda.synchronize()
+    tags = kernels.launch_tags[kernels.GATHER]
+    assert tags[0] > 0 and tags[1] > 0, dict(tags)  # K2 on both shards
+    cpu = _parallel_stages(make_mesh(2, "cpu"), "cpu")
+    for name, value in card.items():
+        if hasattr(value, "_fields"):
+            _assert_stage_maps_close(value, cpu[name], name)
+        else:
+            for x, y in zip(value, cpu[name]):
+                torch.testing.assert_close(x, y, atol=1e-4, rtol=0,
+                                           msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [2048.0, 0.0], ids=["integrated", "streamed"])
+def test_mesh_bundle_adjustment_cuda_matches_cpu(cuda, budget):
+    """DirectBA with n_devices=2: 2 shards on the card (an explicit mesh)
+    against 2 on the CPU and against one card without a mesh."""
+    from badslam_torch.parallel import make_mesh
+
+    runs = {}
+    for tag, device, mesh in (("card", cuda, make_mesh(devices=[cuda, cuda])),
+                              ("cpu", "cpu", None), ("one", cuda, None)):
+        n = 0 if tag == "one" else 2
+        _, ba = _mesh_scene(device, mesh, n_devices=n, plane_replication_budget_mb=budget)
+        iterations = ba.bundle_adjustment(max_iterations=4)
+        runs[tag] = (ba, iterations)
+    card, iters = runs["card"]
+    assert card._streaming == (budget == 0.0)
+    for tag in ("cpu", "one"):
+        other, other_iters = runs[tag]
+        assert iters == other_iters >= 1
+        for name in ("q", "t"):
+            torch.testing.assert_close(getattr(card.keyframes, name)[:4].cpu(),
+                                       getattr(other.keyframes, name)[:4].cpu(),
+                                       atol=1e-4, rtol=0)
+        assert abs(card.surfel_count - other.surfel_count) <= 0.01 * other.surfel_count

@@ -123,6 +123,9 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.geometry.se3_np\n"
         "import badslam_torch.io.live_inputs, badslam_torch.io.native_loader\n"
         "import badslam_torch.viz.viewer, badslam_torch.utils.convergence\n"
+        "import badslam_torch.parallel, badslam_torch.parallel.mesh\n"
+        "import badslam_torch.parallel.sharded, badslam_torch.parallel.streamed\n"
+        "import badslam_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"

@@ -194,7 +194,6 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
 
 
 @pytest.mark.parametrize("argv, error, what", [
-    (["--n_devices", "2"], NotImplementedError, "multi-device slice"),
     (["--pyramid_level_for_depth", "1"], NotImplementedError,
      "must equal pyramid_level_for_color"),
     (["--pyramid_level_for_depth", "1", "--pyramid_level_for_color", "1",
@@ -204,11 +203,11 @@ def test_first_frame_takes_the_dataset_prior(tmp_path):
     (["--live_viewer_dir", "v", "--live", "k4a"], RuntimeError, "requires its SDK"),
     (["--live", "dir:x", "--load_state", "s.npz"], ValueError, "cannot resume a --live stream"),
     (["--autotune"], NotImplementedError, "tuned variants"),
-], ids=["n_devices", "pyramid_level", "median", "point_cloud", "save_timings",
+], ids=["pyramid_level", "median", "point_cloud", "save_timings",
         "live_viewer", "live", "autotune"])
 def test_later_slices_are_refused(tmp_path, argv, error, what):
     """What the port refuses, before it reads the dataset: the later
-    slices' settings and flags, the JAX package's own refusals of the input
+    slices' flags, the JAX package's own refusals of the input
     pyramid (unequal levels; a level with the median filter), and live
     sources it cannot open (an unknown one, an SDK input without its SDK)
     or resume (a snapshot needs the frames a live stream does not keep)."""
@@ -216,6 +215,35 @@ def test_later_slices_are_refused(tmp_path, argv, error, what):
             "--enable_loop_detection", "false"]
     with pytest.raises(error, match=what):
         torch_main([str(tmp_path), "--device", "cpu", *base, *argv])
+
+
+def test_n_devices_2_matches_one_device(tmp_path):
+    """`--n_devices 2 --device cpu` (BA over a 2-shard mesh on the CPU, the
+    planes replicated and, with a budget of 0 MB, streamed) against
+    `--n_devices 0`: the same trajectory and map on the BA sequence."""
+    from badslam_torch.cli import run as torch_run
+
+    data = str(tmp_path / "seq")
+    tsyn.write_tum_dataset(data, tsyn.default_camera(160, 120),
+                           tsyn.random_plane_scene(np.random.default_rng(5), 6),
+                           tsyn.smooth_trajectory(FRAMES))
+    runs = {}
+    for tag, extra in (("one", ["--n_devices", "0"]), ("mesh", ["--n_devices", "2"]),
+                       ("streamed", ["--n_devices", "2",
+                                     "--plane_replication_budget_mb", "0"])):
+        out = str(tmp_path / f"{tag}.txt")
+        slam = torch_run([data, "--device", "cpu", *BA_FLAGS, *extra,
+                          "--export_poses", out])
+        runs[tag] = (_trajectory(out), slam.direct_ba)
+    (q1, t1, _), one = runs["one"]
+    assert one.mesh is None
+    for tag in ("mesh", "streamed"):
+        (q, t, _), ba = runs[tag]
+        assert ba.mesh.size == 2 and ba._streaming == (tag == "streamed")
+        np.testing.assert_allclose(t, t1, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(q, q1, atol=1e-4, rtol=0)
+        assert abs(ba.surfel_count - one.surfel_count) <= 0.01 * one.surfel_count
+    assert runs["mesh"][1].surfel_count == one.surfel_count
 
 
 def test_calibration_lines_load_like_jax(tmp_path):

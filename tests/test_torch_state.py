@@ -151,8 +151,8 @@ def test_radtan_final_ba_cli_without_median_matches_jax_cli(tmp_path):
     assert abs(ate_t - ate_j) < 1e-5
 
 
-def _jax_slam(data, end):
-    slam = JBadSlam(JConfig(**STATE_CFG), jds.load_tum_dataset(data))
+def _jax_slam(data, end, **cfg):
+    slam = JBadSlam(JConfig(**STATE_CFG, **cfg), jds.load_tum_dataset(data))
     slam.run(start=0, end=end)
     return slam
 
@@ -234,9 +234,46 @@ def test_port_snapshot_loads_in_jax(sequence, tmp_path):
     assert loop.loop_detector._order == loop.direct_ba.keyframes.live_slots_in_time_order()
     assert all(len(f.descriptors) > 0 for f in loop.loop_detector.features.values())
     loop.close()
-    # One that asks for several devices is refused.
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tstate.load_state(edited("mesh.npz", n_devices=2), tds.load_tum_dataset(data), "cpu")
+    # One that asks for several devices loads with a mesh of that many
+    # shards, in both packages.
+    mesh_snap = edited("mesh.npz", n_devices=2)
+    on_mesh = tstate.load_state(mesh_snap, tds.load_tum_dataset(data), "cpu")
+    assert on_mesh.direct_ba.mesh.devices == (torch.device("cpu"),) * 2
+    assert on_mesh.direct_ba.surfel_count == tslam.direct_ba.surfel_count
+    jmesh = jstate.load_state(mesh_snap, jds.load_tum_dataset(data))
+    assert jmesh.config.n_devices == 2
+    assert int(jmesh.direct_ba.surfels.count) == tslam.direct_ba.surfel_count
+
+
+def test_jax_mesh_snapshot_resumes_in_the_port(sequence, tmp_path):
+    """A JAX snapshot taken with n_devices=2 (BA over two of its CPU
+    devices) at the keyframe of frame 4, parallel-BA work queued, resumes
+    in the port on a 2-shard CPU mesh and matches the continuous runs with
+    n_devices=2 of both packages."""
+    from badslam_torch.frontend import BadSlam
+
+    data, _, gt = sequence
+    snap = str(tmp_path / "jax_mesh.npz")
+    jslam = _jax_slam(data, 5, n_devices=2)
+    jstate.save_state(jslam, snap)
+    assert jslam.queued_ba_iterations > 0
+
+    tslam = tstate.load_state(snap, tds.load_tum_dataset(data), "cpu")
+    assert tslam.direct_ba.mesh.size == 2
+    assert tslam.direct_ba.surfel_count == int(jslam.direct_ba.surfels.count) > 100
+    tslam.run(start=tslam.last_frame_index + 1)
+    jcont = _jax_slam(data, FRAMES, n_devices=2)
+    tcont = BadSlam(TConfig(**STATE_CFG, n_devices=2), tds.load_tum_dataset(data), "cpu")
+    tcont.run()
+    for q, t, n in ((np.asarray(jcont.traj_q), np.asarray(jcont.traj_t),
+                     int(jcont.direct_ba.surfels.count)),
+                    (tcont.traj_q.numpy(), tcont.traj_t.numpy(), tcont.direct_ba.surfel_count)):
+        np.testing.assert_allclose(tslam.traj_t.numpy(), t, atol=POSE_ATOL, rtol=0)
+        np.testing.assert_allclose(tslam.traj_q.numpy(), q, atol=POSE_ATOL, rtol=0)
+        assert abs(tslam.direct_ba.surfel_count - n) <= 0.01 * n
+    assert tslam.has_pose.all()
+    poses = [tds.SE3(q, t) for q, t in zip(tslam.traj_q.numpy(), tslam.traj_t.numpy())]
+    assert tsyn.ate_rmse(poses, gt) < 2e-3
 
 
 def test_port_resume_matches_continuous_run(sequence, tmp_path):
