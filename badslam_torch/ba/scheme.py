@@ -43,12 +43,42 @@ JAX package sends through its host loop (the fixed window of the final
 BA, self-calibration) and the PCG solver run on ``device`` with the whole
 map, as without a mesh; their results are the same either way.
 
-Not here: the staged profiling path and the pow-2 keyframe and surfel
-buckets (they bound XLA recompiles).
+With ``config.sync_stage_profiling`` each iteration runs as timed stages,
+each ended by a device synchronization, so each stage's timer holds its time
+on the card (``utils/timing.py``): surfel creation, surfel activation,
+geometry optimization, surfel merge, surfel compaction and pose
+optimization. Every one of the `max_iterations` iterations then runs (no
+early exit), as in the JAX package's staged host loop. The stages run the
+unflagged iteration's passes: activation and the normals are one pass
+(``update_activation_and_normals``; on a mesh, activation and the whole
+geometry step, ``parallel.activation_geometry_streamed``), so with geometry
+optimization that pass is timed with the positions as geometry
+optimization, beside an empty surfel-activation stage that keeps the JAX
+package's row keys. The JAX package times the normals as geometry
+optimization too (``optimize_geometry_iteration``); only activation moves.
+
+``set_save_timings(stream)`` writes the JAX package's timing rows to a
+text stream (SetSaveTimings, direct_ba.h:382; direct_ba_alternating.cc:
+630-688): under ``sync_stage_profiling``, per iteration a header
+``BA_count <n> inner_iteration <i> keyframe_count <k> surfel_bound <b>``
+and one ``<stage> <ms>`` row per stage run; otherwise one row per call that
+the JAX package runs as its fused program (no keyframe window, no
+self-calibration, planes not streamed), ``BA_count <n> fused_iterations
+<max_iterations> keyframe_count <k> surfel_bound <b> sync_ms <ms>``, where
+``sync_ms`` is the host's wait in a device synchronization at the end of
+the iterations (the JAX package's block_until_ready) and
+``fused_iterations`` the call's budget, as there. ``surfel_bound`` is the
+row count of the call's working map, where the JAX package writes its
+pow-2 surfel bucket: both bound the surfel count, but they differ.
+
+Not here: the pow-2 keyframe and surfel buckets (they bound XLA
+recompiles).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Optional
 
 import torch
@@ -62,16 +92,21 @@ from badslam_torch.ba.geometry_opt import (
 from badslam_torch.ba.intrinsics_opt import empty_depth_params, optimize_intrinsics
 from badslam_torch.ba.pose_opt import optimize_keyframe_poses
 from badslam_torch.config import BadSlamConfig
-from badslam_torch.cuda_timing import Spans
 from badslam_torch.geometry import se3
 from badslam_torch.mapping import keyframes as kfs
 from badslam_torch.mapping import surfels as sf
 from badslam_torch.mapping.keyframes import KeyframeStore
 from badslam_torch.ops.preprocess import ProcessedFrame
+from badslam_torch.utils.timing import Spans, Timing
 
 ACTIVE = kfs.ACTIVE
 INACTIVE = kfs.INACTIVE
 COVISIBLE_ACTIVE = kfs.COVISIBLE_ACTIVE
+
+
+def _timer(name: Optional[str], device: torch.device):
+    """The Timing region `name` of `device`'s work, or none for None."""
+    return contextlib.nullcontext() if name is None else Timing.time(name, device=device)
 
 
 class DirectBA:
@@ -120,6 +155,32 @@ class DirectBA:
         self.pcg_spans = Spans(self.device)
         # Elapsed time of each bundle_adjustment call.
         self.ba_spans = Spans(self.device)
+        # The text stream of the timing rows (set_save_timings).
+        self.timings_stream = None
+
+    def set_save_timings(self, stream) -> None:
+        self.timings_stream = stream
+
+    def _synchronize(self) -> None:
+        """Wait for the BA work queued on this device and the mesh's."""
+        devices = [self.device] + (self.mesh.distinct() if self.mesh is not None else [])
+        for d in dict.fromkeys(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """One BA stage: under sync_stage_profiling its timer, ended by a
+        device synchronization (of every device of the mesh), and its
+        timing row; else untimed."""
+        if not self.config.sync_stage_profiling:
+            yield
+            return
+        with Timing.time(name, sync=self.device) as span:
+            yield
+            self._synchronize()
+        if self.timings_stream is not None:
+            self.timings_stream.write(f"{name.replace(' ', '_')} {span.ms:.3f}\n")
 
     # ------------------------------------------------------------------
 
@@ -244,29 +305,38 @@ class DirectBA:
 
     def _geometry(self, smap, active_strict, participating, optimize_geometry):
         """Surfel activation and normals, then (with optimize_geometry) the
-        positions and descriptors over the participating keyframes."""
+        positions and descriptors over the participating keyframes. With
+        optimize_geometry activation and normals are one pass, timed with
+        the positions as geometry optimization, beside an empty activation
+        stage (the module docstring)."""
         c = self.config
         ks = self.keyframes
         k = ks.count
-        if isinstance(smap, parallel.ShardedMap):
-            with record_function("ba/activation_geometry"):
-                return parallel.activation_geometry_streamed(
-                    self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
-                    active_strict, participating, baseline_fx=c.baseline_fx,
-                    use_depth=c.use_geometric_residuals,
-                    use_descriptor=c.use_photometric_residuals,
-                    optimize_geometry=optimize_geometry)
-        full_stack = ks.stack()
-        with record_function("ba/activation_normals"):
-            smap = update_activation_and_normals(
-                smap, self.cam, full_stack, active_strict, participating,
-                baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
         if optimize_geometry:
-            with record_function("ba/position"):
-                smap = _position_step(
-                    smap, self.cam, full_stack._replace(mask=participating),
-                    baseline_fx=c.baseline_fx, use_depth=c.use_geometric_residuals,
-                    use_descriptor=c.use_photometric_residuals)
+            with self._stage("BA surfel activation"):
+                pass  # fused into the geometry stage's pass
+        with self._stage("BA geometry optimization" if optimize_geometry
+                         else "BA surfel activation"):
+            if isinstance(smap, parallel.ShardedMap):
+                with record_function("ba/activation_geometry"):
+                    return parallel.activation_geometry_streamed(
+                        self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
+                        active_strict, participating, baseline_fx=c.baseline_fx,
+                        use_depth=c.use_geometric_residuals,
+                        use_descriptor=c.use_photometric_residuals,
+                        optimize_geometry=optimize_geometry)
+            full_stack = ks.stack()
+            with record_function("ba/activation_normals"):
+                smap = update_activation_and_normals(
+                    smap, self.cam, full_stack, active_strict, participating,
+                    baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
+            if optimize_geometry:
+                with record_function("ba/position"):
+                    smap = _position_step(
+                        smap, self.cam, full_stack._replace(mask=participating),
+                        baseline_fx=c.baseline_fx,
+                        use_depth=c.use_geometric_residuals,
+                        use_descriptor=c.use_photometric_residuals)
         return smap
 
     def _poses(self, smap, participating):
@@ -352,7 +422,8 @@ class DirectBA:
     def _iteration(self, smap, activate_all: bool, optimize_geometry: bool,
                    do_surfel_updates: bool, optimize_poses: bool):
         """One alternating-BA iteration (direct_ba_alternating.cc:345-626);
-        updates the keyframe store in place and returns the map."""
+        updates the keyframe store in place and returns the map. Each stage
+        runs in `_stage`, by its JAX timer name."""
         c = self.config
         ks = self.keyframes
         k = ks.count
@@ -370,7 +441,7 @@ class DirectBA:
         create_ids = torch.nonzero(newly_active).flatten().tolist()
 
         if optimize_geometry and do_surfel_updates:
-            with record_function("ba/create"):
+            with self._stage("BA surfel creation"), record_function("ba/create"):
                 smap, _ = self._create_surfels(smap, create_ids)
 
         active_strict = valid & (activation == ACTIVE)
@@ -379,15 +450,19 @@ class DirectBA:
         smap = self._geometry(smap, active_strict, participating, optimize_geometry)
         if do_surfel_updates:
             with record_function("ba/merge_compact"):
-                smap = self._compact(self._merge_surfels(smap, create_ids))
+                with self._stage("BA surfel merge"):
+                    smap = self._merge_surfels(smap, create_ids)
+                with self._stage("BA surfel compaction"):
+                    smap = self._compact(smap)
 
         if optimize_poses:
-            with record_function("ba/poses"):
-                result = self._poses(smap, participating)
-            ks.set_poses(result.q, result.t, participating)
-            activation = torch.where(
-                participating, torch.where(result.moved, ACTIVE, INACTIVE),
-                activation)
+            with self._stage("BA pose optimization"):
+                with record_function("ba/poses"):
+                    result = self._poses(smap, participating)
+                ks.set_poses(result.q, result.t, participating)
+                activation = torch.where(
+                    participating, torch.where(result.moved, ACTIVE, INACTIVE),
+                    activation)
         ks.activation[:k] = kfs.propagate_covisible_active(
             ks.covis[:k, :k], activation, valid)
         return smap
@@ -408,7 +483,9 @@ class DirectBA:
         With `optimize_depth_intrinsics` / `optimize_color_intrinsics` every
         iteration runs and is followed by the intrinsics step (the JAX
         package's host loop), each system gated by its residual kind
-        (use_geometric_residuals / use_photometric_residuals).
+        (use_geometric_residuals / use_photometric_residuals). Under
+        config.sync_stage_profiling every iteration runs too, stage by stage
+        (the module docstring).
 
         `activate_all` (default: config.disable_deactivation without a
         window) re-activates every valid keyframe at the start of each
@@ -451,6 +528,7 @@ class DirectBA:
         new_keyframes = int((ks.valid[:k] & (
             ks.last_active_iter[:k] != self.ba_iteration_count)).sum())
         smap = self._working_map(new_keyframes)
+        bound = smap.valid.shape[0]  # the rows' surfel_bound
         # The JAX package's host-loop calls (every iteration runs) keep the
         # whole map on this device.
         host_loop = fixed_window or intrinsics
@@ -474,19 +552,45 @@ class DirectBA:
             # The early-exit test runs before the first iteration; with the
             # activate-all window every valid keyframe enters it active.
             ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
+        # Staged profiling is one of the JAX package's host-loop modes too:
+        # every iteration runs there, with the stages timed one by one. The
+        # other calls are its fused program, timed as one region.
+        staged = c.sync_stage_profiling
+        fused = None
+        if not (host_loop or staged):
+            fused = ("BA iterations (streamed)" if isinstance(smap, parallel.ShardedMap)
+                     and self._streaming else "BA iterations (fused)")
+        iteration_timer = "BA iteration" if host_loop and not staged else None
         iterations = 0
-        while iterations < max_iterations and (host_loop or bool(
-                (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
-            if fixed_window:
-                ks.set_activation_window(*active_keyframe_window)
-                ks.propagate_covisible_active()
-            smap = self._iteration(smap, activate_all, optimize_geometry,
-                                   do_surfel_updates, optimize_poses)
-            iterations += 1
-            if intrinsics:
-                self._intrinsics_step(
-                    smap, optimize_depth_intrinsics and c.use_geometric_residuals,
-                    optimize_color_intrinsics and c.use_photometric_residuals)
+        with _timer(fused, self.device):
+            while iterations < max_iterations and (host_loop or staged or bool(
+                    (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
+                if fixed_window:
+                    ks.set_activation_window(*active_keyframe_window)
+                    ks.propagate_covisible_active()
+                if staged and self.timings_stream is not None:
+                    self.timings_stream.write(
+                        f"BA_count {self.ba_iteration_count} inner_iteration "
+                        f"{iterations} keyframe_count {ks.live_count} "
+                        f"surfel_bound {bound}\n")
+                with _timer(iteration_timer, self.device):
+                    smap = self._iteration(smap, activate_all, optimize_geometry,
+                                           do_surfel_updates, optimize_poses)
+                iterations += 1
+                if intrinsics:
+                    with Timing.time("BA intrinsics optimization",
+                                     sync=self.device if staged else None,
+                                     device=self.device):
+                        self._intrinsics_step(
+                            smap, optimize_depth_intrinsics and c.use_geometric_residuals,
+                            optimize_color_intrinsics and c.use_photometric_residuals)
+        if fused == "BA iterations (fused)" and self.timings_stream is not None:
+            t0 = time.perf_counter()
+            self._synchronize()
+            self.timings_stream.write(
+                f"BA_count {self.ba_iteration_count} fused_iterations {max_iterations} "
+                f"keyframe_count {ks.live_count} surfel_bound {bound} "
+                f"sync_ms {1e3 * (time.perf_counter() - t0):.3f}\n")
 
         if increase_ba_iteration_count:
             smap = self._scheme_end_tasks(smap, do_surfel_updates)

@@ -32,7 +32,12 @@ step and command buttons. ``--n_devices N`` runs BA over a mesh of N
 shards: cuda:0..N-1 with ``--device cuda`` (it raises when fewer cards are
 visible), N shards on the one CPU with ``--device cpu``; the planes are
 streamed instead of replicated above ``--plane_replication_budget_mb``
-(0 forces streaming). ``--save_timings`` and ``--autotune`` are refused,
+(0 forces streaming). ``--save_timings PATH`` writes the JAX package's
+per-BA-call timing rows (per-stage rows with ``--sync_stage_profiling
+true``, each stage ended by a device synchronization);
+``--export_final_timings PATH`` writes the timer report, which a run
+without ``--quiet`` also prints, with the device memory line. Times are
+the card's (CUDA events) with ``--device cuda``. ``--autotune`` is refused,
 naming why.
 """
 
@@ -46,11 +51,7 @@ import time
 
 from badslam_torch.config import BadSlamConfig
 
-# Output and mode flags of badslam_tpu.cli that the port does not do yet,
-# each with the later slice that brings it.
-_LATER_FLAGS = {
-    "save_timings": "per-BA-run timing rows come with the port's benchmark",
-}
+# Mode flags of badslam_tpu.cli that the port refuses, each with its reason.
 _LATER_SWITCHES = {
     "autotune": "the port has no tuned variants to pick between",
 }
@@ -98,6 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the final trajectory in TUM format to this path")
     p.add_argument("--export_point_cloud", default=None,
                    help="write the final surfel map as a binary PLY to this path")
+    p.add_argument("--export_final_timings", default=None,
+                   help="write the timing report to this path")
+    p.add_argument("--save_timings", default=None,
+                   help="stream per-BA-run timing rows to this file (the "
+                        "JAX package's rows; combine with "
+                        "--sync_stage_profiling true for per-stage rows)")
     p.add_argument("--export_frame_times", default=None,
                    help="write per-frame times (ms; CUDA events on a GPU), the "
                         "keyframe frames, the frames that drained queued BA "
@@ -139,8 +146,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--final_ba_window_size", type=int, default=16)
     p.add_argument("--final_ba_window_stride", type=int, default=8)
     p.add_argument("--quiet", action="store_true")
-    for name, why in _LATER_FLAGS.items():
-        p.add_argument(f"--{name}", default=None, help=f"not supported: {why}")
     for name, why in _LATER_SWITCHES.items():
         p.add_argument(f"--{name}", action="store_true",
                        help=f"not supported: {why}")
@@ -234,10 +239,8 @@ def run(argv=None, mesh=None):
     `mesh` (a parallel.Mesh of --n_devices shards) overrides the mesh that
     --n_devices would build, e.g. to put several shards on one card."""
     args = build_parser().parse_args(argv)
-    refused = [f"--{name}: {why}" for name, why in _LATER_FLAGS.items()
-               if getattr(args, name) is not None]
-    refused += [f"--{name}: {why}" for name, why in _LATER_SWITCHES.items()
-                if getattr(args, name)]
+    refused = [f"--{name}: {why}" for name, why in _LATER_SWITCHES.items()
+               if getattr(args, name)]
     if refused:
         raise NotImplementedError("badslam_torch: " + "; ".join(refused))
     if args.live and args.load_state:
@@ -252,6 +255,8 @@ def run(argv=None, mesh=None):
     from badslam_torch.io import state
     from badslam_torch.io.dataset import load_tum_dataset
     from badslam_torch.io.live_inputs import open_live_input
+    from badslam_torch.utils.memory import format_memory_usage
+    from badslam_torch.utils.timing import Timing
     from badslam_torch.viz.viewer import LiveViewer
 
     if not args.load_state:  # a resumed run takes the snapshot's config
@@ -259,7 +264,11 @@ def run(argv=None, mesh=None):
     device = resolve_device(args.device)
     live_input = open_live_input(args.live, config) if args.live else None
     viewer = None
+    timings_file = None
     timings = {}
+    # The registry is process-wide: a second run in one process reports
+    # only its own regions.
+    Timing.reset()
     try:
         if live_input is not None:
             video = live_input.start(max_frames=args.live_max_frames,
@@ -274,6 +283,9 @@ def run(argv=None, mesh=None):
         else:
             slam = BadSlam(config, video, device, mesh=mesh)
             start = None
+        if args.save_timings:
+            timings_file = open(args.save_timings, "w")
+            slam.direct_ba.set_save_timings(timings_file)
         if args.live_viewer_dir:
             viewer = LiveViewer(args.live_viewer_dir, port=args.live_viewer_port,
                                 interval=args.live_viewer_interval)
@@ -299,6 +311,13 @@ def run(argv=None, mesh=None):
             live_input.stop()
         if viewer is not None:
             viewer.close()
+        if timings_file is not None:
+            timings_file.close()
+    if args.export_final_timings:
+        Timing.save(args.export_final_timings)
+    if not args.quiet:
+        print(Timing.report())
+        print(format_memory_usage(device))  # PrintGPUMemoryUsage analog
     return slam
 
 

@@ -43,6 +43,18 @@ flag per Gauss-Newton or BA iteration back to the host. With
 ``n_devices > 1`` each BA call runs over a mesh of devices
 (``ba/scheme.py``), and the map and keyframes stay on the one device
 between calls.
+
+Timed regions (``utils/timing.py``, on the card's clock on a GPU) carry the
+JAX package's timer names: ``preprocessing``, ``odometry``, ``keyframe
+insert``, ``bundle adjustment`` (the keyframe's BA call; the drains between
+frames are not timed, as there), ``bundle adjustment (PCG)``, ``loop
+detection (sync)``, ``loop closure attempt``, ``loop detection drain
+(wait)`` and ``trajectory deformation``; the BA stages and the detection
+worker add theirs. The JAX package's ``frame (fused)``, ``frame chunk
+(fused)`` and ``frame chunk upload`` time its fused steady-frame program and
+scan chunks, which the port does not have: every frame of the port takes
+the JAX package's per-frame path (its path for the first frame and at an
+input pyramid level), timed as ``preprocessing`` and ``odometry``.
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from badslam_torch.io.ply import save_ply
 from badslam_torch.io.preload import PreLoadThread
 from badslam_torch.loop.closure import apply_closure
 from badslam_torch.loop.detector import LoopDetector
+from badslam_torch.loop.features import gray_from_rgb
 from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.loop.trajectory import deform_trajectory
 from badslam_torch.ops.preprocess import (
@@ -75,6 +88,8 @@ from badslam_torch.ops.preprocess import (
 )
 from badslam_torch.ops.pyramid import build_pyramid
 from badslam_torch.tracking.pairwise import track_frame_pairwise
+from badslam_torch.utils.memory import free_device_memory_mb
+from badslam_torch.utils.timing import Timing, region
 
 _log = logging.getLogger("badslam_torch")
 
@@ -310,7 +325,8 @@ class BadSlam:
         queued BA iterations wait (a steady run, see `run`)."""
         c = self.config
         is_first = self.base_kf_id is None
-        frame, pyramid = self.preprocess(frame_index)
+        with Timing.time("preprocessing", device=self.device):
+            frame, pyramid = self.preprocess(frame_index)
 
         if is_first:
             # The first frame's pose is the dataset prior (or the identity),
@@ -322,7 +338,8 @@ class BadSlam:
                 torch.as_tensor(prior.t, dtype=torch.float32, device=self.device))
         else:
             if c.estimate_poses:
-                with record_function("track"):
+                with record_function("track"), \
+                        Timing.time("odometry", device=self.device):
                     base_T_frame = self.run_odometry(pyramid)
             else:
                 base_T_frame = se3.SE3(self._hist_q[2], self._hist_t[2])
@@ -379,23 +396,22 @@ class BadSlam:
                          "alternating solver (run with --parallel_ba false for PCG)")
             self._warned_pcg_parallel = True
         if c.use_pcg and not c.parallel_ba:
-            pcg_bundle_adjustment(
-                self.direct_ba,
-                max_iterations=min(c.max_num_ba_iterations_per_keyframe, 10),
-                optimize_intrinsics=opt_intr and c.use_geometric_residuals,
-                do_surfel_updates=c.do_surfel_updates)
+            with Timing.time("bundle adjustment (PCG)", device=self.device):
+                pcg_bundle_adjustment(
+                    self.direct_ba,
+                    max_iterations=min(c.max_num_ba_iterations_per_keyframe, 10),
+                    optimize_intrinsics=opt_intr and c.use_geometric_residuals,
+                    do_surfel_updates=c.do_surfel_updates)
             return
         intrinsics = dict(
             optimize_depth_intrinsics=opt_intr and c.use_geometric_residuals,
             optimize_color_intrinsics=opt_intr and c.use_photometric_residuals)
-        if c.parallel_ba:
+        with Timing.time("bundle adjustment", device=self.device):
             self.direct_ba.bundle_adjustment(
-                max_iterations=2, do_surfel_updates=c.do_surfel_updates, **intrinsics)
-            self.queued_ba_iterations += max(0, c.max_num_ba_iterations_per_keyframe - 2)
-        else:
-            self.direct_ba.bundle_adjustment(
-                max_iterations=c.max_num_ba_iterations_per_keyframe,
+                max_iterations=2 if c.parallel_ba else c.max_num_ba_iterations_per_keyframe,
                 do_surfel_updates=c.do_surfel_updates, **intrinsics)
+        if c.parallel_ba:
+            self.queued_ba_iterations += max(0, c.max_num_ba_iterations_per_keyframe - 2)
 
     def _refresh_cameras(self) -> None:
         """After a BA call that self-calibrated: the next frames are
@@ -448,10 +464,9 @@ class BadSlam:
         c = self.config
         ks = self.direct_ba.keyframes
         low_memory = False
-        if (c.min_free_gpu_memory_mb > 0 and ks.live_count > 4
-                and self.device.type == "cuda"):
-            free_bytes, _ = torch.cuda.mem_get_info(self.device)
-            low_memory = free_bytes / 2**20 < c.min_free_gpu_memory_mb
+        if c.min_free_gpu_memory_mb > 0 and ks.live_count > 4:
+            free_mb = free_device_memory_mb(self.device)
+            low_memory = free_mb is not None and free_mb < c.min_free_gpu_memory_mb
         if low_memory or ks.live_count >= c.max_keyframe_count - 2:
             freed = ks.merge_redundant_keyframes(4)
             for slot in freed:  # the detector forgets merged keyframes
@@ -468,10 +483,11 @@ class BadSlam:
         """Add the frame to DirectBA's keyframes and make it the new base
         keyframe (CreateKeyframe, bad_slam.cc:957-1101); the first keyframe
         bootstraps the map without the observation filter."""
-        kf_id = self.direct_ba.add_keyframe(frame, global_T_frame, frame_index)
-        if self.base_kf_id is None:
-            self.direct_ba.create_surfels_for_keyframe(
-                kf_id, filter_new_surfels=False)
+        with Timing.time("keyframe insert", device=self.device):
+            kf_id = self.direct_ba.add_keyframe(frame, global_T_frame, frame_index)
+            if self.base_kf_id is None:
+                self.direct_ba.create_surfels_for_keyframe(
+                    kf_id, filter_new_surfels=False)
         self.keyframe_frames.append(frame_index)
         self.base_kf_id = kf_id
         self.base_kf_global_T_frame = global_T_frame
@@ -492,9 +508,7 @@ class BadSlam:
         """The detector's host images of a frame: gray (0.299 R + 0.587 G +
         0.114 B, truncated to u8) and calibrated depth, remapped by the
         nearest source pixel to the pinhole camera for a distorted source."""
-        rgb = self.video.color_u8(frame_index)
-        gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
-                + 0.114 * rgb[..., 2]).astype(np.uint8)
+        gray = gray_from_rgb(self.video.color_u8(frame_index))
         depth = (self.video.depth_u16(frame_index).astype(np.float32)
                  * self.config.raw_to_float_depth)
         um = self.video.undistortion_map
@@ -530,13 +544,15 @@ class BadSlam:
             self._loop_pending_seq = self._loop_thread.enqueue(kf_id, gray, depth)
             return
         det = self.loop_detector
-        det.add_keyframe(gray, depth, kf_id=kf_id)
-        candidate = det.detect_candidate(kf_id)
+        with Timing.time("loop detection (sync)"):
+            det.add_keyframe(gray, depth, kf_id=kf_id)
+            candidate = det.detect_candidate(kf_id)
         if candidate is None or not self._closure_attempt_allowed():
             return
         init = det.initial_alignment(kf_id, candidate)
         if init is not None:
-            self._attempt_loop_closure(kf_id, candidate, init[0])
+            with Timing.time("loop closure attempt", device=self.device):
+                self._attempt_loop_closure(kf_id, candidate, init[0])
 
     def _closure_attempt_allowed(self) -> bool:
         """The cooldown between closure attempts, counted in keyframes
@@ -552,12 +568,14 @@ class BadSlam:
         and attempt the closures they found."""
         if self._loop_thread is None or self._loop_pending_seq < 0:
             return
-        with record_function("loop_drain_wait"):
+        with record_function("loop_drain_wait"), \
+                Timing.time("loop detection drain (wait)"):
             self._loop_thread.wait_through(self._loop_pending_seq)
         for r in self._loop_thread.drain_results():
             if (r.candidate is not None and r.cur_T_matched is not None
                     and self._closure_attempt_allowed()):
-                self._attempt_loop_closure(r.kf_id, r.candidate, r.cur_T_matched)
+                with Timing.time("loop closure attempt", device=self.device):
+                    self._attempt_loop_closure(r.kf_id, r.candidate, r.cur_T_matched)
 
     def _keyframe_pyramid(self, kf_id: int):
         ks = self.direct_ba.keyframes
@@ -792,7 +810,8 @@ class BadSlam:
         ks = self.direct_ba.keyframes
         if ks.count == 0:
             return
-        with record_function("trajectory_deformation"):
+        with record_function("trajectory_deformation"), \
+                Timing.time("trajectory deformation", device=self.device):
             prev_slot, next_slot, alpha, kf_slot = self._bracket_arrays()
             self.traj_q, self.traj_t = deform_trajectory(
                 self.traj_q, self.traj_t, old_kq, old_kt, ks.q, ks.t,
@@ -833,27 +852,14 @@ class BadSlam:
             self._apply_ba_pose_updates(*old)
 
     def _timed_step(self, i: int, step, marks: list) -> None:
-        """Run step() (frame i's work), timed with CUDA events on a GPU and
-        the host clock on the CPU; read by _collect_frame_times."""
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record(stream)
+        """Run step() (frame i's work) as one timed region (CUDA events on a
+        GPU, the host clock on the CPU); read by _collect_frame_times."""
+        with region(self.device) as span:
             step()
-            ev1.record(stream)
-            marks.append((i, ev0, ev1))
-        else:
-            t1 = time.perf_counter()
-            step()
-            marks.append((i, 1000.0 * (time.perf_counter() - t1)))
+        marks.append((i, span))
 
     def _collect_frame_times(self, marks: list) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            self.frame_times_ms += [(i, ev0.elapsed_time(ev1)) for i, ev0, ev1 in marks]
-        else:
-            self.frame_times_ms += marks
+        self.frame_times_ms += [(i, span.ms) for i, span in marks]
 
     def _wait_for_viewer(self) -> None:
         """The live viewer's run controls: block while paused, applying its

@@ -164,19 +164,33 @@ def _empty() -> KeyframeFeatures:
                             np.zeros((0, 3), np.float32))
 
 
+def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
+    """The detector's gray image of a u8 RGB frame: 0.299 R + 0.587 G +
+    0.114 B, truncated to u8."""
+    return (0.299 * rgb_u8[..., 0] + 0.587 * rgb_u8[..., 1]
+            + 0.114 * rgb_u8[..., 2]).astype(np.uint8)
+
+
+def describe_keypoints(gray_u8: np.ndarray, max_features: int = 500):
+    """The strongest `max_features` corners of the image (equal scores in
+    raster order) and their descriptors: (x, y, [N, 32] u8)."""
+    x, y, score = fast_corners(gray_u8)
+    if len(x) == 0:
+        return x, y, np.zeros((0, DESCRIPTOR_BITS // 8), np.uint8)
+    order = np.lexsort((np.arange(len(score)), -score))[:max_features]
+    x, y = x[order], y[order]
+    return x, y, describe(gray_u8, x, y, orientations(gray_u8, x, y))
+
+
 def extract_features(
     gray_u8: np.ndarray,       # [H, W] uint8 intensity
     depth: np.ndarray,         # [H, W] f32 calibrated depth (0 invalid)
     cam,                       # PinholeCamera (host floats)
     max_features: int = 500,
 ) -> KeyframeFeatures:
-    x, y, score = fast_corners(gray_u8)
+    x, y, desc = describe_keypoints(gray_u8, max_features)
     if len(x) == 0:
         return _empty()
-    # Strongest first; equal scores in raster order.
-    order = np.lexsort((np.arange(len(score)), -score))[:max_features]
-    x, y = x[order], y[order]
-    desc = describe(gray_u8, x, y, orientations(gray_u8, x, y))
     pts = np.stack([x, y], axis=-1).astype(np.float32)
 
     # Keep only keypoints with valid depth; unproject at the pixel center.

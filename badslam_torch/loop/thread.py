@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -28,6 +27,7 @@ import numpy as np
 from torch.profiler import record_function
 
 from badslam_torch.geometry import se3_np as s3
+from badslam_torch.utils.timing import Timing
 
 
 @dataclass
@@ -113,10 +113,11 @@ class LoopDetectionThread:
                 elif op == "register":
                     self.detector.add_keyframe(gray, depth, kf_id=kf_id)
                 else:
-                    t0 = time.perf_counter()
-                    with record_function("loop_detection_worker"):
+                    # On the host clock: this thread queues no device work.
+                    with record_function("loop_detection_worker"), \
+                            Timing.time("loop detection (worker thread)") as span:
                         result = self._detect(kf_id, gray, depth)
-                    self.worker_ms.append(1000.0 * (time.perf_counter() - t0))
+                    self.worker_ms.append(span.ms)
                     with self._lock:
                         self._results.append(result)
             except Exception as e:  # re-raised on the front end's thread

@@ -1,14 +1,15 @@
-"""Synthetic analytic scenes and datasets (numpy only).
+"""Synthetic analytic scenes and datasets (numpy; torch for the device ATE).
 
-Counterpart of the parts of ``badslam_tpu/synthetic.py`` that the port's
-slices need: a few analytic planes ray-cast into depth and intensity maps
-along a smooth ground-truth trajectory, through a pinhole or a
-radial-tangential (distorted) camera, written as a TUM-format dataset
-through ``io.png`` (associated, or as a raw download's rgb.txt/depth.txt),
-and the ATE metric; and the loop-closure fixture: a textured box room, a
-revisiting circular trajectory, and sensor noise and depth bias in the
-written dataset. Poses are host ``se3.SE3`` pairs of numpy float32 arrays
-(q wxyz, t).
+Counterpart of ``badslam_tpu/synthetic.py``: a few analytic planes
+ray-cast into depth and intensity maps along a smooth ground-truth
+trajectory, through a pinhole or a radial-tangential (distorted) camera,
+written as a TUM-format dataset through ``io.png`` (associated, or as a raw
+download's rgb.txt/depth.txt); the loop-closure fixture: a textured box
+room, a revisiting circular trajectory, and sensor noise and depth bias in
+the written dataset; the random heightmap mesh and its rasterizer (the
+tracker's non-planar test scene); the ATE metric with SE3, Sim3 or no
+alignment, and its device form on a trajectory tensor. Poses are host
+``se3.SE3`` pairs of numpy float32 arrays (q wxyz, t).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from badslam_torch.geometry.camera import PinholeCamera, RadTanCamera
 from badslam_torch.geometry.se3 import SE3
@@ -178,6 +180,110 @@ def _render_from_dirs(dx, dy, scene: PlaneScene, world_T_frame: SE3, albedo=None
     return depth, inten
 
 
+class HeightmapMesh(NamedTuple):
+    """Random-heightmap triangle mesh fixture (the reference's heaviest
+    tracker test scene, test_pairwise_frame_tracking.cc:280-340)."""
+
+    vertices: np.ndarray   # [V, 3] world-space positions
+    faces: np.ndarray      # [F, 3] int32 vertex indices
+    colors: np.ndarray     # [V] f32 per-vertex intensity in [0, 1]
+
+
+def heightmap_mesh_scene(
+    rng: np.random.Generator,
+    vertices_x: int = 31,
+    vertices_y: int = 31,
+    extent: float = 5.0,
+    z_distance: float = 1.0,
+    z_variation: float = 0.05,
+) -> HeightmapMesh:
+    """Random heightmap at z~1 with +-z_variation noise, borders pulled back
+    to avoid self-occlusion, random per-vertex colors: the reference's
+    fixture parameters (test_pairwise_frame_tracking.cc:292-340), drawn from
+    `rng` in the JAX package's order."""
+    xs = np.linspace(-0.5, 0.5, vertices_x)
+    ys = np.linspace(-0.5, 0.5, vertices_y)
+    gx, gy = np.meshgrid(xs, ys)
+    z = z_distance + rng.uniform(-z_variation, z_variation, gx.shape)
+    z -= 6.0 * np.sqrt(gx * gx + gy * gy)  # pull back borders
+    vertices = np.stack([gx * extent, gy * extent, z], axis=-1).reshape(-1, 3)
+    colors = rng.integers(0, 256, len(vertices)).astype(np.float32) / 255.0
+
+    faces = []
+    for y in range(vertices_y - 1):
+        for x in range(vertices_x - 1):
+            i00 = x + y * vertices_x
+            i10 = (x + 1) + y * vertices_x
+            i01 = x + (y + 1) * vertices_x
+            i11 = (x + 1) + (y + 1) * vertices_x
+            faces.append((i01, i10, i00))
+            faces.append((i01, i11, i10))
+    return HeightmapMesh(vertices.astype(np.float32), np.array(faces, np.int32), colors)
+
+
+def render_mesh(cam: PinholeCamera, mesh: HeightmapMesh, world_T_frame: SE3,
+                min_depth: float = 0.1,
+                max_depth: float = 20.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Z-buffer rasterization of the mesh (host numpy; the reference renders
+    with offscreen OpenGL): perspective-correct barycentric interpolation of
+    depth and vertex intensity. Returns (depth [H,W] f32 z-depth, intensity
+    [H,W] f32)."""
+    q = np.asarray(world_T_frame.q, np.float64)
+    t = np.asarray(world_T_frame.t, np.float64)
+    R = _quat_to_matrix(np.array([q[0], -q[1], -q[2], -q[3]]))
+    vc = mesh.vertices @ R.T + -(_quat_to_matrix(q).T @ t)  # camera-frame vertices
+
+    h, w = cam.height, cam.width
+    depth_buf = np.full((h, w), np.inf, np.float64)
+    inten_buf = np.zeros((h, w), np.float64)
+
+    z = vc[:, 2]
+    px = cam.fx * vc[:, 0] / np.where(z > 0, z, 1.0) + cam.cx
+    py = cam.fy * vc[:, 1] / np.where(z > 0, z, 1.0) + cam.cy
+
+    for f in mesh.faces:
+        if np.any(vc[f, 2] <= min_depth):
+            continue
+        tx, ty = px[f], py[f]
+        x0 = max(int(np.floor(tx.min())), 0)
+        x1 = min(int(np.ceil(tx.max())), w - 1)
+        y0 = max(int(np.floor(ty.min())), 0)
+        y1 = min(int(np.ceil(ty.max())), h - 1)
+        if x1 < x0 or y1 < y0:
+            continue
+        gy, gx = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+        # Pixel centers in corner convention.
+        pxc = gx + 0.5
+        pyc = gy + 0.5
+        d = ((ty[1] - ty[2]) * (tx[0] - tx[2])
+             + (tx[2] - tx[1]) * (ty[0] - ty[2]))
+        if abs(d) < 1e-12:
+            continue
+        b0 = ((ty[1] - ty[2]) * (pxc - tx[2])
+              + (tx[2] - tx[1]) * (pyc - ty[2])) / d
+        b1 = ((ty[2] - ty[0]) * (pxc - tx[2])
+              + (tx[0] - tx[2]) * (pyc - ty[2])) / d
+        b2 = 1.0 - b0 - b1
+        inside = (b0 >= 0) & (b1 >= 0) & (b2 >= 0)
+        if not inside.any():
+            continue
+        inv_z = (b0 / vc[f[0], 2] + b1 / vc[f[1], 2] + b2 / vc[f[2], 2])
+        zi = 1.0 / np.maximum(inv_z, 1e-12)
+        ci = (b0 * mesh.colors[f[0]] / vc[f[0], 2]
+              + b1 * mesh.colors[f[1]] / vc[f[1], 2]
+              + b2 * mesh.colors[f[2]] / vc[f[2], 2]) * zi
+        win_d = depth_buf[y0:y1 + 1, x0:x1 + 1]
+        win_i = inten_buf[y0:y1 + 1, x0:x1 + 1]
+        closer = inside & (zi < win_d)
+        win_d[closer] = zi[closer]
+        win_i[closer] = ci[closer]
+
+    depth = np.where(np.isfinite(depth_buf) & (depth_buf <= max_depth),
+                     depth_buf, 0.0).astype(np.float32)
+    inten = np.floor(np.clip(inten_buf, 0, 1) * 255.0 + 0.5) / 255.0
+    return depth, np.where(depth > 0, inten, 0.0).astype(np.float32)
+
+
 def pose(tx=0.0, ty=0.0, tz=0.0, rx=0.0, ry=0.0, rz=0.0) -> SE3:
     """SE3 (numpy float32) from a twist [v, w], by Rodrigues in float64."""
     v = np.array([tx, ty, tz], np.float64)
@@ -303,14 +409,100 @@ def make_raw_tum_lists(path: str, depth_offset_s: float = 0.0,
     os.remove(assoc)
 
 
-def ate_rmse(est_poses, gt_poses) -> float:
-    """ATE RMSE of the translations after rigid (Horn) alignment."""
-    est = np.array([np.asarray(p.t, np.float64) for p in est_poses])
-    gt = np.array([np.asarray(p.t, np.float64) for p in gt_poses])
+def align_trajectory(est: np.ndarray, gt: np.ndarray, align: str = "se3"):
+    """Positions est [N, 3] aligned onto gt [N, 3] (Horn / Umeyama): "se3"
+    (rigid), "sim3" (rigid + scale, the TUM benchmark's scale-invariant
+    variant) or "none". Returns (aligned positions, scale)."""
+    if align == "none":
+        return est, 1.0
     mu_e, mu_g = est.mean(0), gt.mean(0)
     E, G = est - mu_e, gt - mu_g
-    U, _, Vt = np.linalg.svd(E.T @ G)
+    U, sv, Vt = np.linalg.svd(E.T @ G)
     S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
     R = (U @ S @ Vt).T
-    aligned = est @ R.T + (mu_g - R @ mu_e)
+    if align == "sim3":
+        # Umeyama: c = tr(diag(sv) S) / sum ||E_i||^2.
+        scale = float(np.sum(sv * np.diag(S)) / max(np.sum(E * E), 1e-30))
+    else:
+        scale = 1.0
+    return scale * (est @ R.T) + (mu_g - scale * (R @ mu_e)), scale
+
+
+def ate_rmse(est_poses, gt_poses, align: str = "se3") -> float:
+    """ATE RMSE of the translations after `align_trajectory` (the ETH3D
+    benchmark metric with "se3")."""
+    est = np.array([np.asarray(p.t, np.float64) for p in est_poses])
+    gt = np.array([np.asarray(p.t, np.float64) for p in gt_poses])
+    aligned, _ = align_trajectory(est, gt, align)
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
+
+
+def _centred(traj_t: torch.Tensor, gt_t):
+    """The trajectory [F, 3] and ground truth (array or tensor) as float64
+    on traj_t's device, each minus its mean."""
+    est = traj_t.to(torch.float64)
+    gt = torch.as_tensor(gt_t, dtype=torch.float64, device=est.device)
+    return est - est.mean(0), gt - gt.mean(0)
+
+
+def ate_moments_device(traj_t: torch.Tensor, gt_t):
+    """The device half of the SE3-aligned ATE: the centred trajectory E and
+    ground truth G ([F, 3], float64 on traj_t's device) reduced to the
+    Horn / Umeyama sufficient statistics, C = E^T G [3, 3], sum |E|^2 and
+    sum |G|^2, all three from one product of [E G] with itself. Returns
+    device tensors; nothing is read back."""
+    x = torch.cat(_centred(traj_t, gt_t), dim=1)
+    m = x.T @ x
+    return m[:3, 3:], torch.trace(m[:3, :3]), torch.trace(m[3:, 3:])
+
+
+def ate_rmse_from_moments(C, se, sg, n: int) -> float:
+    """The host half: the closed-form minimum of the aligned residual,
+    min_R sum |R E_i - G_i|^2 = se + sg - 2 (s1 + s2 + sign(det(U V^T)) s3)
+    with C = U diag(s) V^T (Kabsch). Matches ate_rmse(align="se3") up to
+    the cancellation of that difference."""
+    C = np.asarray(torch.as_tensor(C).cpu(), np.float64)
+    U, sv, Vt = np.linalg.svd(C)
+    s = np.sign(np.linalg.det(U @ Vt))
+    resid = max(float(se) + float(sg) - 2.0 * (sv[0] + sv[1] + s * sv[2]), 0.0)
+    return float(np.sqrt(resid / n))
+
+
+def ate_rmse_device(traj_t: torch.Tensor, gt_t) -> torch.Tensor:
+    """The SE3-aligned ATE RMSE on traj_t's device as one 0-d float64
+    tensor, with no read back and no SVD: Horn's closed-form absolute
+    orientation (the optimal rotation's quaternion is the dominant
+    eigenvector of the 4x4 symmetric K(S), S = E^T G), found by 30 shifted
+    matrix squarings, and the residual summed directly, sum |E_i R^T -
+    G_i|^2 (not Horn's se + sg - 2 lambda, which cancels). Both rotation
+    conventions are evaluated and the smaller residual kept: the other is
+    never smaller, so the result is the optimum. In float64 it matches
+    ate_rmse(align="se3") to ~1e-12 relative."""
+    E, G = _centred(traj_t, gt_t)
+    n = E.shape[0]
+    S = E.T @ G
+    t = torch.trace(S)
+    K = torch.stack([
+        torch.stack([t, S[1, 2] - S[2, 1], S[2, 0] - S[0, 2], S[0, 1] - S[1, 0]]),
+        torch.stack([S[1, 2] - S[2, 1], 2 * S[0, 0] - t, S[0, 1] + S[1, 0], S[2, 0] + S[0, 2]]),
+        torch.stack([S[2, 0] - S[0, 2], S[0, 1] + S[1, 0], 2 * S[1, 1] - t, S[1, 2] + S[2, 1]]),
+        torch.stack([S[0, 1] - S[1, 0], S[2, 0] + S[0, 2], S[1, 2] + S[2, 1], 2 * S[2, 2] - t]),
+    ])
+    # Shift to make lambda_max(K) the dominant eigenvalue of a PSD matrix
+    # (Gershgorin), then square 30 times, renormalizing by max |B|.
+    B = K + (1.0 + K.abs().sum()) * torch.eye(4, dtype=K.dtype, device=K.device)
+    B = B / B.abs().max()
+    for _ in range(30):
+        B = B @ B
+        B = B / B.abs().max()
+    q = B[:, torch.argmax((B * B).sum(dim=0))]
+    q = q / torch.linalg.vector_norm(q)
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
+    ])
+    r1 = ((E @ R.T - G) ** 2).sum()
+    r2 = ((E @ R - G) ** 2).sum()
+    return torch.sqrt(torch.minimum(r1, r2) / n)

@@ -143,10 +143,25 @@ failure, so any failure exits non-zero before the last line is printed):
    13-frame sequence with a 2-shard mesh on the card and a 2-shard mesh on
    the CPU, integrated and streamed (poses to 1e-4, surfel counts within
    1%).
-24. The nvidia-smi line again, one JSON line of the kernels, then the last
+24. Timing rows (timings): the slice's sequence and flags through
+   `cli.run` with `--save_timings` and `--export_final_timings`, once with
+   `--sync_stage_profiling true` (every BA stage ended by a device sync,
+   every BA iteration run) and once without. Parses both row files (a row
+   out of place fails) and prints the per-stage device ms (the median over
+   BA calls of each stage's ms in the call, and the median of its rows),
+   each call's stage sum against its `ba_call_ms` (a sum above it by more
+   than 1 ms fails), the fused rows' `sync_ms`, both runs' per-frame
+   medians and timer totals, the device ATE (`ate_rmse_device` on the card
+   against the host `ate_rmse`, 1e-6 relative) and `evaluate_ate` on the
+   exported poses. Holds the unflagged run to the slice (poses to 1e-4),
+   the flagged run to an ATE limit of 1.5e-4 m (its every-iteration BA moves
+   poses by more than 1e-4; the gap is printed), and the staged path on the
+   card against the CPU on phase 7's 160x120 sequence (poses to 1e-4, the
+   same row keys).
+25. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
 
-Each of phases 8-23 prints the card's name and power limit beside its
+Each of phases 8-24 prints the card's name and power limit beside its
 numbers.
 """
 
@@ -187,6 +202,7 @@ from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.ops import interp, kernels
 from badslam_torch.parallel import make_mesh
 from badslam_torch.parallel.dryrun import dryrun_multichip
+from badslam_torch.tools import evaluate_ate
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
 from badslam_torch.ops.preprocess import (
     bilateral_filter_and_cutoff,
@@ -1665,6 +1681,182 @@ def phase_cpu_multi(workdir: str) -> None:
             raise AssertionError(f"CPU and CUDA disagree on the {mode} mesh")
 
 
+# Timing rows (phase 24): the stage rows of --save_timings under
+# --sync_stage_profiling, in the JAX package's order.
+STAGE_ROWS = ("BA_surfel_creation", "BA_surfel_activation", "BA_geometry_optimization",
+              "BA_surfel_merge", "BA_surfel_compaction", "BA_pose_optimization")
+# A call's stages are timed inside its own span (ba_call_ms), each between
+# two of its events: their sum may pass the span only by rounding.
+STAGE_SUM_SLACK_MS = 1.0
+ATE_DEVICE_RTOL = 1e-6
+# The staged run's ATE on the slice: about 3x its reading of 4.7e-5 m (NVIDIA
+# H100 80GB HBM3, 700 W). Its every-iteration BA leaves its poses more than
+# POSE_ATOL from the unflagged run's, so this limit holds it instead.
+STAGED_ATE_LIMIT_M = 1.5e-4
+
+
+def _parse_rows(path: str) -> list:
+    """A --save_timings file as BA calls, in order: per call its header
+    fields and, for staged rows, the stage ms of each iteration (None for a
+    fused row). Raises on any line that is not a well-formed row in place."""
+    calls = []
+
+    def bad(n, line, why):
+        return ValueError(f"{path}:{n}: {why}: {line.rstrip()!r}")
+
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            words = line.split()
+            if words and words[0] == "BA_count" and len(words) % 2 == 0:
+                try:
+                    fields = {k: float(v) if k == "sync_ms" else int(v)
+                              for k, v in zip(words[::2], words[1::2])}
+                except ValueError:
+                    raise bad(n, line, "a field is not a number") from None
+                keys = list(fields)
+                if keys == ["BA_count", "fused_iterations", "keyframe_count",
+                            "surfel_bound", "sync_ms"]:
+                    calls.append({"header": fields, "iterations": None})
+                elif keys == ["BA_count", "inner_iteration", "keyframe_count", "surfel_bound"]:
+                    i = fields["inner_iteration"]
+                    if i == 0:
+                        calls.append({"header": fields, "iterations": []})
+                    elif not calls or calls[-1]["iterations"] is None \
+                            or len(calls[-1]["iterations"]) != i:
+                        raise bad(n, line, "iterations out of order")
+                    calls[-1]["iterations"].append({})
+                else:
+                    raise bad(n, line, "unknown header")
+            elif len(words) == 2 and words[0] in STAGE_ROWS:
+                if not calls or not calls[-1]["iterations"] \
+                        or words[0] in calls[-1]["iterations"][-1]:
+                    raise bad(n, line, "a stage row out of place")
+                calls[-1]["iterations"][-1][words[0]] = float(words[1])
+            else:
+                raise bad(n, line, "not a timing row")
+    for call in calls:
+        for it in call["iterations"] or ():
+            if tuple(it) != STAGE_ROWS:
+                raise ValueError(f"{path}: an iteration without all six stages: {it}")
+    return calls
+
+
+def phase_timings(workdir: str, data: str, q_slice, t_slice) -> dict:
+    """The slice through `cli.run` with --save_timings, once under
+    --sync_stage_profiling (every stage ended by a device sync, every BA
+    iteration run) and once without, each with --export_final_timings;
+    then the device ATE, evaluate_ate on the exported poses, and the staged
+    rows on the card against the CPU on phase 7's 160x120 sequence."""
+    gt = synthetic.smooth_trajectory(FRAMES)
+    runs = {}
+    for tag, extra in (("staged", ["--sync_stage_profiling", "true"]), ("fused", [])):
+        rows, report = (os.path.join(workdir, f"timings_{tag}.{x}") for x in ("txt", "report"))
+        slam, poses, q, t, summary, launches = _run_slam(
+            data, workdir, f"timings_{tag}", "cuda",
+            SLICE_FLAGS + extra + ["--save_timings", rows, "--export_final_timings", report])
+        with open(report) as f:
+            timers = {line[:44].rstrip(): float(line[44:].split()[1])
+                      for line in f.read().splitlines()[1:]}
+        runs[tag] = dict(slam=slam, poses=poses, q=q, t=t, summary=summary,
+                         launches=launches, calls=_parse_rows(rows), timers=timers)
+    staged, fused = runs["staged"], runs["fused"]
+    failed = []
+    for tag, run in runs.items():
+        calls_ms = run["summary"]["ba_call_ms"]
+        if len(run["calls"]) != len(calls_ms):
+            failed.append(f"{tag}: {len(run['calls'])} row calls for {len(calls_ms)} BA calls")
+        if any((c["iterations"] is None) != (tag == "fused") for c in run["calls"]):
+            failed.append(f"{tag}: rows of the other mode")
+
+    # Per stage: its ms in each call (summed over the call's iterations),
+    # the median over calls, and the median of its rows.
+    per_call = {s: [sum(it[s] for it in c["iterations"]) for c in staged["calls"]]
+                for s in STAGE_ROWS}
+    per_row = {s: [it[s] for c in staged["calls"] for it in c["iterations"]]
+               for s in STAGE_ROWS}
+    print(f"timings staged: {len(staged['calls'])} BA calls, "
+          f"{sum(len(c['iterations']) for c in staged['calls'])} iterations (every one "
+          f"runs); per-stage device ms, median over calls (median per iteration): "
+          + "; ".join(f"{s[3:]} {statistics.median(per_call[s]):.3f} "
+                      f"({statistics.median(per_row[s]):.3f})" for s in STAGE_ROWS)
+          + f" ({SMI})")
+    stage_sums = [sum(per_call[s][i] for s in STAGE_ROWS) for i in range(len(staged["calls"]))]
+    pairs = list(zip(stage_sums, staged["summary"]["ba_call_ms"]))
+    print(f"timings staged: per call stage sum / ba_call_ms (ms): "
+          + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in pairs) + f" ({SMI})")
+    over = [(a, b) for a, b in pairs if a > b + STAGE_SUM_SLACK_MS]
+    if over:
+        failed.append(f"stage sums above their call's ms: {over}")
+    sync_ms = [c["header"]["sync_ms"] for c in fused["calls"]]
+    print(f"timings fused: {len(fused['calls'])} rows, sync_ms "
+          f"{', '.join(f'{x:.3f}' for x in sync_ms)}; fused_iterations "
+          f"{[c['header']['fused_iterations'] for c in fused['calls']]}, BA iterations run "
+          f"{fused['summary']['ba_iterations']} ({SMI})")
+    for tag, run in runs.items():
+        top = sorted(run["timers"].items(), key=lambda kv: -kv[1])[:8]
+        print(f"timings {tag}: {_frame_medians(run['summary'])}; BA ms per call "
+              f"{_ms_median(run['summary']['ba_call_ms'])}; timers (total s) "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in top)}; launches {run['launches']} "
+              f"({SMI})")
+
+    # Timing changes nothing without the flag: the fused run is the slice.
+    # With it, every BA iteration runs (the JAX package's staged loop), which
+    # moves poses by more than the slice's hold; the gap is printed and the
+    # staged run is held to its own ATE limit.
+    dq, dt = float(np.abs(fused["q"] - q_slice).max()), float(np.abs(fused["t"] - t_slice).max())
+    gap = max(float(np.abs(staged["q"] - fused["q"]).max()),
+              float(np.abs(staged["t"] - fused["t"]).max()))
+    ates = {tag: synthetic.ate_rmse(run["poses"], gt) for tag, run in runs.items()}
+    print(f"timings: fused run against the slice max |dq| {dq:.3e}, max |dt| {dt:.3e} "
+          f"(atol {POSE_ATOL}); staged against fused max gap {gap:.3e}; ATE staged "
+          f"{ates['staged']:.3e} m (limit {STAGED_ATE_LIMIT_M}), fused {ates['fused']:.3e} m "
+          f"(limit {ATE_LIMIT_M}) ({SMI})")
+    if not (dq <= POSE_ATOL and dt <= POSE_ATOL):
+        failed.append("the fused run with --save_timings moved off the slice")
+    if not (ates["fused"] < ATE_LIMIT_M and ates["staged"] < STAGED_ATE_LIMIT_M):
+        failed.append(f"ATE above the limit: {ates}")
+
+    slam = fused["slam"]
+    gt_t = np.stack([p.t for p in gt])
+    dev = synthetic.ate_rmse_device(slam.traj_t, gt_t)
+    if dev.device.type != "cuda":
+        failed.append("the device ATE did not stay on the card")
+    host = synthetic.ate_rmse([se3.SE3(None, t) for t in slam.traj_t.cpu().numpy()], gt)
+    rel = abs(float(dev) - host) / host
+    stats = evaluate_ate.associate_and_evaluate(
+        os.path.join(workdir, "timings_fused_poses.txt"), os.path.join(data, "groundtruth.txt"))
+    print(f"timings: ate_rmse_device on the card {float(dev):.9e} m, host ate_rmse "
+          f"{host:.9e} m (rel diff {rel:.2e}, limit {ATE_DEVICE_RTOL}); evaluate_ate "
+          f"on the exported poses: {stats['pairs']} pairs, rmse {stats['rmse']:.6e}, "
+          f"median {stats['median']:.6e}, max {stats['max']:.6e} m ({SMI})")
+    if not rel <= ATE_DEVICE_RTOL:
+        failed.append("the device ATE disagrees with the host ATE")
+    if stats["pairs"] != FRAMES or not abs(stats["rmse"] - ates["fused"]) <= 1e-6:
+        failed.append("evaluate_ate disagrees with the exported poses' ATE")
+
+    # The staged path on the card against the CPU.
+    small = os.path.join(workdir, "small")
+    flags = SMALL_FLAGS + ["--sync_stage_profiling", "true"]
+    small_runs = {}
+    for dev_name in ("cuda", "cpu"):
+        rows = os.path.join(workdir, f"timings_small_{dev_name}.txt")
+        _, _, qs, ts, _, _ = _run_slam(small, workdir, f"timings_small_{dev_name}", dev_name,
+                                       flags + ["--save_timings", rows])
+        keys = [line.split()[0] for line in open(rows)]
+        small_runs[dev_name] = (qs, ts, keys, _parse_rows(rows))
+    (qg, tg, kg, _), (qc, tc, kc, _) = small_runs["cuda"], small_runs["cpu"]
+    dq, dt = float(np.abs(qg - qc).max()), float(np.abs(tg - tc).max())
+    print(f"timings: cpu vs cuda under --sync_stage_profiling, 160x120 BA "
+          f"({SMALL_FRAMES} frames): max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol "
+          f"{POSE_ATOL}); {len(kg)} rows, keys equal {kg == kc} ({SMI})")
+    if not (dq <= POSE_ATOL and dt <= POSE_ATOL and kg == kc):
+        failed.append("the staged path disagrees between the card and the CPU")
+    if failed:
+        raise AssertionError(f"timings checks failed: {failed}")
+    return {name: {tag: run["launches"][name] for tag, run in runs.items()}
+            for name in (kernels.BILATERAL, kernels.GATHER)}
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -1715,6 +1907,8 @@ def main(argv=None) -> int:
             multi_launches = _phase("multi", phase_multi, workdir, data, q_slice, t_slice,
                                     slice_summary)
             _phase("cpu_multi", phase_cpu_multi, workdir)
+            timings_launches = _phase("timings", phase_timings, workdir, data, q_slice,
+                                      t_slice)
         finally:
             if off_job.poll() is None:
                 off_job.kill()
@@ -1723,6 +1917,8 @@ def main(argv=None) -> int:
     print(f"launches on the live path (directory stream with the viewer): {live_launches}")
     print(f"launches on the multi-device path (2 shards, integrated / streamed): "
           f"{multi_launches}")
+    print(f"launches on the timing path (the slice with --save_timings, staged / fused): "
+          f"{timings_launches}")
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
         # K1 and K2 are on the SLAM path: their launches are those of the

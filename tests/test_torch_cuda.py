@@ -23,6 +23,10 @@ Tolerances:
     poses and trajectory atol 1e-5, the same decisions.
   * a live directory stream through run_live on CUDA vs CPU: poses atol
     1e-4, surfel counts within 1%.
+  * BA's timing rows under sync_stage_profiling on CUDA vs CPU: the same
+    keys in the same order; the device ATE on the card against the host
+    metric: 1e-6 relative; timed regions (CUDA events) without a stage
+    sync: no synchronization of the card while the regions run.
   * multi-device BA on a 2-shard mesh on the card against a 2-shard mesh
     on the CPU, from the same keyframes and map (made on the CPU): each
     stage function of badslam_torch.parallel in turn (poses, positions and
@@ -206,10 +210,12 @@ def test_onehot_kernel_matches_plain(cuda):
                                atol=0, rtol=0)
 
 
-def _bundle_adjustment(device, window=None):
+def _bundle_adjustment(device, window=None, timings=None, **config):
     """Two rendered keyframes, the first with its surfels, the second
     starting off its true pose; one BA call of up to 8 iterations, or of
-    exactly 3 in the fixed keyframe window `window` (the final BA's)."""
+    exactly 3 in the fixed keyframe window `window` (the final BA's), with
+    the BadSlamConfig fields `config` and the timing rows written to the
+    stream `timings`."""
     from badslam_torch.ba.scheme import DirectBA
     from badslam_torch.config import BadSlamConfig
 
@@ -217,8 +223,9 @@ def _bundle_adjustment(device, window=None):
     scene = synthetic.random_plane_scene(np.random.default_rng(13), 3)
     truth = (synthetic.pose(), synthetic.pose(tx=0.03, ty=0.01, rz=0.01))
     start = (truth[0], synthetic.pose(tx=0.034, ty=0.007, rz=0.011))
-    ba = DirectBA(cam, BadSlamConfig(max_surfel_count=1 << 14),
+    ba = DirectBA(cam, BadSlamConfig(max_surfel_count=1 << 14, **config),
                   surfel_capacity=1 << 14, device=device)
+    ba.set_save_timings(timings)
     for i, (gt, init) in enumerate(zip(truth, start)):
         depth, inten = synthetic.render_scene(cam, scene, gt)
         depth_u16 = np.clip(depth * 5000.0, 0, 65535).astype(np.int32)
@@ -611,3 +618,61 @@ def test_mesh_bundle_adjustment_cuda_matches_cpu(cuda, budget):
                                        getattr(other.keyframes, name)[:4].cpu(),
                                        atol=1e-4, rtol=0)
         assert abs(card.surfel_count - other.surfel_count) <= 0.01 * other.surfel_count
+
+
+@pytest.mark.cuda
+def test_staged_timing_rows_cuda_match_cpu(cuda):
+    import io
+
+    rows = {}
+    for device in (cuda, "cpu"):
+        stream = io.StringIO()
+        _bundle_adjustment(device, timings=stream, sync_stage_profiling=True)
+        rows[str(device)] = stream.getvalue().splitlines()
+    card, cpu = rows[str(cuda)], rows["cpu"]
+    assert len(cpu) == 8 * 7  # every iteration runs: a header and six stages each
+    assert [r.split()[0] for r in card] == [r.split()[0] for r in cpu]
+    assert all(float(r.split()[1]) > 0 for r in card if r.startswith("BA_pose"))
+
+
+@pytest.mark.cuda
+def test_ate_rmse_device_cuda_matches_host(cuda):
+    rng = np.random.default_rng(3)
+    gt = synthetic.smooth_trajectory(60)
+    traj = torch.tensor(np.stack([p.t for p in gt]) + rng.normal(0, 2e-5, (60, 3)),
+                        dtype=torch.float32, device=cuda)
+    host = synthetic.ate_rmse([synthetic.SE3(None, t) for t in traj.cpu().numpy()], gt)
+    dev = synthetic.ate_rmse_device(traj, np.stack([p.t for p in gt]))
+    assert dev.device.type == "cuda"
+    assert abs(float(dev) - host) <= 1e-6 * host
+
+
+@pytest.mark.cuda
+def test_timing_regions_add_no_synchronization(cuda):
+    """Unflagged timed regions record CUDA events and fold them in when
+    they complete: the same loop with and without them makes the same
+    stream, device and event synchronizations (counted as cli.py's
+    --profile summary counts them; the profiler makes its own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from badslam_torch.utils.timing import Timing
+
+    def syncs(timed: bool) -> dict:
+        x = torch.randn(1 << 20, device=cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                if timed:
+                    with Timing.time("outer", device=cuda), Timing.time("inner", device=cuda):
+                        x = torch.sin(x) * 1.0001
+                else:
+                    x = torch.sin(x) * 1.0001
+        return {e.key: e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaEventSynchronize")}
+
+    Timing.reset()
+    assert syncs(timed=True) == syncs(timed=False)
+    assert Timing.stats("inner").count == Timing.stats("outer").count == 50
+    assert Timing.stats("outer").total >= Timing.stats("inner").total > 0
+    Timing.reset()

@@ -106,8 +106,9 @@ def test_camera_pyramid_level():
 
 
 def test_import_badslam_torch_leaves_jax_out():
-    """The port and chip_smoke.py import neither jax nor any module of the
-    JAX package (badslam_tpu), not even its jax-free ones, nor OpenCV."""
+    """The port (its tools included) and chip_smoke.py import neither jax
+    nor any module of the JAX package (badslam_tpu) or its tools/, not even
+    their jax-free ones, nor OpenCV."""
     code = (
         "import sys\n"
         "import badslam_torch, badslam_torch.cli, badslam_torch.frontend\n"
@@ -126,10 +127,19 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.parallel, badslam_torch.parallel.mesh\n"
         "import badslam_torch.parallel.sharded, badslam_torch.parallel.streamed\n"
         "import badslam_torch.parallel.dryrun\n"
+        "import badslam_torch.utils.timing, badslam_torch.utils.memory\n"
+        "import badslam_torch.tools, badslam_torch.tools.evaluate_ate\n"
+        "import badslam_torch.tools.validate_sequence\n"
+        "import badslam_torch.tools.train_vocabulary\n"
+        "import badslam_torch.tools.gen_cli_docs\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"
         "assert not tpu, tpu\n"
+        "tools = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'tools', 'evaluate_ate', 'validate_sequence', 'train_vocabulary',\n"
+        "    'gen_cli_docs'))\n"
+        "assert not tools, tools\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'cv2' not in sys.modules\n"
     )

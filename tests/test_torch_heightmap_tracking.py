@@ -4,8 +4,11 @@ scales, photometric residuals only), its three random view pairs and its
 initial-pose distortions (strength 0: the ground truth; 0.05 and 0.01),
 in both photometric modes.
 
-Both trackers get the same pyramids (built by the JAX package, carried
-over with badslam_torch.convert) and the same initial poses. Where the
+The mesh and its renderings come from the port's own generator
+(badslam_torch.synthetic.heightmap_mesh_scene and render_mesh, held to the
+JAX package's in tests/test_torch_tools.py). Both trackers get the same
+pyramids (built by the JAX package, carried over with
+badslam_torch.convert) and the same initial poses. Where the
 JAX tracker converges (its pose within 0.05 of the ground truth, in
 norm of the SE(3) log), the port's pose is held to it at atol 1e-4 and
 the `converged` flags must agree. Where it diverges (the reference's
@@ -25,6 +28,7 @@ import torch
 from badslam_tpu.geometry import se3_np as s3
 from badslam_tpu.ops.pyramid import build_pyramid
 from badslam_tpu.tracking.pairwise import track_frame_pairwise as jtrack
+from badslam_torch import synthetic as tsyn
 from badslam_torch.convert import camera_from_numpy, pyramid_from_numpy
 from badslam_torch.tracking.pairwise import track_frame_pairwise as ttrack
 
@@ -54,7 +58,7 @@ def _cases_for(use_gradmag: bool):
     if use_gradmag in _cases:
         return _cases[use_gradmag]
     rng = np.random.default_rng(0)
-    mesh = synthetic.heightmap_mesh_scene(rng)
+    mesh = tsyn.heightmap_mesh_scene(rng)
     cam = synthetic.default_camera(W, H)
     cams = tuple(cam.pyramid_level(i) for i in range(NUM_SCALES))
     tcams = tuple(camera_from_numpy(c) for c in cams)
@@ -68,8 +72,8 @@ def _cases_for(use_gradmag: bool):
         views = []
         for p in images_T_global:
             world_T_frame = s3.inverse(p)
-            depth, inten = synthetic.render_mesh(
-                cam, mesh, synthetic.HostSE3(world_T_frame.q, world_T_frame.t))
+            depth, inten = tsyn.render_mesh(
+                cam, mesh, tsyn.SE3(world_T_frame.q, world_T_frame.t))
             if (depth > 0).mean() < 0.5:
                 views = None
                 break

@@ -1,0 +1,335 @@
+"""badslam_torch's timing surface against the JAX package's: the timer
+registry (badslam_torch/utils/timing.py), the memory line
+(utils/memory.py), DirectBA's timing rows (fused and, under
+sync_stage_profiling, staged) and the CLI's --save_timings,
+--export_final_timings and end-of-run report.
+
+Tolerances:
+  * the report table: character for character, for the same add_time
+    calls; snapshot and delta: equal;
+  * rows: the same keys in the same order, and equal BA_count,
+    inner_iteration, fused_iterations and keyframe_count (their ms are
+    times and differ); surfel_bound, which the JAX package takes from its
+    pow-2 surfel bucket and the port from its working map, must bound the
+    surfel count;
+  * poses under sync_stage_profiling against the JAX package's staged run:
+    atol 1e-4 (tests/test_torch_ba.py's and test_torch_slice.py's hold; two
+    float orders); the port's unflagged run with and without --save_timings:
+    bit for bit;
+  * timer names: the JAX package's, less the three that time its fused
+    steady-frame program and scan chunks (not ported).
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from badslam_tpu import synthetic as jsyn
+from badslam_tpu.cli import main as jax_main
+from badslam_tpu.geometry import se3 as jse3
+from badslam_tpu.utils.timing import Timing as JTiming
+from badslam_torch import convert
+from badslam_torch import synthetic as tsyn
+from badslam_torch.cli import main as torch_main
+from badslam_torch.utils import memory
+from badslam_torch.utils.timing import Spans, Timing, timed
+
+from test_torch_mapping import DEV, Pair
+
+torch.set_num_threads(1)
+
+POSE_ATOL = 1e-4
+# The JAX package's timers of its fused steady-frame program and scan
+# chunks, which the port does not have (badslam_torch/frontend.py).
+TPU_SHAPE_TIMERS = {"frame (fused)", "frame chunk (fused)", "frame chunk upload"}
+STAGES = ("BA_surfel_creation", "BA_surfel_activation", "BA_geometry_optimization",
+          "BA_surfel_merge", "BA_surfel_compaction", "BA_pose_optimization")
+CLI_FLAGS = ["--num_scales", "3", "--max_surfel_count", str(1 << 13),
+             "--keyframe_interval", "6", "--fps_restriction", "0", "--quiet"]
+
+
+@pytest.fixture
+def registries():
+    """Both packages' process-wide registries, empty, and emptied after."""
+    JTiming.reset()
+    Timing.reset()
+    yield
+    JTiming.reset()
+    Timing.reset()
+
+
+def _feed(timing):
+    for name, seconds in (("odometry", 0.0123), ("bundle adjustment", 0.25),
+                          ("odometry", 0.0071), ("BA surfel merge", 1e-5),
+                          ("a timer with a name longer than the report's column", 3.5)):
+        timing.add_time(name, seconds)
+
+
+def test_timing_report_matches_jax(registries, tmp_path):
+    _feed(JTiming)
+    _feed(Timing)
+    for sort_by_total in (True, False):
+        assert (Timing.report(sort_by_total=sort_by_total)
+                == JTiming.report(sort_by_total=sort_by_total))
+    JTiming.save(str(tmp_path / "jax.txt"))
+    Timing.save(str(tmp_path / "torch.txt"))
+    assert (tmp_path / "jax.txt").read_text() == (tmp_path / "torch.txt").read_text()
+    st, sj = Timing.stats("odometry"), JTiming.stats("odometry")
+    assert (st.count, st.total, st.min, st.max, st.mean) == (
+        sj.count, sj.total, sj.min, sj.max, sj.mean)
+    assert Timing.stats("absent") is None
+
+
+def test_timing_snapshot_and_delta_match_jax(registries):
+    _feed(JTiming)
+    _feed(Timing)
+    before_j, before_t = JTiming.snapshot(), Timing.snapshot()
+    assert before_t == before_j
+    for timing in (JTiming, Timing):
+        timing.add_time("odometry", 0.5)
+        timing.add_time("preprocessing", 0.002)
+        timing.add_time("bundle adjustment", 0.00001)  # below delta's 1e-4 s
+    after_j, after_t = JTiming.snapshot(), Timing.snapshot()
+    assert after_t == after_j
+    for top in (1, 6):
+        assert (Timing.delta(before_t, after_t, top=top)
+                == JTiming.delta(before_j, after_j, top=top))
+
+
+def test_timing_regions_on_the_host(registries):
+    """Regions without a device, and on the CPU, use the host clock; the
+    span carries the region's ms, as do those a Spans keeps."""
+    with Timing.time("host region") as span:
+        sum(range(1000))
+    with timed("cpu region", device="cpu") as cpu_span, Timing.time("nested", sync="cpu"):
+        torch.ones(8).sum()
+    assert span.ms > 0 and cpu_span.ms > 0
+    assert Timing.stats("host region").count == 1
+    assert set(Timing.snapshot()) == {"host region", "cpu region", "nested"}
+    spans = Spans("cpu")
+    for _ in range(3):
+        with spans.span():
+            torch.ones(8).sum()
+    assert len(spans.ms()) == 3 and all(ms > 0 for ms in spans.ms())
+    assert set(Timing.snapshot()) == {"host region", "cpu region", "nested"}
+
+
+def test_timing_registry_is_thread_safe(registries):
+    """The loop-detection worker records beside the front end's thread:
+    16 threads adding to shared timers with a short switch interval lose
+    no update."""
+    import sys
+    import threading
+
+    def work(i):
+        for _ in range(500):
+            Timing.add_time("shared", 1e-3)
+            with Timing.time(f"own {i % 4}"):
+                pass
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    snap = Timing.snapshot()
+    assert snap["shared"][0] == 16 * 500
+    assert snap["shared"][1] == pytest.approx(16 * 500 * 1e-3)
+    assert sum(snap[f"own {j}"][0] for j in range(4)) == 16 * 500
+
+
+def test_memory_line_without_a_device():
+    assert memory.device_memory_stats("cpu") is None
+    assert memory.free_device_memory_mb("cpu") is None
+    assert memory.format_memory_usage("cpu") == "device memory stats unavailable"
+
+
+def _ba_rows(staged: bool, iters: int = 4):
+    """tests/test_ba.py::_run_ba_variant in both packages (seed 13: keyframe
+    0 with its surfels, keyframe 1 perturbed; moved-based deactivation),
+    with a timings stream on each: (JAX rows, port rows, Pair)."""
+    p = Pair(13, sync_stage_profiling=staged, disable_deactivation=False)
+    gt1 = jsyn.pose(tx=0.03, ty=0.01, rz=0.01)
+    kf0 = p.add(jse3.identity(), 0)
+    p.create(kf0, False)
+    p.add(gt1, 1)
+    bad = jse3.mul(gt1, jsyn.pose(tx=0.004, ty=-0.003, rz=0.001))
+    p.j.keyframes.set_pose(1, bad)
+    p.t.keyframes.set_pose(1, convert.pose_from_numpy(np.asarray(bad.q),
+                                                      np.asarray(bad.t), DEV))
+    streams = io.StringIO(), io.StringIO()
+    p.j.set_save_timings(streams[0])
+    p.t.set_save_timings(streams[1])
+    p.j.bundle_adjustment(max_iterations=iters)
+    p.t.bundle_adjustment(max_iterations=iters)
+    return (*(s.getvalue().splitlines() for s in streams), p)
+
+
+def _fields(row: str) -> dict:
+    words = row.split()
+    return dict(zip(words[::2], words[1::2]))
+
+
+def _assert_rows_match(jrows, trows, surfels: int):
+    """The same keys in the same order; the counting fields equal; the
+    port's surfel_bound bounds the surfel count; every ms a number."""
+    assert [r.split()[0] for r in trows] == [r.split()[0] for r in jrows]
+    for jr, tr in zip(jrows, trows):
+        jf, tf = _fields(jr), _fields(tr)
+        assert list(tf) == list(jf), (tr, jr)
+        for key in ("BA_count", "inner_iteration", "fused_iterations", "keyframe_count"):
+            assert tf.get(key) == jf.get(key), (key, tr, jr)
+        if "surfel_bound" in tf:
+            assert int(tf["surfel_bound"]) >= surfels
+        for key in set(tf) & {"sync_ms", *STAGES}:
+            assert float(tf[key]) >= 0.0
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["fused", "staged"])
+def test_ba_timing_rows_match_jax(staged):
+    """One BA call of 4 iterations: a fused row per call, or under
+    sync_stage_profiling a header and six stage rows per iteration (every
+    iteration runs), with the JAX package's keys and counts; the poses
+    agree with the JAX package's run of the same mode."""
+    jrows, trows, p = _ba_rows(staged)
+    assert len(jrows) == (4 * (1 + len(STAGES)) if staged else 1)
+    if staged:
+        assert [r.split()[0] for r in jrows[:7]] == ["BA_count", *STAGES]
+    _assert_rows_match(jrows, trows, p.t.surfel_count)
+    k = p.t.keyframes.count
+    np.testing.assert_allclose(p.t.keyframes.q[:k].numpy(),
+                               np.asarray(p.j.keyframes.q)[:k], atol=POSE_ATOL, rtol=0)
+    np.testing.assert_allclose(p.t.keyframes.t[:k].numpy(),
+                               np.asarray(p.j.keyframes.t)[:k], atol=POSE_ATOL, rtol=0)
+    # The fused row carries the budget; the port's call (and the JAX
+    # package's device loop) may exit early, the staged call may not.
+    assert p.t.iterations_run == [4] if staged else 1 <= p.t.iterations_run[0] <= 4
+
+
+def _write_sequence(path, width, height, frames=13, seed=6):
+    tsyn.write_tum_dataset(path, tsyn.default_camera(width, height),
+                           tsyn.random_plane_scene(np.random.default_rng(seed), 4),
+                           tsyn.smooth_trajectory(frames))
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    """The port's CLI on one 96x72 sequence, each set of extra flags run
+    once per module: run(extra, rows=True) -> the texts of its "poses",
+    "report" and (with `rows`) "rows" files."""
+    root = tmp_path_factory.mktemp("port_runs")
+    path = str(root / "dataset")
+    _write_sequence(path, 96, 72)
+    runs = {}
+
+    def run(extra, rows=True):
+        key = (tuple(extra), rows)
+        if key not in runs:
+            files = {k: str(root / f"{len(runs)}_{k}.txt") for k in ("rows", "poses", "report")}
+            assert torch_main([path, "--device", "cpu", *CLI_FLAGS, *extra,
+                               *(["--save_timings", files["rows"]] if rows else []),
+                               "--export_poses", files["poses"],
+                               "--export_final_timings", files["report"]]) == 0
+            runs[key] = {k: open(v).read() for k, v in files.items()
+                         if rows or k != "rows"}
+        return runs[key]
+
+    return run
+
+
+STAGED = ["--sync_stage_profiling", "true"]
+
+
+def test_save_timings_rows(port_run):
+    """The port's twin of tests/test_e2e.py::test_save_timings_rows:
+    --save_timings streams fused rows by default and per-stage rows with
+    sync_stage_profiling; --export_final_timings writes the report table.
+    Without the flag the rows change nothing: the trajectory with
+    --save_timings equals the one without, bit for bit."""
+    plain, fused, staged = port_run([], rows=False), port_run([]), port_run(STAGED)
+    np.testing.assert_array_equal(np.loadtxt(io.StringIO(fused["poses"])),
+                                  np.loadtxt(io.StringIO(plain["poses"])))
+
+    rows = fused["rows"].splitlines()
+    assert rows and all(r.startswith("BA_count ") and "fused_iterations" in r
+                        and "keyframe_count" in r and "sync_ms" in r for r in rows), rows
+    srows = staged["rows"].splitlines()
+    assert any(r.startswith("BA_pose_optimization ") for r in srows), srows
+    assert any("inner_iteration" in r for r in srows)
+    assert not any("fused_iterations" in r for r in srows)
+    report = staged["report"].splitlines()
+    assert report[0] == JTiming.report().splitlines()[0]
+    names = {line[:44].rstrip() for line in report[1:]}
+    assert {"BA pose optimization", "bundle adjustment", "odometry",
+            "preprocessing"} <= names
+    assert "BA iterations (fused)" not in names
+
+
+def test_cli_rows_and_timers_match_jax_cli(tmp_path):
+    """Both CLIs on one 7-frame sequence at input pyramid level 1 (128x96
+    frames processed at 64x48: the JAX package then takes its per-frame
+    path, the one the port has) over two scales, with loop detection on its
+    worker thread, --sync_stage_profiling true, --save_timings and
+    --export_final_timings: the same rows, poses within 1e-4, and the
+    port's timer names are the JAX package's less its three steady-frame
+    program timers."""
+    path = str(tmp_path / "dataset")
+    _write_sequence(path, 128, 96, frames=7)
+    flags = ["--num_scales", "2", *CLI_FLAGS[2:], "--pyramid_level_for_depth", "1",
+             "--pyramid_level_for_color", "1", *STAGED]
+    out = {}
+    for tag, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        out[tag] = {k: str(tmp_path / f"{tag}_{k}.txt") for k in ("rows", "report", "poses")}
+        JTiming.reset()
+        assert main([path, *extra, *flags, "--save_timings", out[tag]["rows"],
+                     "--export_final_timings", out[tag]["report"],
+                     "--export_poses", out[tag]["poses"]]) == 0
+    JTiming.reset()
+    jrows = open(out["jax"]["rows"]).read().splitlines()
+    trows = open(out["torch"]["rows"]).read().splitlines()
+    # At least one BA call of two iterations: headers and stage rows.
+    assert len(jrows) >= 2 * (1 + len(STAGES))
+    _assert_rows_match(jrows, trows, 1)
+
+    tq, jq = np.loadtxt(out["torch"]["poses"]), np.loadtxt(out["jax"]["poses"])
+    np.testing.assert_allclose(tq[:, 1:], jq[:, 1:], atol=POSE_ATOL, rtol=0)
+
+    def names(report):
+        lines = open(report).read().splitlines()
+        return {line[:44].rstrip() for line in lines[1:]}
+
+    jnames, tnames = names(out["jax"]["report"]), names(out["torch"]["report"])
+    assert {"preprocessing", "odometry", "BA surfel creation",
+            "loop detection (worker thread)"} <= jnames
+    assert tnames == jnames - TPU_SHAPE_TIMERS
+
+
+def test_mesh_timing_rows(port_run):
+    """BA over a 2-shard mesh on the CPU: under sync_stage_profiling, the
+    one-device run's row keys and poses (as on one device, activation runs
+    in the geometry pass, with an empty activation stage); without it,
+    fused rows with the planes replicated, and none with them streamed, as
+    the JAX package writes, whose streamed calls time "BA iterations
+    (streamed)"."""
+    runs = {"one": port_run(STAGED),
+            "mesh": port_run([*STAGED, "--n_devices", "2"]),
+            "integrated": port_run(["--n_devices", "2"]),
+            "streamed": port_run(["--n_devices", "2", "--plane_replication_budget_mb", "0"])}
+    keys = {tag: [r.split()[0] for r in run["rows"].splitlines()] for tag, run in runs.items()}
+    assert keys["mesh"] == keys["one"] and "BA_surfel_activation" in keys["mesh"]
+    np.testing.assert_allclose(np.loadtxt(io.StringIO(runs["mesh"]["poses"])),
+                               np.loadtxt(io.StringIO(runs["one"]["poses"])),
+                               atol=POSE_ATOL, rtol=0)
+    assert keys["integrated"] and set(keys["integrated"]) == {"BA_count"}
+    assert "fused_iterations" in runs["integrated"]["rows"]
+    assert keys["streamed"] == []
+    assert "BA iterations (streamed)" in runs["streamed"]["report"]
+    assert "BA iterations (fused)" in runs["integrated"]["report"]
