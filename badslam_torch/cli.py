@@ -37,8 +37,10 @@ per-BA-call timing rows (per-stage rows with ``--sync_stage_profiling
 true``, each stage ended by a device synchronization);
 ``--export_final_timings PATH`` writes the timer report, which a run
 without ``--quiet`` also prints, with the device memory line. Times are
-the card's (CUDA events) with ``--device cuda``. ``--autotune`` is refused,
-naming why.
+the card's (CUDA events) with ``--device cuda``. ``--autotune`` times the
+bilateral kernel's tile shapes on the card at the run's depth size before
+the frame loop and persists the fastest per card and size
+(``ops.autotune``); later runs launch it. On the CPU it tunes nothing.
 """
 
 from __future__ import annotations
@@ -50,11 +52,6 @@ import sys
 import time
 
 from badslam_torch.config import BadSlamConfig
-
-# Mode flags of badslam_tpu.cli that the port refuses, each with its reason.
-_LATER_SWITCHES = {
-    "autotune": "the port has no tuned variants to pick between",
-}
 
 
 def _bool(s: str) -> bool:
@@ -146,9 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--final_ba_window_size", type=int, default=16)
     p.add_argument("--final_ba_window_stride", type=int, default=8)
     p.add_argument("--quiet", action="store_true")
-    for name, why in _LATER_SWITCHES.items():
-        p.add_argument(f"--{name}", action="store_true",
-                       help=f"not supported: {why}")
+    p.add_argument("--autotune", action="store_true",
+                   help="tune kernel parameters for this dataset's image "
+                        "size before running (persisted per card; one-time "
+                        "cost; nothing to tune with --device cpu)")
     return p
 
 
@@ -239,10 +237,6 @@ def run(argv=None, mesh=None):
     `mesh` (a parallel.Mesh of --n_devices shards) overrides the mesh that
     --n_devices would build, e.g. to put several shards on one card."""
     args = build_parser().parse_args(argv)
-    refused = [f"--{name}: {why}" for name, why in _LATER_SWITCHES.items()
-               if getattr(args, name)]
-    if refused:
-        raise NotImplementedError("badslam_torch: " + "; ".join(refused))
     if args.live and args.load_state:
         raise ValueError("--load_state cannot resume a --live stream: a snapshot "
                          "needs the frames before it, which a live stream does not "
@@ -275,6 +269,13 @@ def run(argv=None, mesh=None):
                                      depth_scaling=1.0 / config.raw_to_float_depth)
         else:
             video = load_tum_dataset(args.dataset, args.trajectory_filename)
+        if args.autotune:
+            from badslam_torch.ops.kernels import autotune_preprocess
+
+            lvl = 2 ** config.pyramid_level_for_depth
+            autotune_preprocess(video.camera.height // lvl,
+                                video.camera.width // lvl,
+                                max_depth=config.max_depth, device=device)
         if args.load_state:
             t0 = time.perf_counter()
             slam = state.load_state(args.load_state, video, device)

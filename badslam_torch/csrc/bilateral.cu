@@ -76,7 +76,15 @@
 //    threads down) this was the fastest: 4 or 8 rows per thread reuse more
 //    samples but leave fewer warps to hide the latency of the staging loads
 //    and of MUFU, and the 22 x 10 quads of the r = 3 tile take one pass of
-//    256 threads.
+//    256 threads. It is the default tile. One more is built beside it for
+//    `--autotune`, which times both per card and image size
+//    (badslam_torch/ops/kernels.py autotune_bilateral_tile): one output
+//    per thread (32 x 8 outputs), which doubles the blocks and is 13-23%
+//    faster on the H100 at 240x320 and below, where 32 x 16 tiles leave
+//    SMs idle (chip_smoke.py phase autotune). 4 x 2, 8 x 4, 16 x 2 and
+//    4 x 4 (threads down x outputs per thread) were timed there too and
+//    were never the fastest at any size. Both tiles sum each output's
+//    taps in the same order, so both give the same bits.
 //    The tile rows are staged as 16-byte quads: the halo is rounded up to
 //    whole quads (4 columns at r = 3), so a row of the tile starts on a
 //    quad, and a quad is one 16-byte load where the row is 16-byte aligned
@@ -96,21 +104,26 @@ namespace {
 
 constexpr int kBlockX = 32;               // threads across: one column each
 constexpr int kBlockY = 8;                // threads down
-constexpr int kRows = 2;                  // outputs per thread, a column
 constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kTileW = kBlockX;           // 32 outputs across
-constexpr int kTileH = kBlockY * kRows;   // 16 outputs down
 constexpr int kMainRadius = 3;            // the unrolled instance
 constexpr double kLog2e = 1.4426950408889634;
+
+// The tiles K1 is built for, as outputs per thread (a column): a tile is
+// 32 x (8 x outputs per thread) outputs. Each is built for both radius
+// forms. The first is the default, the tile every launch takes unless
+// `--autotune` stored the other for the card and image size.
+constexpr int kTileRows[] = {2, 1};
+constexpr int kNumTiles = sizeof(kTileRows) / sizeof(kTileRows[0]);
 
 // The halo rounded up to whole 16-byte quads of floats.
 __host__ __device__ constexpr int quad_halo(int radius) {
   return (radius + 3) / 4 * 4;
 }
 
-__host__ __device__ constexpr size_t tile_bytes(int radius) {
+__host__ __device__ constexpr size_t tile_bytes(int radius, int tile_h) {
   return sizeof(float) * static_cast<size_t>(kTileW + 2 * quad_halo(radius)) *
-         static_cast<size_t>(kTileH + 2 * radius);
+         static_cast<size_t>(tile_h + 2 * radius);
 }
 
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -132,13 +145,15 @@ __device__ __forceinline__ void tap(float inv_center, float inv_sample,
 }
 
 // kR >= 0: the radius is kR, taps unrolled; kR < 0: the radius is
-// `radius_arg`, taps looped.
-template <int kR>
+// `radius_arg`, taps looped. Each thread computes a column of kRows
+// outputs.
+template <int kR, int kRows>
 __global__ void __launch_bounds__(kThreads)
 bilateral_filter_and_cutoff_kernel(const float* __restrict__ depth,
                                    float* __restrict__ out, int height,
                                    int width, int radius_arg, float max_depth,
                                    float neg_k_xy, float neg_k_value) {
+  constexpr int kTileH = kBlockY * kRows;
   extern __shared__ __align__(16) float tile[];
   const int r = kR >= 0 ? kR : radius_arg;
   const int halo = quad_halo(r);
@@ -266,47 +281,101 @@ bilateral_filter_and_cutoff_kernel(const float* __restrict__ depth,
   }
 }
 
-const void* kernel_for(int radius) {
-  return radius == kMainRadius
-             ? reinterpret_cast<const void*>(
-                   &bilateral_filter_and_cutoff_kernel<kMainRadius>)
-             : reinterpret_cast<const void*>(
-                   &bilateral_filter_and_cutoff_kernel<-1>);
+dim3 grid_for(int height, int width, int tile_h) {
+  return dim3((width + kTileW - 1) / kTileW, (height + tile_h - 1) / tile_h);
 }
 
-dim3 grid_for(int height, int width) {
-  return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
+struct Launch {
+  const float* depth;
+  float* out;
+  int height, width, radius;
+  float max_depth, neg_k_xy, neg_k_value;
+  cudaStream_t stream;
+};
+
+// Tile kTile of kTileRows at run-time index `tile`: each of the two
+// helpers below walks the table at compile time and acts on the instance
+// whose index matches; an index outside the table gives
+// cudaErrorInvalidValue.
+template <int kTile = 0>
+cudaError_t launch_tile(int tile, const Launch& a) {
+  if constexpr (kTile < kNumTiles) {
+    if (tile != kTile) return launch_tile<kTile + 1>(tile, a);
+    constexpr int kRows = kTileRows[kTile];
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid = grid_for(a.height, a.width, kBlockY * kRows);
+    const size_t smem = tile_bytes(a.radius, kBlockY * kRows);
+    if (a.radius == kMainRadius) {
+      bilateral_filter_and_cutoff_kernel<kMainRadius, kRows>
+          <<<grid, block, smem, a.stream>>>(a.depth, a.out, a.height, a.width,
+                                            a.radius, a.max_depth, a.neg_k_xy,
+                                            a.neg_k_value);
+    } else {
+      bilateral_filter_and_cutoff_kernel<-1, kRows>
+          <<<grid, block, smem, a.stream>>>(a.depth, a.out, a.height, a.width,
+                                            a.radius, a.max_depth, a.neg_k_xy,
+                                            a.neg_k_value);
+    }
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// The kernel of tile `tile` at this radius, with its tile's output rows;
+// nullptr for an index outside the table.
+template <int kTile = 0>
+const void* kernel_for(int tile, int radius, int* tile_h) {
+  if constexpr (kTile < kNumTiles) {
+    if (tile != kTile) return kernel_for<kTile + 1>(tile, radius, tile_h);
+    constexpr int kRows = kTileRows[kTile];
+    *tile_h = kBlockY * kRows;
+    return radius == kMainRadius
+               ? reinterpret_cast<const void*>(
+                     &bilateral_filter_and_cutoff_kernel<kMainRadius, kRows>)
+               : reinterpret_cast<const void*>(
+                     &bilateral_filter_and_cutoff_kernel<-1, kRows>);
+  } else {
+    return nullptr;
+  }
 }
 
 }  // namespace
 
+// The tile table: writes {threads down, outputs per thread} of each tile
+// to out[2 i], out[2 i + 1] (when out is not null) and returns the number
+// of tiles. Index 0 is the default.
+extern "C" int badslam_bilateral_tiles(int* out) {
+  if (out != nullptr) {
+    for (int i = 0; i < kNumTiles; ++i) {
+      out[2 * i] = kBlockY;
+      out[2 * i + 1] = kTileRows[i];
+    }
+  }
+  return kNumTiles;
+}
 extern "C" int badslam_bilateral_filter_and_cutoff(
     const float* depth, float* out, int height, int width, int radius,
-    float max_depth, float denom_xy, float denom_value, void* stream) {
-  const float neg_k_xy = static_cast<float>(-kLog2e / denom_xy);
-  const float neg_k_value = static_cast<float>(-kLog2e / denom_value);
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid = grid_for(height, width);
-  const size_t smem = tile_bytes(radius);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (radius == kMainRadius) {
-    bilateral_filter_and_cutoff_kernel<kMainRadius><<<grid, block, smem, s>>>(
-        depth, out, height, width, radius, max_depth, neg_k_xy, neg_k_value);
-  } else {
-    bilateral_filter_and_cutoff_kernel<-1><<<grid, block, smem, s>>>(
-        depth, out, height, width, radius, max_depth, neg_k_xy, neg_k_value);
-  }
-  return static_cast<int>(cudaGetLastError());
+    float max_depth, float denom_xy, float denom_value, int tile,
+    void* stream) {
+  const Launch a{depth, out, height, width, radius, max_depth,
+                 static_cast<float>(-kLog2e / denom_xy),
+                 static_cast<float>(-kLog2e / denom_value),
+                 static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_tile(tile, a));
 }
 
-// How a launch at this shape and radius fills the card, for reports:
-// info[0..7] = grid x, grid y, threads per block, dynamic shared bytes per
-// block, registers per thread, local (spill) bytes per thread, blocks
-// resident per SM, SMs on the current device. Returns a CUDA error code.
+// How a launch of tile `tile` at this shape and radius fills the card, for
+// reports: info[0..8] = grid x, grid y, threads per block, dynamic shared
+// bytes per block, registers per thread, local (spill) bytes per thread,
+// blocks resident per SM, SMs on the current device, threads an SM holds
+// at most. Returns a CUDA error code.
 extern "C" int badslam_bilateral_launch_info(int height, int width, int radius,
-                                             int* info) {
-  const void* fn = kernel_for(radius);
-  const size_t smem = tile_bytes(radius);
+                                             int tile, int* info) {
+  int tile_h = 0;
+  const void* fn = kernel_for(tile, radius, &tile_h);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tile_bytes(radius, tile_h);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   int blocks_per_sm = 0;
@@ -318,8 +387,12 @@ extern "C" int badslam_bilateral_launch_info(int height, int width, int radius,
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sm_threads = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sm_threads,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = grid_for(height, width);
+  const dim3 grid = grid_for(height, width, tile_h);
   info[0] = static_cast<int>(grid.x);
   info[1] = static_cast<int>(grid.y);
   info[2] = kThreads;
@@ -328,5 +401,6 @@ extern "C" int badslam_bilateral_launch_info(int height, int width, int radius,
   info[5] = static_cast<int>(attr.localSizeBytes);
   info[6] = blocks_per_sm;
   info[7] = sms;
+  info[8] = sm_threads;
   return 0;
 }

@@ -22,9 +22,15 @@
   PyTorch version; a CUDA tensor goes to the kernel, which raises on
   anything it does not take. There is no fallback from a CUDA tensor to the
   plain version.
+* K1's tile: the kernel is built for two tile shapes (``bilateral_tiles``,
+  read from the library; the first is the default). A launch takes the
+  tile that ``--autotune`` stored for the card and image size
+  (``autotune_bilateral_tile``, persisted by ``ops.autotune``), else the
+  default; a stored tile that the library does not have raises.
 * Counts: ``launch_counts[name]`` goes up by one for each launch of that
   kernel, and nowhere else, so a run can show that it went through it;
-  ``launch_shapes[name]`` counts the launches per image shape and
+  ``launch_shapes[name]`` counts the launches per image shape (for K1, per
+  ``(H, W, tile)``) and
   ``launch_tags[name]`` per tag: the shard whose work launched it on a
   multi-device mesh (``launch_tag``, set by ``parallel.mesh.on_shard``),
   else None.
@@ -35,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -42,9 +49,13 @@ import tempfile
 import threading
 import time
 from collections import Counter
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from badslam_torch.ops import autotune as tuner
+
+_log = logging.getLogger(__name__)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -63,7 +74,8 @@ SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
-# The same launches, per image shape ((H, W), or (B, H, W) for K2).
+# The same launches, per image shape ((H, W, tile) for K1, (B, H, W) for
+# K2, (H, W) for K3).
 launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 # The same launches, per tag (the launching thread's launch_tag).
 launch_tags: Dict[str, Counter] = {name: Counter() for name in SOURCES}
@@ -155,25 +167,96 @@ def _bilateral_fn():
     fn = _library("bilateral.cu").badslam_bilateral_filter_and_cutoff
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def bilateral_launch_info(height: int, width: int, radius: int) -> Dict[str, int]:
+Tile = Tuple[int, int]
+_tiles: List[Tile] = []
+
+
+def bilateral_tiles() -> List[Tile]:
+    """K1's tile shapes as the library was built with them: (threads
+    down, outputs per thread) per tile; the first is the default."""
+    if not _tiles:
+        fn = _library("bilateral.cu").badslam_bilateral_tiles
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        n = fn(None)
+        table = (ctypes.c_int * (2 * n))()
+        fn(table)
+        _tiles[:] = [(table[2 * i], table[2 * i + 1]) for i in range(n)]
+    return list(_tiles)
+
+
+def tile_name(tile: Tile) -> str:
+    """A tile's name in the tuning store: "<threads down>x<outputs per
+    thread>", e.g. "8x2"."""
+    return f"{tile[0]}x{tile[1]}"
+
+
+def stored_bilateral_tile(key: str, tiles: List[Tile]) -> Optional[Tile]:
+    """The tile stored under `key` in the tuning store, None when there is
+    none; raises ValueError, naming the store file, when the stored tile is
+    not in `tiles`."""
+    name = tuner.get(key)
+    if name is None:
+        return None
+    for tile in tiles:
+        if tile_name(tile) == name:
+            return tile
+    raise ValueError(
+        f"{tuner._TUNING_PATH}: {key} holds the tile {name!r}, which the "
+        f"bilateral kernel is not built for (its tiles: "
+        f"{', '.join(map(tile_name, tiles))}); delete the entry or the file "
+        f"and tune again")
+
+
+# The tile a default launch takes, (library index, tile), per (store file,
+# store generation, device index, H, W): the store is looked up once per
+# card and size, and again only after it changed (tuner.generation).
+_tuned: Dict[tuple, Tuple[int, Tile]] = {}
+
+
+def _tile_index(tile: Optional[Tile], device: torch.device, h: int,
+                w: int) -> Tuple[int, Tile]:
+    """The library's index of `tile`, or of the tile tuned for this card
+    and image size (else the default) when `tile` is None."""
+    if tile is None:
+        at = (tuner._TUNING_PATH, tuner.generation, device.index, h, w)
+        if at not in _tuned:
+            tiles = bilateral_tiles()
+            key = tuner.device_key(f"bilateral_{h}x{w}", device)
+            tile = stored_bilateral_tile(key, tiles) or tiles[0]
+            _tuned[at] = (tiles.index(tile), tile)
+        return _tuned[at]
+    tiles = bilateral_tiles()
+    tile = tuple(tile)
+    if tile not in tiles:
+        raise ValueError(f"the bilateral kernel has no tile {tile}; its tiles: "
+                         f"{tiles}")
+    return tiles.index(tile), tile
+
+
+def bilateral_launch_info(height: int, width: int, radius: int,
+                          tile: Optional[Tile] = None) -> Dict[str, int]:
     """How K1's launch at this shape and radius fills the current card: its
     grid, block, shared memory, registers and local (spill) bytes per
-    thread, blocks resident per SM and the card's SM count."""
+    thread, blocks resident per SM, the card's SM count and the threads an
+    SM holds at most. `tile`: as in bilateral_filter_and_cutoff_cuda."""
+    index, _ = _tile_index(tile, torch.device("cuda", torch.cuda.current_device()),
+                           height, width)
     fn = _library("bilateral.cu").badslam_bilateral_launch_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 8)()
-    err = fn(height, width, radius, info)
+    info = (ctypes.c_int * 9)()
+    err = fn(height, width, radius, index, info)
     if err != 0:
         raise RuntimeError(f"bilateral launch info failed: CUDA error {err}")
     keys = ("grid_x", "grid_y", "threads", "shared_bytes", "registers",
-            "local_bytes", "blocks_per_sm", "sms")
+            "local_bytes", "blocks_per_sm", "sms", "sm_threads")
     return dict(zip(keys, info))
 
 
@@ -188,7 +271,7 @@ def build() -> None:
             future.result()
 
 
-# Largest radius the kernel takes; its tile + halo, (32 + 2 * 16) x
+# Largest radius the kernel takes; the taller tile + halo, (32 + 2 * 16) x
 # (16 + 2 * 16) floats, is 12 KB of the default 48 KB of shared memory.
 _MAX_RADIUS = 16
 
@@ -199,9 +282,13 @@ def bilateral_filter_and_cutoff_cuda(
     sigma_xy: float = 1.5,
     radius_factor: float = 2.0,
     sigma_inv_depth: float = 0.005,
+    tile: Optional[Tile] = None,
 ) -> torch.Tensor:
     """Launch K1 on a CUDA [H, W] f32 contiguous depth map; returns a new
-    [H, W] f32 tensor. Raises on any other input."""
+    [H, W] f32 tensor. Raises on any other input. `tile` (threads down,
+    outputs per thread) is one of bilateral_tiles(); None takes the tile
+    stored for this card and image size by autotune_bilateral_tile, else
+    the default. Every tile gives the same bits."""
     if not depth.is_cuda:
         raise ValueError("bilateral_filter_and_cutoff_cuda needs a CUDA tensor")
     if depth.dtype != torch.float32 or depth.ndim != 2:
@@ -214,6 +301,7 @@ def bilateral_filter_and_cutoff_cuda(
     if not 0 <= radius <= _MAX_RADIUS:
         raise ValueError(f"filter radius {radius} outside [0, {_MAX_RADIUS}]")
     h, w = depth.shape
+    index, tile = _tile_index(tile, depth.device, h, w)
     out = torch.empty_like(depth)
     if depth.numel() == 0:
         return out
@@ -222,11 +310,55 @@ def bilateral_filter_and_cutoff_cuda(
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = fn(depth.data_ptr(), out.data_ptr(), h, w, radius,
                  float(max_depth), 2.0 * sigma_xy * sigma_xy,
-                 2.0 * sigma_inv_depth * sigma_inv_depth, stream)
+                 2.0 * sigma_inv_depth * sigma_inv_depth, index, stream)
     if err != 0:
         raise RuntimeError(f"bilateral filter kernel launch failed: CUDA error {err}")
-    _count(BILATERAL, (h, w))
+    _count(BILATERAL, (h, w, tile))
     return out
+
+
+def autotune_bilateral_tile(h: int, w: int, max_depth: float = 20.0,
+                            device="cuda") -> Tile:
+    """Time K1 with each of its tiles on an [h, w] depth map on the card
+    (seeded, uniform in [0.5, 3.0] m), persist the fastest under
+    "bilateral_{h}x{w}" for this card and return it (the counterpart of
+    badslam_tpu's autotune_block_height). A tile that does not launch is
+    skipped and named; raises RuntimeError when none launches, since the
+    default kernel is then broken."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"autotune_bilateral_tile tunes a CUDA kernel; got "
+                         f"device {device}")
+    import numpy as np
+
+    depth = torch.from_numpy(
+        np.random.default_rng(0).uniform(0.5, 3.0, (h, w)).astype(np.float32)
+    ).to(device)
+    tiles = bilateral_tiles()
+    best = tuner.autotune(
+        f"bilateral_{h}x{w}",
+        {tile_name(t): (lambda t=t: bilateral_filter_and_cutoff_cuda(
+            depth, max_depth, tile=t)) for t in tiles},
+        device=device)
+    if best is None:
+        raise RuntimeError(f"autotune: no tile of the bilateral kernel launched "
+                           f"at {h}x{w} on {device}")
+    return next(t for t in tiles if tile_name(t) == best)
+
+
+def autotune_preprocess(h: int, w: int, max_depth: float = 20.0,
+                        device="cuda") -> Optional[Tile]:
+    """Tune the preprocessing kernels for one image shape on `device`:
+    K1's tile on a card (returned). On the CPU there is no kernel to tune:
+    it logs so and returns None, writing nothing. The JAX package also
+    picks between its kernel and the XLA version here; the port does not,
+    since a card always runs the kernel."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        _log.warning("--autotune: nothing to tune on the CPU (it runs the plain "
+                     "PyTorch versions of the kernels); the store is left as it is")
+        return None
+    return autotune_bilateral_tile(h, w, max_depth=max_depth, device=device)
 
 
 def bilateral_filter(

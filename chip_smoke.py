@@ -158,11 +158,27 @@ failure, so any failure exits non-zero before the last line is printed):
    poses by more than 1e-4; the gap is printed), and the staged path on the
    card against the CPU on phase 7's 160x120 sequence (poses to 1e-4, the
    same row keys).
-25. The nvidia-smi line again, one JSON line of the kernels, then the last
+25. Autotune (autotune): K1 with each tile of its table
+   (`kernels.bilateral_tiles()`: the default 8x2 first, then 8x1) at VGA:
+   the device time per call (CUDA graph of 50, median of 5), registers,
+   occupancy and waves; on phase 3's four K1 inputs every tile bit for bit
+   equal to the default tile and within 1e-5 of the plain version. Each
+   tile's device time at each K1 size the script drives (`TILE_SIZES`).
+   Then the odometry phase's run and phase 7's 160x120 run with
+   `--autotune`, each against a store of its own (every other phase reads
+   an empty store, so K1 takes the default tile there): the store holds
+   `bilateral_<H>x<W>` under the card's name, K1's frame launches took the
+   stored tile (the tuning's 1 + 10 launches per tile apart), the poses
+   equal the unflagged runs' (to 1e-4; the gap is printed); prints the
+   tuner's ms per tile and the VGA winner against the default. Last, the
+   odometry run against a store holding the tile the VGA tuning did not
+   keep: all 10 frames take it, with the same poses.
+26. The nvidia-smi line again, one JSON line of the kernels, then the last
    line {"ok": true, "device": {...}}.
 
-Each of phases 8-24 prints the card's name and power limit beside its
-numbers.
+Each of phases 8-25 prints the card's name and power limit beside its
+numbers. Every phase before 25 launches K1 with its default tile, and the
+slice, input, pyramid and live phases check so.
 """
 
 from __future__ import annotations
@@ -199,6 +215,7 @@ from badslam_torch.io.dataset import (
 )
 from badslam_torch.io.state import load_calibration
 from badslam_torch.loop.thread import LoopDetectionThread
+from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import interp, kernels
 from badslam_torch.parallel import make_mesh
 from badslam_torch.parallel.dryrun import dryrun_multichip
@@ -411,19 +428,21 @@ def _rendered_depth() -> torch.Tensor:
     return (raw.to(torch.float32) * (1.0 / 5000.0)).cuda()
 
 
-def _k1_launch(h: int, w: int, radius: int) -> str:
+def _k1_launch(h: int, w: int, radius: int, tile=None) -> str:
     """K1's grid against the card: registers and local (spill) bytes per
-    thread, blocks resident per SM, waves (blocks over SMs x resident
-    blocks) and the balance over SMs (mean over most blocks per SM)."""
-    i = kernels.bilateral_launch_info(h, w, radius)
+    thread, blocks resident per SM, occupancy (resident threads over the
+    SM's most), waves (blocks over SMs x resident blocks) and the balance
+    over SMs (mean over most blocks per SM)."""
+    i = kernels.bilateral_launch_info(h, w, radius, tile)
     blocks = i["grid_x"] * i["grid_y"]
     waves = blocks / (i["sms"] * i["blocks_per_sm"])
     balance = blocks / (i["sms"] * -(-blocks // i["sms"]))
+    occupancy = i["blocks_per_sm"] * i["threads"] / i["sm_threads"]
     return (f"grid {i['grid_x']}x{i['grid_y']} = {blocks} blocks of {i['threads']} "
             f"threads, {i['shared_bytes']} B shared, {i['registers']} registers, "
             f"{i['local_bytes']} B local (spills) per thread, {i['blocks_per_sm']} "
-            f"blocks resident per SM on {i['sms']} SMs: {waves:.3f} waves, balance "
-            f"{balance:.3f}")
+            f"blocks resident per SM on {i['sms']} SMs (occupancy {occupancy:.3f}): "
+            f"{waves:.3f} waves, balance {balance:.3f}")
 
 
 def _input_frame(data: str):
@@ -437,17 +456,29 @@ def _input_frame(data: str):
     return video, umap, depth.to(torch.float32) * (1.0 / 5000.0), rgb
 
 
-def _k1(undistorted: torch.Tensor) -> dict:
-    """`undistorted`: the input phase's frame 0 after undistortion and one
-    median pass, K1's ragged input (rows of 670 floats are not 16-byte
-    aligned, so the staging takes its scalar edge loads)."""
-    result = {}
+def _undistorted_frame(input_data: str) -> torch.Tensor:
+    """Frame 0 of the distorted input after undistortion and one median
+    pass, on the card."""
+    _, umap, depth, _ = _input_frame(input_data)
+    return median_filter_and_densify(undistort_image(depth, umap, nearest=True))
+
+
+def _k1_inputs(undistorted: torch.Tensor) -> list:
+    """K1's inputs, (what, max depth, depth): random and rendered VGA
+    maps, a small random one, and `undistorted`, K1's ragged input (rows of
+    670 floats are not 16-byte aligned, so the staging takes its scalar
+    edge loads)."""
     size = "x".join(map(str, undistorted.shape))
-    for what, max_depth, depth in (
-            (f"random {HEIGHT}x{WIDTH}", 2.5, _random_depth(0, (HEIGHT, WIDTH), 2.5)),
+    return [(f"random {HEIGHT}x{WIDTH}", 2.5, _random_depth(0, (HEIGHT, WIDTH), 2.5)),
             ("random 67x160", 2.5, _random_depth(1, (67, 160), 2.5)),
             (f"rendered {HEIGHT}x{WIDTH}", 3.0, _rendered_depth()),
-            (f"undistorted input {size}", 3.0, undistorted)):
+            (f"undistorted input {size}", 3.0, undistorted)]
+
+
+def _k1(undistorted: torch.Tensor) -> dict:
+    """K1 (its default tile) on _k1_inputs against its plain version."""
+    result = {}
+    for what, max_depth, depth in _k1_inputs(undistorted):
         out = kernels.bilateral_filter_and_cutoff_cuda(depth, max_depth)
         ref = bilateral_filter_and_cutoff(depth, max_depth)
         torch.cuda.synchronize()
@@ -590,9 +621,8 @@ def _k3() -> dict:
 
 def phase_kernels(input_data: str) -> dict:
     _, umap, depth, rgb = _input_frame(input_data)
-    undistorted = median_filter_and_densify(undistort_image(depth, umap, nearest=True))
-    return {kernels.BILATERAL: _k1(undistorted), kernels.GATHER: _k2(umap, depth, rgb),
-            kernels.GATHER_ONEHOT: _k3()}
+    return {kernels.BILATERAL: _k1(_undistorted_frame(input_data)),
+            kernels.GATHER: _k2(umap, depth, rgb), kernels.GATHER_ONEHOT: _k3()}
 
 
 def phase_probe() -> dict:
@@ -674,8 +704,13 @@ def _frame_medians(summary) -> str:
 
 
 def _shapes() -> dict:
-    """The launches per image shape of the last run (copied)."""
+    """The launches per image shape (and K1's tile) of the last run
+    (copied)."""
     return {k: dict(v) for k, v in kernels.launch_shapes.items()}
+
+
+def _default_tile() -> tuple:
+    return kernels.bilateral_tiles()[0]
 
 
 def phase_slice(workdir: str) -> tuple:
@@ -686,6 +721,7 @@ def phase_slice(workdir: str) -> tuple:
     poses, q, t, summary, launches = _run(
         data, workdir, "slice", "cuda", SLICE_FLAGS + ["--export_point_cloud", ply])
     wall = time.perf_counter() - t0
+    shapes = _shapes()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     ate = synthetic.ate_rmse(poses, gt)
     frame_ms = dict(summary["frame_ms"])
@@ -701,6 +737,8 @@ def phase_slice(workdir: str) -> tuple:
           f"launches {launches}")
     checks = {
         "K1 once per frame": launches[kernels.BILATERAL] == FRAMES,
+        "K1 with its default tile":
+            shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH, _default_tile()): FRAMES},
         "K2 launched": launches[kernels.GATHER] > 0,
         "BA ran iterations": sum(summary["ba_iterations"]) > 0,
         "surfels in the map": summary["surfels"] > 0,
@@ -745,7 +783,8 @@ def phase_odometry(workdir: str, data: str) -> tuple:
     return q, t
 
 
-def phase_cpu(workdir: str, data: str, q_odo, t_odo) -> None:
+def phase_cpu(workdir: str, data: str, q_odo, t_odo) -> tuple:
+    """Returns the 160x120 sequence and its CUDA run's poses (q, t)."""
     small, _ = _write(workdir, "small", 160, 120, SMALL_FRAMES, 5)
     runs = {dev: _run(small, workdir, f"small_{dev}", dev, SMALL_FLAGS)
             for dev in ("cuda", "cpu")}
@@ -768,6 +807,7 @@ def phase_cpu(workdir: str, data: str, q_odo, t_odo) -> None:
           f"max |dt| {dt:.3e} (atol {POSE_ATOL})")
     if not (len(q) == CPU_FRAMES and dq <= POSE_ATOL and dt <= POSE_ATOL):
         raise AssertionError("CPU and CUDA odometry trajectories disagree")
+    return small, qg, tg
 
 
 def write_input_sequence(workdir: str):
@@ -810,8 +850,8 @@ def phase_input(workdir: str, data: str, gt_kept) -> None:
     checks = {
         f"{len(gt_kept)} frames associated": len(video) == len(gt_kept) == len(poses),
         f"decided pinhole {INPUT_SIZE[1]}x{INPUT_SIZE[0]}": size == INPUT_SIZE,
-        "K1 once per frame at the decided size":
-            shapes[kernels.BILATERAL] == {size: len(gt_kept)},
+        "K1 once per frame at the decided size, default tile":
+            shapes[kernels.BILATERAL] == {(*size, _default_tile()): len(gt_kept)},
         "K2 launched": launches[kernels.GATHER] > 0,
         "final BA ran iterations": sum(summary["final_ba_iterations"]) > 0,
         "ATE below the limit": ate < INPUT_ATE_LIMIT_M,
@@ -835,8 +875,8 @@ def phase_pyramid(workdir: str) -> None:
           f"{summary['ba_iterations']}; launches {launches}; K1 shapes "
           f"{shapes[kernels.BILATERAL]} ({SMI})")
     checks = {
-        "K1 once per frame at 640x480":
-            shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH): PYRAMID_FRAMES},
+        "K1 once per frame at 640x480, default tile":
+            shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH, _default_tile()): PYRAMID_FRAMES},
         "BA ran iterations": sum(summary["ba_iterations"]) > 0,
         "ATE below the limit": ate < ATE_LIMIT_M,
     }
@@ -1129,6 +1169,7 @@ def _write_loop_sequence(data: str):
 def loop_off_job(workdir: str) -> int:
     """The loop phase's dataset and its run with loop detection off, in a
     process of its own (start_loop_off) that overlaps phases 5-14."""
+    tuner._TUNING_PATH = os.path.join(workdir, "tuning_loop_off.json")  # stays empty
     t0 = time.perf_counter()
     _write_loop_sequence(os.path.join(workdir, "loop"))
     print(f"loop: {LOOP_FRAMES} frames written at {WIDTH}x{HEIGHT} in "
@@ -1418,7 +1459,8 @@ def phase_live(workdir: str, data: str) -> tuple:
           f"{launches}; K1 shapes {shapes[kernels.BILATERAL]} ({SMI})")
     checks = {
         f"{FRAMES} frames processed": len(poses) == len(summary["frame_ms"]) == FRAMES,
-        "K1 once per frame at 480x640": shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH): FRAMES},
+        "K1 once per frame at 480x640, default tile":
+            shapes[kernels.BILATERAL] == {(HEIGHT, WIDTH, _default_tile()): FRAMES},
         "K2 launched": launches[kernels.GATHER] > 0,
         "ATE below the limit": ate < ATE_LIMIT_M,
         "a snapshot per keyframe and a final one":
@@ -1857,6 +1899,165 @@ def phase_timings(workdir: str, data: str, q_slice, t_slice) -> dict:
             for name in (kernels.BILATERAL, kernels.GATHER)}
 
 
+# Autotune (phase 25): the tuner's calls per tile (one warm-up, then its
+# timed calls), as cli.run's --autotune makes them.
+AUTOTUNE_CALLS = 1 + tuner.ITERATIONS
+# K1's sizes in the tile sweep: VGA (the slice), the undistorted input (the
+# input phase), VGA at depth pyramid level 1, the 160x120 sequence (the cpu
+# phase) and the ragged 67x160.
+TILE_SIZES = ((HEIGHT, WIDTH), INPUT_SIZE, (HEIGHT // 2, WIDTH // 2), (120, 160),
+              (67, 160))
+
+
+def _tile_sweep(tiles, default) -> dict:
+    """Device time per call of each tile at each of TILE_SIZES on random
+    depth, {(H, W): {tile: ms}}; one line per size."""
+    sweep = {}
+    for i, size in enumerate(TILE_SIZES):
+        depth = _random_depth(10 + i, size, 2.5)
+        ms = {tile: device_ms(lambda t=tile: kernels.bilateral_filter_and_cutoff_cuda(
+            depth, 2.5, tile=t)) for tile in tiles}
+        best = min(ms, key=ms.get)
+        blocks = {tile: kernels.bilateral_launch_info(*size, 3, tile) for tile in tiles}
+        print(f"K1 tiles at {size[0]}x{size[1]} (device time per call, CUDA graph of 50, "
+              f"median of 5; blocks): "
+              + ", ".join(f"{kernels.tile_name(t)} {ms[t]:.4f} ms "
+                          f"({blocks[t]['grid_x'] * blocks[t]['grid_y']})" for t in tiles)
+              + f"; fastest {kernels.tile_name(best)}, "
+              f"{100.0 * (1.0 - ms[best] / ms[default]):.1f}% below "
+              f"{kernels.tile_name(default)} ({SMI})")
+        sweep[size] = ms
+    return sweep
+
+
+def _run_with_store(workdir: str, data: str, tag: str, store: str, flags) -> tuple:
+    """A CUDA run against the tuning store `store`: (poses, q, t, summary,
+    K1's launches per shape and tile, the tuner's ms per tile, wall
+    seconds)."""
+    empty_store = tuner._TUNING_PATH
+    tuner._TUNING_PATH = store
+    try:
+        tuner.last_times.clear()
+        t0 = time.perf_counter()
+        poses, q, t, summary, _ = _run(data, workdir, tag, "cuda", flags)
+        wall = time.perf_counter() - t0
+        return (poses, q, t, summary, _shapes()[kernels.BILATERAL],
+                dict(tuner.last_times), wall)
+    finally:
+        tuner._TUNING_PATH = empty_store
+
+
+def _autotuned_run(workdir: str, data: str, tag: str, flags, size, frames, q_ref,
+                   t_ref, tiles) -> tuple:
+    """A run with --autotune against a store of its own, held to the same
+    run without the flag (q_ref, t_ref): (the stored tile, the checks)."""
+    store = os.path.join(workdir, f"{tag}_store.json")
+    poses, q, t, summary, shapes, tuner_ms, wall = _run_with_store(
+        workdir, data, tag, store, flags + ["--autotune"])
+    key = tuner.device_key(f"bilateral_{size[0]}x{size[1]}", "cuda")
+    with open(store) as f:
+        stored = json.load(f)
+    winner = next((tl for tl in tiles if kernels.tile_name(tl) == stored.get(key)), None)
+    expected = {(*size, tl): AUTOTUNE_CALLS + (frames if tl == winner else 0)
+                for tl in tiles}
+    dq, dt = float(np.abs(q - q_ref).max()), float(np.abs(t - t_ref).max())
+    later = [ms for _, ms in summary["frame_ms"][1:]]
+    print(f"autotune: {tag} ({frames} frames at {size[1]}x{size[0]}) with --autotune on "
+          f"cuda in {wall:.1f} s wall; store {stored}; tuner ms per call (CUDA events "
+          f"over {tuner.ITERATIONS} calls) "
+          f"{', '.join(f'{n} {ms:.4f}' for n, ms in tuner_ms.items())}; poses against "
+          f"the unflagged run: max |dq| {dq:.3e}, max |dt| {dt:.3e} (atol {POSE_ATOL}); "
+          f"per-frame median {statistics.median(later):.2f} ms after the first; K1 "
+          f"launches per shape and tile {shapes} ({SMI})")
+    checks = {
+        f"{tag}: the store holds {key}": winner is not None and list(stored) == [key],
+        f"{tag}: K1's frames took the stored tile, the tuning 1 + {tuner.ITERATIONS} "
+        f"calls per tile": shapes == expected,
+        f"{tag}: {frames} poses": len(poses) == frames,
+        f"{tag}: poses equal to the unflagged run's": dq <= POSE_ATOL and dt <= POSE_ATOL,
+        f"{tag}: the tuner timed every tile":
+            set(tuner_ms) == set(map(kernels.tile_name, tiles)),
+    }
+    return winner, checks
+
+
+def phase_autotune(workdir: str, data: str, input_data: str, q_odo, t_odo, small,
+                   q_small, t_small) -> None:
+    """K1's tiles at VGA against the default tile and the plain version,
+    their times at each of TILE_SIZES, then the odometry run and phase 7's
+    160x120 run (`small`, poses q_small, t_small) with --autotune, each
+    against a store of its own, and the odometry run against a store that
+    holds the tile the VGA tuning did not keep."""
+    tiles = kernels.bilateral_tiles()
+    default = _default_tile()
+    if tiles != [(8, 2), (8, 1)]:
+        raise AssertionError(f"K1's tile table {tiles}: expected [(8, 2), (8, 1)], the "
+                             f"default first")
+    inputs = _k1_inputs(_undistorted_frame(input_data))
+    # Per input: the plain version's output and the default tile's.
+    refs = {what: (bilateral_filter_and_cutoff(d, m),
+                   kernels.bilateral_filter_and_cutoff_cuda(d, m, tile=default))
+            for what, m, d in inputs}
+    vga = inputs[0][2]
+    graph_ms = {}
+    for tile in tiles:
+        worst_err, bitwise = 0.0, True
+        for what, max_depth, depth in inputs:
+            out = kernels.bilateral_filter_and_cutoff_cuda(depth, max_depth, tile=tile)
+            ref, base = refs[what]
+            torch.cuda.synchronize()
+            worst_err = max(worst_err, float((out - ref).abs().max()))
+            bitwise = bitwise and torch.equal(out, base)
+        graph_ms[tile] = device_ms(
+            lambda: kernels.bilateral_filter_and_cutoff_cuda(vga, 2.5, tile=tile))
+        print(f"K1 tile {kernels.tile_name(tile)}{' (default)' if tile == default else ''}"
+              f": device time per call at {HEIGHT}x{WIDTH} (CUDA graph of 50, median of "
+              f"5) {graph_ms[tile]:.4f} ms; on the {len(inputs)} K1 inputs bit-equal to "
+              f"the default tile: {bitwise}, max_abs_err against plain {worst_err:.3e} "
+              f"(atol {KERNEL_ATOL}); {_k1_launch(HEIGHT, WIDTH, 3, tile)} ({SMI})")
+        if not (bitwise and worst_err <= KERNEL_ATOL):
+            raise AssertionError(f"K1 tile {tile} disagrees with the default tile or the "
+                                 f"plain version")
+    _tile_sweep(tiles, default)
+
+    # The odometry run and phase 7's 160x120 BA run with --autotune, each
+    # against a store of its own.
+    winner, checks = _autotuned_run(workdir, data, "odometry_autotune", ODOMETRY_FLAGS,
+                                    (HEIGHT, WIDTH), ODOMETRY_FRAMES, q_odo, t_odo, tiles)
+    print(f"autotune: the tuned VGA tile {winner} "
+          f"{graph_ms.get(winner, float('nan')):.4f} ms against the default "
+          f"{kernels.tile_name(default)} {graph_ms[default]:.4f} ms (CUDA graph of 50, "
+          f"median of 5; {SMI})")
+    _, small_checks = _autotuned_run(workdir, small, "small_autotune", SMALL_FLAGS,
+                                     (120, 160), SMALL_FRAMES, q_small, t_small, tiles)
+    checks.update(small_checks)
+
+    # The odometry run (no --autotune) against a store that holds another
+    # tile than the VGA winner: every frame's launch must take it.
+    key = tuner.device_key(f"bilateral_{HEIGHT}x{WIDTH}", "cuda")
+    forced = next(tl for tl in tiles if tl != winner)
+    forced_store = os.path.join(workdir, "forced_store.json")
+    with open(forced_store, "w") as f:
+        json.dump({key: kernels.tile_name(forced)}, f)
+    poses_f, q_f, t_f, _, shapes_f, _, _ = _run_with_store(
+        workdir, data, "forced_tile", forced_store, ODOMETRY_FLAGS)
+    dq_f, dt_f = float(np.abs(q_f - q_odo).max()), float(np.abs(t_f - t_odo).max())
+    print(f"autotune: odometry against a store holding {kernels.tile_name(forced)}: K1 "
+          f"launches per shape and tile {shapes_f}; poses against the odometry phase: "
+          f"max |dq| {dq_f:.3e}, max |dt| {dt_f:.3e} (atol {POSE_ATOL})")
+    checks.update({
+        f"K1's frames took {kernels.tile_name(forced)} from a store that holds it":
+            shapes_f == {(HEIGHT, WIDTH, forced): ODOMETRY_FRAMES},
+        f"{ODOMETRY_FRAMES} poses with {kernels.tile_name(forced)}":
+            len(poses_f) == ODOMETRY_FRAMES,
+        f"poses with {kernels.tile_name(forced)} equal to the odometry phase's":
+            dq_f <= POSE_ATOL and dt_f <= POSE_ATOL,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"autotune checks failed: {failed}")
+
+
 _KERNEL_ROWS = (
     (kernels.BILATERAL, "badslam_torch/csrc/bilateral.cu",
      "badslam_tpu/ops/pallas_kernels.py:105"),
@@ -1877,6 +2078,10 @@ def main(argv=None) -> int:
     name = _phase("device", phase_device)
     _phase("build", phase_build)
     with tempfile.TemporaryDirectory() as workdir:
+        # An empty tuning store: one left by an earlier --autotune run must
+        # not pick K1's tile (phase autotune swaps in a store of its own).
+        tuner._TUNING_PATH = os.path.join(workdir, "tuning.json")
+        tuner._cache.clear()
         input_data, gt_kept = _phase("input data", write_input_sequence, workdir)
         measured = _phase("kernels", phase_kernels, input_data)
         probe_launches = _phase("probe", phase_probe)
@@ -1889,7 +2094,7 @@ def main(argv=None) -> int:
             if profile_dir:
                 _phase("profile", phase_profile, data, profile_dir)
             q_odo, t_odo = _phase("odometry", phase_odometry, workdir, data)
-            _phase("cpu", phase_cpu, workdir, data, q_odo, t_odo)
+            small, q_small, t_small = _phase("cpu", phase_cpu, workdir, data, q_odo, t_odo)
             _phase("input", phase_input, workdir, input_data, gt_kept)
             _phase("pyramid", phase_pyramid, workdir)
             _phase("resume", phase_resume, workdir, data, q_slice, t_slice)
@@ -1909,6 +2114,8 @@ def main(argv=None) -> int:
             _phase("cpu_multi", phase_cpu_multi, workdir)
             timings_launches = _phase("timings", phase_timings, workdir, data, q_slice,
                                       t_slice)
+            _phase("autotune", phase_autotune, workdir, data, input_data, q_odo, t_odo,
+                   small, q_small, t_small)
         finally:
             if off_job.poll() is None:
                 off_job.kill()

@@ -13,6 +13,8 @@ Tolerances:
     order and IEEE reciprocals in both; the kernel's exponential is
     ex2.approx, within 2 ulp, which tests/test_torch_bilateral.py shows
     moves the output by ~1e-6 at most).
+  * K1 with each of its tiles vs the default tile: exact (every tile sums
+    an output's taps in the same order).
   * preprocess on CUDA vs CPU: atol 1e-5 on depths, 1e-4 on normals (the
     normals amplify the depths' ~1e-6 differences, as against JAX).
   * tracked pose on CUDA vs CPU: atol 1e-4, the slice's hold.
@@ -36,11 +38,14 @@ Tolerances:
     iterations, surfel counts within 1%).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from badslam_torch import synthetic
+from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import kernels
 from badslam_torch.ops.preprocess import bilateral_filter_and_cutoff, preprocess_frame
 from badslam_torch.ops.pyramid import build_pyramid
@@ -48,11 +53,15 @@ from badslam_torch.tracking.pairwise import track_frame_pairwise
 
 
 @pytest.fixture
-def cuda():
+def cuda(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # An empty tuning store: one left by an earlier --autotune run must not
+    # pick K1's tile here.
+    monkeypatch.setattr(tuner, "_TUNING_PATH", str(tmp_path / "tuning.json"))
+    monkeypatch.setattr(tuner, "_cache", {})
     return torch.device("cuda")
 
 
@@ -119,6 +128,52 @@ def test_bilateral_kernel_rejects_what_it_does_not_take(cuda):
         kernels.bilateral_filter_and_cutoff_cuda(d.t(), 2.5)
     with pytest.raises(ValueError):
         kernels.bilateral_filter_and_cutoff_cuda(d.cpu(), 2.5)
+    with pytest.raises(ValueError, match="no tile"):
+        kernels.bilateral_filter_and_cutoff_cuda(d, 2.5, tile=(3, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (67, 160), (502, 670)])
+def test_bilateral_tiles_give_the_default_tiles_bits(cuda, shape):
+    """Every tile of K1's table, at radius 0, 3 (the unrolled instance)
+    and 16 (the largest), against the default tile (bit for bit) and the
+    plain version (1e-5); each launch counted under its tile."""
+    tiles = kernels.bilateral_tiles()
+    assert tiles == [(8, 2), (8, 1)]  # the default first
+    d = torch.from_numpy(_depth(sum(shape), shape)).to(cuda)
+    for sigma_xy in (0.2, 1.5, 8.0):  # radius int(2 sigma + 0.5): 0, 3, 16
+        ref = bilateral_filter_and_cutoff(d, 2.5, sigma_xy)
+        default = kernels.bilateral_filter_and_cutoff_cuda(d, 2.5, sigma_xy, tile=tiles[0])
+        for tile in tiles:
+            before = kernels.launch_shapes[kernels.BILATERAL][(*shape, tile)]
+            out = kernels.bilateral_filter_and_cutoff_cuda(d, 2.5, sigma_xy, tile=tile)
+            torch.cuda.synchronize()
+            assert kernels.launch_shapes[kernels.BILATERAL][(*shape, tile)] == before + 1
+            assert torch.equal(out, default), (tile, sigma_xy)
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_autotuned_tile_serves_later_launches(cuda):
+    """autotune_bilateral_tile stores the winner under the card's name
+    and the size; the next default launch at that size takes it, another
+    size the default tile, and a stored tile the kernel lacks raises."""
+    tile = kernels.autotune_bilateral_tile(120, 160, max_depth=3.0, device=cuda)
+    tiles = kernels.bilateral_tiles()
+    assert tile in tiles and set(tuner.last_times) == set(map(kernels.tile_name, tiles))
+    key = tuner.device_key("bilateral_120x160", cuda)
+    assert key == f"{torch.cuda.get_device_name(cuda)}:bilateral_120x160"
+    with open(tuner._TUNING_PATH) as f:
+        assert json.load(f) == {key: kernels.tile_name(tile)}
+    shapes = kernels.launch_shapes[kernels.BILATERAL]
+    tuned, other = (120, 160, tile), (60, 80, tiles[0])
+    before = shapes[tuned], shapes[other]
+    kernels.bilateral_filter(torch.from_numpy(_depth(1, (120, 160))).to(cuda), 3.0)
+    kernels.bilateral_filter(torch.from_numpy(_depth(2, (60, 80))).to(cuda), 3.0)
+    assert (shapes[tuned], shapes[other]) == (before[0] + 1, before[1] + 1)
+    tuner.put(key, "3x3")
+    with pytest.raises(ValueError, match="'3x3'"):
+        kernels.bilateral_filter(torch.from_numpy(_depth(1, (120, 160))).to(cuda), 3.0)
 
 
 def _render_pair(seed, width=160, height=120):
