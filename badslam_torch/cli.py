@@ -119,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None,
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
-                        "kernel launches, device time) into this directory")
+                        "kernels run on the device, graph replays included, "
+                        "host launches, device time) into this directory")
     p.add_argument("--save_state", default=None,
                    help="write a full state snapshot (.npz) after the run")
     p.add_argument("--load_state", default=None,
@@ -170,11 +171,17 @@ def resolve_device(name: str):
 
 def _profiled_run(slam, out_dir: str, run_frames) -> None:
     """run_frames() (slam.run or slam.run_live) under torch.profiler;
-    writes the key_averages table and a JSON summary: per span (upload, preprocess, pyramid, track, duel,
-    gn_iteration/width<W>, ba, ba_drain, the BA stages ba/<stage>,
-    trajectory_deformation, loop_drain_wait, loop_closure_attempt) its
-    count and host ms, and the number of device
-    kernel launches, their device ms, and the host-side synchronizations."""
+    writes the key_averages table and a JSON summary: per span (upload,
+    steady_frame, preprocess, pyramid, track, duel, gn_iteration/width<W>,
+    ba, ba_drain, the BA stages ba/<stage>, trajectory_deformation,
+    loop_drain_wait, loop_closure_attempt) its count and host ms; the
+    kernels the card ran (``kernel_launches``: every kernel execution the
+    profiler saw on the device, those of CUDA-graph replays included, so a
+    steady frame's graph counts its kernel nodes that ran, not its capture)
+    and their device ms; the kernel launches made from the host
+    (``host_kernel_launches``) and the graph replays (``graph_replays``);
+    the host-side synchronizations; and each capture of the steady frame
+    (``steady_graph_captures``: seconds, nodes, memory)."""
     import os
     import time
 
@@ -196,7 +203,8 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
     spans = {e.key: {"count": e.count, "host_ms": e.cpu_time_total / 1000.0}
              for e in events
              if e.device_type.name == "CPU"
-             and (e.key in ("upload", "preprocess", "pyramid", "track", "duel",
+             and (e.key in ("upload", "steady_frame", "preprocess", "pyramid", "track",
+                            "duel",
                             "ba", "ba_drain", "trajectory_deformation",
                             "loop_drain_wait", "loop_closure_attempt")
                   or e.key.startswith(("gn_iteration/", "ba/")))}
@@ -206,6 +214,10 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                              "cudaEventSynchronize", "cudaMemcpyAsync"))
     device_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    host_launches = sum(e.count for e in events
+                        if e.device_type.name == "CPU"
+                        and e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                      "cuLaunchKernel", "cuLaunchKernelEx"))
     summary = {
         "device": str(slam.device),
         "frames": len(slam.frame_times_ms),
@@ -213,6 +225,10 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
         "spans": spans,
         "kernel_launches": sum(e.count for e in kernels),
         "kernel_device_ms": device_ms,
+        "host_kernel_launches": host_launches,
+        "graph_replays": sum(e.count for e in events if e.key == "cudaGraphLaunch"),
+        "steady_graph_captures": (slam.steady_graph.captures
+                                  if getattr(slam, "steady_graph", None) is not None else []),
         "host_syncs_and_copies": syncs,
         "top_kernels": sorted(
             ({"name": e.key[:120], "count": e.count,

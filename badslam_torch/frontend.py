@@ -36,29 +36,42 @@ may snapshot the map, and before each frame the loop waits while the
 viewer is paused and applies its queued commands (manual BA, densify,
 runtime config edits, keyframe move and delete).
 
-Everything runs eagerly on one explicit device. The per-frame state (the
+Everything runs on one explicit device. The per-frame state (the
 trajectory, the motion history, the base keyframe's pyramid and pose, the
-map and the keyframes) lives on that device; the tracker and BA read one
-flag per Gauss-Newton or BA iteration back to the host. With
+map and the keyframes) lives on that device. Every tracked frame at input
+level 0 (all but the first, when ``estimate_poses`` is on) is the JAX
+package's steady frame (``steady.steady_frame``: preprocess, pyramid,
+motion model, tracking, trajectory and history writes): on a CUDA device
+one replay of a captured CUDA graph (``steady.SteadyFrameGraph``) whose
+Gauss-Newton early exit is decided on the card, so no value is read back
+between the frame's upload and the next frame; on the CPU the same
+function runs eagerly, reading the convergence flag once per Gauss-Newton
+iteration. When nothing paces the loop, the ``keyframe_interval - 1``
+frames between two keyframes run as one chunk (``chunk_eligible``,
+``_process_chunk``; ``steady_frame_chunking``): one batched upload, then one
+replay per frame with no host read in between, and the queued BA
+iterations are drained once after the chunk, up to 2 per frame of it, as
+the JAX package's scan chunk does. The first frame, ``estimate_poses``
+false and input pyramid levels take the per-frame path, as in the JAX
+package. BA reads one flag per BA iteration back to the host. With
 ``n_devices > 1`` each BA call runs over a mesh of devices
 (``ba/scheme.py``), and the map and keyframes stay on the one device
 between calls.
 
 Timed regions (``utils/timing.py``, on the card's clock on a GPU) carry the
-JAX package's timer names: ``preprocessing``, ``odometry``, ``keyframe
-insert``, ``bundle adjustment`` (the keyframe's BA call; the drains between
-frames are not timed, as there), ``bundle adjustment (PCG)``, ``loop
-detection (sync)``, ``loop closure attempt``, ``loop detection drain
-(wait)`` and ``trajectory deformation``; the BA stages and the detection
-worker add theirs. The JAX package's ``frame (fused)``, ``frame chunk
-(fused)`` and ``frame chunk upload`` time its fused steady-frame program and
-scan chunks, which the port does not have: every frame of the port takes
-the JAX package's per-frame path (its path for the first frame and at an
-input pyramid level), timed as ``preprocessing`` and ``odometry``.
+JAX package's timer names: ``frame (fused)`` (a steady frame, its upload
+included), ``frame chunk (fused)`` and ``frame chunk upload`` (a chunk of
+steady frames and its batched upload), ``preprocessing`` and ``odometry``
+(the per-frame path), ``keyframe insert``, ``bundle adjustment`` (the
+keyframe's BA call; the drains between frames are not timed, as there),
+``bundle adjustment (PCG)``, ``loop detection (sync)``, ``loop closure
+attempt``, ``loop detection drain (wait)`` and ``trajectory deformation``;
+the BA stages and the detection worker add theirs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import List, Optional, Tuple
@@ -80,6 +93,7 @@ from badslam_torch.loop.detector import LoopDetector
 from badslam_torch.loop.features import gray_from_rgb
 from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.loop.trajectory import deform_trajectory
+from badslam_torch.ops import kernels
 from badslam_torch.ops.preprocess import (
     ProcessedFrame,
     downscale_color,
@@ -87,6 +101,7 @@ from badslam_torch.ops.preprocess import (
     preprocess_frame,
 )
 from badslam_torch.ops.pyramid import build_pyramid
+from badslam_torch.steady import SteadyFrameGraph, steady_frame, steady_key
 from badslam_torch.tracking.pairwise import track_frame_pairwise
 from badslam_torch.utils.memory import free_device_memory_mb
 from badslam_torch.utils.timing import Timing, region
@@ -194,6 +209,14 @@ class BadSlam:
         self.has_pose = np.zeros(n_frames, bool)
         # The last frame processed: a state snapshot resumes after it.
         self.last_frame_index = -1
+        # The steady frame (steady.py): taken at input level 0; its
+        # configuration key; on a CUDA device its graphs and static inputs.
+        self._steady_ok = self.input_level == 0
+        self._steady_key = steady_key(config)
+        self.steady_graph = (SteadyFrameGraph(self.device)
+                             if self.device.type == "cuda" else None)
+        self.chunks_processed = 0  # steady chunks run (_process_chunk)
+        self._eager_gn_iterations = 0  # the host loop's, in steady frames
         # Parallel BA: iterations queued at a keyframe and drained two per
         # frame (the reference's BA-thread queue, bad_slam.h:301-325).
         self.queued_ba_iterations = 0
@@ -318,45 +341,101 @@ class BadSlam:
         )
         return se3.SE3(result.q, result.t)
 
-    def process_frame(self, frame_index: int, drain: bool = True) -> se3.SE3:
-        """Full per-frame pipeline (ProcessFrame, bad_slam.cc:174-283).
-        Returns the frame's global_T_frame (after BA's trajectory
-        deformation on a keyframe that ran BA). With `drain` false the
-        queued BA iterations wait (a steady run, see `run`)."""
+    def _steady_step(self, frame_index: int, depth=None, rgb=None):
+        """One steady frame and its bookkeeping: on a CUDA device a replay
+        of the frame's graph (the frame was uploaded or set just before),
+        whose static trajectory, history and base pyramid become the front
+        end's; on the CPU the same function, eagerly, on the frame's raw
+        depth (int32) and color tensors (read from the video when not
+        given). Returns (frame, pyramid, global_T_frame); frame and pyramid
+        are the graph's outputs on a CUDA device, valid until its next
+        replay."""
         c = self.config
-        is_first = self.base_kf_id is None
-        with Timing.time("preprocessing", device=self.device):
-            frame, pyramid = self.preprocess(frame_index)
-
-        if is_first:
-            # The first frame's pose is the dataset prior (or the identity),
-            # not base * rel.
-            base_T_frame = se3.identity(self.device)
-            prior = self.video.poses[frame_index]
-            global_T_frame = se3.identity(self.device) if prior is None else se3.SE3(
-                torch.as_tensor(prior.q, dtype=torch.float32, device=self.device),
-                torch.as_tensor(prior.t, dtype=torch.float32, device=self.device))
-        else:
-            if c.estimate_poses:
-                with record_function("track"), \
-                        Timing.time("odometry", device=self.device):
-                    base_T_frame = self.run_odometry(pyramid)
+        params = self.direct_ba.depth_params
+        base = self.base_kf_global_T_frame
+        test_two = c.use_motion_model and self._hist_n >= 3
+        state = dict(base_pyr=self.base_kf_pyramid, base_q=base.q, base_t=base.t,
+                     a=params.a, cfactor=params.cfactor, traj_q=self.traj_q,
+                     traj_t=self.traj_t, hist_q=self._hist_q, hist_t=self._hist_t)
+        with record_function("steady_frame"):
+            if self.steady_graph is not None:
+                out = self.steady_graph.run(
+                    self._steady_key, self.cam, self.cams_pyramid, self._undistort_map,
+                    test_two=test_two, frame_index=frame_index, **state)
+                self.base_kf_pyramid = self.steady_graph.base_pyr
+                # The graph's pose output is overwritten by its next replay.
+                global_T_frame = se3.SE3(out.q.clone(), out.t.clone())
             else:
-                base_T_frame = se3.SE3(self._hist_q[2], self._hist_t[2])
-            global_T_frame = se3.mul(self.base_kf_global_T_frame, base_T_frame)
-
-        self.traj_q[frame_index] = global_T_frame.q
-        self.traj_t[frame_index] = global_T_frame.t
+                if depth is None:
+                    depth = torch.from_numpy(
+                        self.video.depth_u16(frame_index).astype(np.int32)).to(self.device)
+                    rgb = torch.from_numpy(self.video.color_u8(frame_index)).to(self.device)
+                out = steady_frame(
+                    self._steady_key, self.cam, self.cams_pyramid, depth_raw=depth,
+                    rgb=rgb, undistort_map=self._undistort_map,
+                    idx=torch.tensor([frame_index], device=self.device),
+                    test_two=test_two, **state)
+                global_T_frame = se3.SE3(out.q, out.t)
+                self._eager_gn_iterations += sum(out.iterations)
+        self.traj_q, self.traj_t = out.traj_q, out.traj_t
+        self._hist_q, self._hist_t = out.hist_q, out.hist_t
         self.has_pose[frame_index] = True
-        self._hist_q = torch.cat([self._hist_q[1:], base_T_frame.q[None]])
-        self._hist_t = torch.cat([self._hist_t[1:], base_T_frame.t[None]])
         self._hist_n += 1
         self.video.set_pose(frame_index, global_T_frame)
         self.last_frame_index = frame_index
+        return out.frame, out.pyramid, global_T_frame
+
+    def steady_gn_iterations(self) -> int:
+        """The Gauss-Newton iterations of the steady frames so far, all
+        scales (with graphs, a device read)."""
+        n = self._eager_gn_iterations
+        if self.steady_graph is not None:
+            n += self.steady_graph.gn_iterations()
+        return n
+
+    def process_frame(self, frame_index: int) -> se3.SE3:
+        """Full per-frame pipeline (ProcessFrame, bad_slam.cc:174-283).
+        Returns the frame's global_T_frame (after BA's trajectory
+        deformation on a keyframe that ran BA)."""
+        c = self.config
+        is_first = self.base_kf_id is None
+        if not is_first and c.estimate_poses and self._steady_ok:
+            with Timing.time("frame (fused)", device=self.device):
+                if self.steady_graph is not None:
+                    with record_function("upload"):
+                        self.steady_graph.upload(self.video.depth_u16(frame_index),
+                                                 self.video.color_u8(frame_index))
+                frame, pyramid, global_T_frame = self._steady_step(frame_index)
+        else:
+            with Timing.time("preprocessing", device=self.device):
+                frame, pyramid = self.preprocess(frame_index)
+            if is_first:
+                # The first frame's pose is the dataset prior (or the
+                # identity), not base * rel.
+                base_T_frame = se3.identity(self.device)
+                prior = self.video.poses[frame_index]
+                global_T_frame = se3.identity(self.device) if prior is None else se3.SE3(
+                    torch.as_tensor(prior.q, dtype=torch.float32, device=self.device),
+                    torch.as_tensor(prior.t, dtype=torch.float32, device=self.device))
+            else:
+                if c.estimate_poses:
+                    with record_function("track"), \
+                            Timing.time("odometry", device=self.device):
+                        base_T_frame = self.run_odometry(pyramid)
+                else:
+                    base_T_frame = se3.SE3(self._hist_q[2], self._hist_t[2])
+                global_T_frame = se3.mul(self.base_kf_global_T_frame, base_T_frame)
+            self.traj_q[frame_index] = global_T_frame.q
+            self.traj_t[frame_index] = global_T_frame.t
+            self.has_pose[frame_index] = True
+            self._hist_q = torch.cat([self._hist_q[1:], base_T_frame.q[None]])
+            self._hist_t = torch.cat([self._hist_t[1:], base_T_frame.t[None]])
+            self._hist_n += 1
+            self.video.set_pose(frame_index, global_T_frame)
+            self.last_frame_index = frame_index
 
         # Drain queued BA iterations between keyframes (parallel BA).
-        if drain:
-            self._drain_queued_ba(2, frame_index)
+        self._drain_queued_ba(2, frame_index)
 
         # Keyframe policy: every keyframe_interval-th processed frame
         # (bad_slam.cc:202-204), plus always the first.
@@ -380,8 +459,10 @@ class BadSlam:
                     self._keyframe_bundle_adjustment(opt_intr)
                     self._apply_ba_pose_updates(*old)
                 self._refresh_cameras()
-                # BA moved the keyframes: return the deformed pose.
-                return self.frame_pose(frame_index)
+                # BA moved the keyframes: return the deformed pose (a copy:
+                # the trajectory is a graph's static buffer on a card).
+                pose = self.frame_pose(frame_index)
+                return se3.SE3(pose.q.clone(), pose.t.clone())
         return global_T_frame
 
     def _keyframe_bundle_adjustment(self, opt_intr: bool) -> None:
@@ -437,25 +518,66 @@ class BadSlam:
             self._apply_ba_pose_updates(*old)
         self.ba_drain_frames.append(frame_index)
 
-    def _steady_run_length(self, i: int, end: int) -> int:
-        """The number of frames of the steady run starting at frame i, or 0.
-        A steady run is the keyframe_interval - 1 frames between two
-        keyframes, when nothing paces the loop (no pacing, no live viewer,
-        no live stream); the JAX package fuses it into one program and
-        drains the queued BA iterations once after it, up to 2 per frame of
-        the run (_process_chunk, chunk_eligible). The port keeps that
-        schedule, which decides the results, and processes the frames one
-        by one."""
+    def _chunk_len(self) -> int:
+        """The steady frames between two keyframes."""
+        return self.config.keyframe_interval - 1
+
+    def chunk_eligible(self, i: int, end: int) -> bool:
+        """Whether frames [i, i + chunk_len) are the steady frames between
+        two keyframes, to run as one chunk: chunking on, at least 2 frames,
+        the steady path, no pacing, no live viewer and no live stream
+        (badslam_tpu/frontend.py:794-809)."""
         c = self.config
-        n = c.keyframe_interval - 1
-        eligible = (
-            c.steady_frame_chunking and n >= 2 and self.input_level == 0
-            and c.estimate_poses and self.base_kf_id is not None
+        n = self._chunk_len()
+        return (
+            c.steady_frame_chunking and n >= 2
+            and self._steady_ok and c.estimate_poses
+            and self.base_kf_id is not None
             and self.live_viewer is None
             and c.fps_restriction <= 0 and c.target_frame_rate <= 0
             and not hasattr(self.video, "wait_for_frame")
-            and i + n <= end and (i - c.start_frame) % c.keyframe_interval == 1)
-        return n if eligible else 0
+            and i + n <= end
+            # the chunk must sit exactly between two keyframes
+            and (i - c.start_frame) % c.keyframe_interval == 1)
+
+    def _process_chunk(self, start: int, n: int, marks: list) -> None:
+        """Run the `n` steady frames from `start` as one chunk
+        (badslam_tpu/frontend.py:811-865): one batched upload of their raw
+        depth and color, then the steady frame of each, on a CUDA device
+        one graph replay per frame with no host read in between; then drain
+        the queued BA iterations once, up to 2 per frame of the chunk, after
+        the chunk's trajectory writes, so the drain's trajectory deformation
+        corrects the chunk's frames as the per-frame path's does. Appends
+        each frame's timed region to `marks`: the first frame's includes the
+        upload, the last frame's the drain."""
+        graph = self.steady_graph
+        depths = [self.video.depth_u16(start + j) for j in range(n)]
+        rgbs = [self.video.color_u8(start + j) for j in range(n)]
+        last = contextlib.ExitStack()
+        with Timing.time("frame chunk (fused)", device=self.device):
+            for j in range(n):
+                i = start + j
+                with contextlib.ExitStack() as frame_stack:
+                    # The last frame's region stays open through the drain.
+                    span = (last if j == n - 1 else frame_stack).enter_context(
+                        region(self.device))
+                    marks.append((i, span))
+                    if j == 0:
+                        with Timing.time("frame chunk upload", device=self.device):
+                            if graph is not None:
+                                batch = graph.upload_chunk(depths, rgbs)
+                            else:
+                                batch = (torch.from_numpy(np.stack(depths).astype(np.int32))
+                                         .to(self.device),
+                                         torch.from_numpy(np.stack(rgbs)).to(self.device))
+                    if graph is not None:
+                        graph.set_frame(batch[0][j], batch[1][j])
+                        self._steady_step(i)
+                    else:
+                        self._steady_step(i, batch[0][j], batch[1][j])
+        with last:
+            self._drain_queued_ba(2 * n, start + n - 1)
+        self.chunks_processed += 1
 
     def _keyframe_budget_guard(self) -> None:
         """Merge redundant keyframes when the store nears
@@ -876,29 +998,28 @@ class BadSlam:
         end = min(len(self.video), c.end_frame) if end is None else end
         marks = []
         preload = PreLoadThread(self.video)
-        run_last, run_n = start - 1, 0
         try:
-            for i in range(start, end):
+            i = start
+            while i < end:
                 self._wait_for_viewer()
                 t0 = time.perf_counter()
                 preload.wait_until_done()
-                if i + 1 < end:
-                    preload.preload(i + 1)
-                if i > run_last:
-                    run_n = self._steady_run_length(i, end)
-                    run_last = i + run_n - 1
-                in_run = i <= run_last
-
-                def step():
-                    self.process_frame(i, drain=not in_run)
-                    if in_run and i == run_last:
-                        self._drain_queued_ba(2 * run_n, i)
-
-                self._timed_step(i, step, marks)
-                self.video.clear_frame(i)
+                if self.chunk_eligible(i, end):
+                    step = self._chunk_len()
+                    if i + step < end:
+                        preload.preload(i + step)
+                    self._process_chunk(i, step, marks)
+                else:
+                    step = 1
+                    if i + 1 < end:
+                        preload.preload(i + 1)
+                    self._timed_step(i, lambda: self.process_frame(i), marks)
+                for j in range(i, i + step):
+                    self.video.clear_frame(j)
                 if progress:
                     dt = time.perf_counter() - t0
-                    print(f"frame {i}: {1.0 / max(dt, 1e-9):.1f} FPS", flush=True)
+                    print(f"frame {i}+{step}: {step / max(dt, 1e-9):.1f} FPS", flush=True)
+                i += step
                 # Pacing: fps_restriction caps playback at the given rate;
                 # target_frame_rate simulates the input sensor rate. Both
                 # sleep the remainder of the frame's budget.
@@ -916,6 +1037,7 @@ class BadSlam:
         # Apply the closures still in flight on the detection thread.
         self._drain_loop_detections()
         self._collect_frame_times(marks)
+        kernels.flush_launch_counts()
 
     def run_live(self, progress: bool = False) -> int:
         """Consume a live stream (io.live_inputs.LiveRGBDVideo): process
@@ -940,6 +1062,7 @@ class BadSlam:
             i += 1
         self._drain_loop_detections()
         self._collect_frame_times(marks)
+        kernels.flush_launch_counts()
         return i
 
     def export_trajectory(self, path: str) -> None:

@@ -34,6 +34,15 @@
   ``launch_tags[name]`` per tag: the shard whose work launched it on a
   multi-device mesh (``launch_tag``, set by ``parallel.mesh.on_shard``),
   else None.
+* Counts under CUDA-graph replay (``steady.SteadyFrameGraph``): a wrapper
+  runs once at capture, not at each replay. The capture records its
+  launches with ``count_into`` instead: those outside the graph's IF bodies
+  are added once per replay (``add_launches``, on the host), and those of
+  one body are added per body that ran, from a device counter the bodies
+  bump (``count_on_device``), read once by ``flush_launch_counts`` after a
+  run (``frontend.BadSlam.run`` and ``run_live`` call it;
+  ``reset_launch_counts`` calls it first). So the counts stay exact with no
+  host read per frame.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
@@ -71,6 +81,9 @@ GATHER_ONEHOT = "gather_onehot"
 # The CUDA source of each kernel, under csrc/.
 SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
            GATHER_ONEHOT: "gather.cu"}
+# Every source built into a library: the kernels' and the CUDA-graph IF
+# nodes' (ops/conditional.py).
+LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
 
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -88,10 +101,11 @@ build_seconds: Dict[str, float] = {}
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_source_locks = {source: threading.Lock() for source in set(SOURCES.values())}
+_source_locks = {source: threading.Lock() for source in LIBRARY_SOURCES}
 
 
 def reset_launch_counts() -> None:
+    flush_launch_counts()
     for name in launch_counts:
         launch_counts[name] = 0
         launch_shapes[name].clear()
@@ -109,10 +123,69 @@ def launch_tag(tag):
         _tag.value = old
 
 
+def _add(name: str, shape, tag, n: int) -> None:
+    launch_counts[name] += n
+    launch_shapes[name][shape] += n
+    launch_tags[name][tag] += n
+
+
 def _count(name: str, shape) -> None:
-    launch_counts[name] += 1
-    launch_shapes[name][shape] += 1
-    launch_tags[name][getattr(_tag, "value", None)] += 1
+    tag = getattr(_tag, "value", None)
+    into = getattr(_recording, "counter", None)
+    if into is not None:
+        into[(name, shape, tag)] += 1
+    else:
+        _add(name, shape, tag, 1)
+
+
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def count_into(counter: Counter):
+    """While in the block, this thread's launches go into `counter`, keyed
+    (name, shape, tag), instead of into the counts: what one replay of the
+    graph being captured launches."""
+    old = getattr(_recording, "counter", None)
+    _recording.counter = counter
+    try:
+        yield
+    finally:
+        _recording.counter = old
+
+
+def add_launches(recorded: Counter, times: int = 1) -> None:
+    """Add `times` times the launches of `recorded` (from count_into)."""
+    for (name, shape, tag), n in recorded.items():
+        _add(name, shape, tag, n * times)
+
+
+# Launches counted on the device: [owner (weak), int32 counter tensor, the
+# recorded launches of one unit per counter entry, units already added].
+_on_device: List[list] = []
+
+
+def count_on_device(owner, counter: torch.Tensor, per_unit: List[Counter]) -> None:
+    """Count `per_unit[i]` once for each unit that `counter[i]` (a device
+    int tensor that the graph bumps, starting at 0) holds, at the next
+    flush_launch_counts; `owner` (the graph) is held weakly."""
+    _on_device.append([weakref.ref(owner), counter, per_unit, [0] * len(per_unit)])
+
+
+def flush_launch_counts() -> None:
+    """Add the launches counted on the device since the last flush: one
+    read of each registered counter (a device sync). Entries whose owner is
+    gone are dropped once flushed."""
+    keep = []
+    for entry in _on_device:
+        owner, counter, per_unit, added = entry
+        units = counter.tolist()
+        for i, recorded in enumerate(per_unit):
+            add_launches(recorded, units[i] - added[i])
+            added[i] = units[i]
+        if owner() is not None:
+            keep.append(entry)
+    _on_device[:] = keep
 
 
 def _nvcc() -> str:
@@ -265,9 +338,8 @@ def build() -> None:
     use): one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    sources = sorted(set(SOURCES.values()))
-    with ThreadPoolExecutor(len(sources)) as pool:
-        for future in [pool.submit(_library, s) for s in sources]:
+    with ThreadPoolExecutor(len(LIBRARY_SOURCES)) as pool:
+        for future in [pool.submit(_library, s) for s in LIBRARY_SOURCES]:
             future.result()
 
 

@@ -6,16 +6,31 @@ gradient-magnitude residuals) between a base frame and a tracked frame,
 coarse-to-fine Gauss-Newton over an image pyramid.
 
 The JAX package runs the whole optimization in one jitted program with a
-``lax.while_loop`` early exit. Here PyTorch runs eagerly, so each
-Gauss-Newton level is a Python loop that reads the convergence flag once
-per iteration: one host sync per iteration, as the original CUDA tracker
-did when it solved each 6x6 step on the CPU. The iteration-count semantics
-are the JAX loop's: stop at `max_iterations` or on convergence.
+``lax.while_loop`` early exit (``badslam_tpu/tracking/pairwise.py:423-452``).
+Here one Gauss-Newton iteration (``_gn_step``) runs on device state (q, t
+and the convergence flag), and the caller picks the loop around it
+(`loop`):
+
+* ``"host"``: a Python loop that reads the convergence flag once per
+  iteration, one host sync each, as the original CUDA tracker did when it
+  solved each 6x6 step on the CPU. The CPU, the per-frame path and the
+  warm-up of a capture use it.
+* ``"masked"``: ``max_iterations`` steps, each frozen by ``torch.where``
+  once the flag is set: no host read, the same bits as the host loop. The
+  plain version of the device loop, for tests.
+* a ``DeviceLoop``: inside a CUDA-graph capture, the level's loop is one
+  WHILE node whose body is one step and whose condition, written by the
+  step, is "not converged and under ``max_iterations``", so the early exit
+  is decided on the card (``steady.SteadyFrameGraph``).
+
+All three stop at `max_iterations` or on convergence, the JAX loop's
+semantics.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from collections import Counter
+from typing import Dict, List, NamedTuple, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -23,7 +38,7 @@ from torch.profiler import record_function
 from badslam_torch.geometry import se3
 from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.geometry.linalg import solve_psd
-from badslam_torch.ops import robust
+from badslam_torch.ops import kernels, robust
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 from badslam_torch.ops.preprocess import normal_z, shift2d
 from badslam_torch.ops.pyramid import FramePyramidLevel
@@ -38,7 +53,24 @@ class TrackingResult(NamedTuple):
     t: torch.Tensor  # base_T_frame translation
     cost: torch.Tensor  # final-scale cost (diagnostic)
     residual_count: torch.Tensor
-    converged: bool  # finest level hit its convergence test
+    # Whether the finest level hit its convergence test: a bool from the
+    # host loop, a device bool tensor from the others.
+    converged: Union[bool, torch.Tensor]
+    # Gauss-Newton iterations run per scale (index = scale): ints from the
+    # host loop, device int32 scalars from the others.
+    iterations: tuple = ()
+
+
+class DeviceLoop(NamedTuple):
+    """The Gauss-Newton loop as WHILE nodes of a CUDA graph being captured
+    (see the module docstring). `nodes` is the capture's
+    ``ops.conditional.WhileNodes``; each run of a body adds one to
+    ``iterations[scale]`` (a device int32 [num_scales] that the caller
+    keeps), and the launches captured in the body of a scale go into
+    ``body_launches[scale]`` (``kernels.count_into``): one run's."""
+    nodes: object
+    iterations: torch.Tensor
+    body_launches: Dict[int, Counter]
 
 
 def _transform_planes(R: torch.Tensor, t: torch.Tensor, x, y, z):
@@ -371,40 +403,105 @@ def compute_cost_and_count(
                            use_gradmag)
 
 
+_CONSTANTS: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+
+def device_constants(device: torch.device) -> Dict[str, torch.Tensor]:
+    """The tracker's constant tensors on `device`, made once: the scale
+    vector of the convergence test and the 6x6 identity. Made while no graph
+    is being captured (a capture's warm-up runs the tracker first), since
+    building a constant from host values is a copy to the device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _CONSTANTS:
+        _CONSTANTS[device] = {
+            "conv_scale": torch.tensor(
+                [1.0, 1.0, 1.0] + [_SCALE_N_TRANS_THR / _SCALE_N_ROT_THR] * 3,
+                dtype=torch.float32, device=device),
+            "eye": torch.eye(6, dtype=torch.float32, device=device),
+        }
+    return _CONSTANTS[device]
+
+
 def _is_converged(x: torch.Tensor, scaling_factor: float) -> torch.Tensor:
     """Scale-N pose-estimation convergence test on a GN step x."""
-    scaled = x * x.new_tensor(
-        [1.0, 1.0, 1.0] + [_SCALE_N_TRANS_THR / _SCALE_N_ROT_THR] * 3)
+    scaled = x * device_constants(x.device)["conv_scale"]
     return torch.sum(scaled * scaled) < (
         scaling_factor * scaling_factor * _SCALE_N_TRANS_THR)
+
+
+def _gn_step(cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
+             use_depth, use_descriptor, use_gradmag):
+    """One Gauss-Newton iteration on the device: returns (q, t, converged)
+    with `converged` a device bool."""
+    H, b, count = accumulate_pose_coeffs(
+        cam, base, tracked, q, t, scaling_factor, baseline_fx,
+        use_depth, use_descriptor, use_gradmag,
+    )
+    # Guard the solve: with no residuals, keep the pose.
+    ok = count > 6
+    x = solve_psd(torch.where(ok, H, device_constants(q.device)["eye"]), b)
+    x = torch.where(ok & torch.isfinite(x).all(), x, 0.0)
+    q, t = se3.mul(se3.SE3(q, t), se3.exp(-damping * x))
+    return q, t, _is_converged(x, scaling_factor)
+
+
+HOST = "host"
+MASKED = "masked"
+Loop = Union[str, DeviceLoop]
 
 
 def _gn_level(
     cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
     use_depth, use_descriptor, max_iterations, use_gradmag=False,
+    loop: Loop = HOST, scale: int = 0,
 ):
-    """Gauss-Newton at one pyramid level with early exit. Reads the
-    convergence flag on the host once per iteration. Returns (q, t,
-    converged)."""
-    threshold_factor = scaling_factor
-    eye = torch.eye(6, dtype=q.dtype, device=q.device)
+    """Gauss-Newton at one pyramid level with early exit, under the loop
+    control `loop` (module docstring). Returns (q, t, converged,
+    iterations)."""
     span = f"gn_iteration/width{cam.width}"
-    it = 0
-    conv = False
-    while it < max_iterations and not conv:
+
+    def step(q, t):
         with record_function(span):
-            H, b, count = accumulate_pose_coeffs(
-                cam, base, tracked, q, t, threshold_factor, baseline_fx,
-                use_depth, use_descriptor, use_gradmag,
-            )
-            # Guard the solve: with no residuals, keep the pose.
-            ok = count > 6
-            x = solve_psd(torch.where(ok, H, eye), b)
-            x = torch.where(ok & torch.isfinite(x).all(), x, 0.0)
-            q, t = se3.mul(se3.SE3(q, t), se3.exp(-damping * x))
-            conv = bool(_is_converged(x, scaling_factor))
-        it += 1
-    return q, t, conv
+            return _gn_step(cam, base, tracked, q, t, scaling_factor, damping,
+                            baseline_fx, use_depth, use_descriptor, use_gradmag)
+
+    if loop == HOST:
+        it, conv = 0, False
+        while it < max_iterations and not conv:
+            q, t, c = step(q, t)
+            conv = bool(c)
+            it += 1
+        return q, t, conv, it
+    if loop == MASKED:
+        conv = torch.zeros((), dtype=torch.bool, device=q.device)
+        it = torch.zeros((), dtype=torch.int32, device=q.device)
+        for _ in range(max_iterations):
+            nq, nt, c = step(q, t)
+            q = torch.where(conv, q, nq)
+            t = torch.where(conv, t, nt)
+            it = it + (~conv).to(torch.int32)
+            conv = conv | c
+        return q, t, conv, it
+    if not isinstance(loop, DeviceLoop):
+        raise ValueError(f"unknown Gauss-Newton loop control {loop!r}")
+    # The state lives in buffers made outside the body, which updates them
+    # in place; `running` is the WHILE node's condition.
+    q, t = q.clone(), t.clone()
+    running = torch.full((), max_iterations > 0, dtype=torch.bool, device=q.device)
+    conv = torch.zeros((), dtype=torch.bool, device=q.device)
+    it = torch.zeros((), dtype=torch.int32, device=q.device)
+    launches = loop.body_launches.setdefault(scale, Counter())
+    with loop.nodes.while_(running), kernels.count_into(launches):
+        nq, nt, c = step(q, t)
+        q.copy_(nq)
+        t.copy_(nt)
+        conv.copy_(c)
+        it.add_(1)
+        loop.iterations[scale].add_(1)
+        running.copy_(~c & (it < max_iterations))
+    return q, t, conv, it
 
 
 def _duel(cam, base, tracked, qa, ta, qb, tb, threshold_factor, baseline_fx,
@@ -437,6 +534,7 @@ def track_frame_pairwise(
     test_two_initial_estimates: bool = False,
     max_iterations: int = 30,
     use_pyramid_level_0: bool = True,
+    loop: Loop = HOST,
 ) -> TrackingResult:
     """Estimate base_T_frame aligning `tracked` to `base`, coarse to fine.
 
@@ -444,12 +542,14 @@ def track_frame_pairwise(
     estimates are base_T_frame (e.g. from the constant-motion model). The
     coarsest scale duels the two estimates only when
     `test_two_initial_estimates`; every finer scale duels the current pose
-    against the one chosen at the coarsest scale.
+    against the one chosen at the coarsest scale. `loop` is the
+    Gauss-Newton loop control (module docstring).
     """
     num_scales = len(cams)
     q, t = init1_q, init1_t
     chosen_q, chosen_t = init1_q, init1_t
     converged = False
+    iterations: List = [0] * num_scales
 
     finest = 0 if use_pyramid_level_0 else 1
     for scale in range(num_scales - 1, finest - 1, -1):
@@ -479,9 +579,10 @@ def track_frame_pairwise(
                 use_gradmag,
             )
 
-        q, t, converged = _gn_level(
+        q, t, converged, iterations[scale] = _gn_level(
             cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
             use_depth, use_descriptor, max_iterations, use_gradmag,
+            loop=loop, scale=scale,
         )
 
     cost, count = compute_cost_and_count(
@@ -490,4 +591,4 @@ def track_frame_pairwise(
         use_gradmag,
     )
     return TrackingResult(q=q, t=t, cost=cost, residual_count=count,
-                          converged=converged)
+                          converged=converged, iterations=tuple(iterations))

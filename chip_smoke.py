@@ -41,6 +41,22 @@ failure, so any failure exits non-zero before the last line is printed):
    under the CLI's `--profile`, which writes DIR/profile_summary.json
    (spans, BA stages, kernel launches and device time) and
    DIR/key_averages.txt; the summary's totals are printed.
+   Phase steady, after the slice: every SLAM phase runs the steady frame
+   (each tracked frame at input level 0) as one replay of a captured CUDA
+   graph, the Gauss-Newton early exit in WHILE nodes, and the frames between
+   two keyframes as one chunk of replays. This phase runs the slice's
+   frames through BadSlam.run once with the graphs and once with the eager
+   call of the same steady-frame function and its host-read loop, in this
+   process: poses equal (max |dq|, |dt| within 1e-6), K1 once per frame and
+   the same K2 launches and Gauss-Newton iterations in both, every steady
+   frame replayed, chunks run; prints the steady-frame, keyframe and
+   BA-drain medians of each, GN iterations per frame, launches, peak memory,
+   each graph's capture and instantiate seconds, nodes and pool memory;
+   then on each path the slice with BA off: frames 11-19 as a chunk, timed
+   (the host's wall time, the card's span between CUDA events, with graphs
+   the kernel nodes the card ran), and frames 21-23 as a chunk under
+   torch.profiler (kernels and kernel time as it sees them, host launches,
+   graph replays), per frame.
 6. The odometry path: the first 10 frames with BA off; K1 once per frame,
    ATE below 1e-3 m.
 7. The card against the CPU: a 160x120, 13-frame BA sequence on both
@@ -174,7 +190,9 @@ failure, so any failure exits non-zero before the last line is printed):
    odometry run against a store holding the tile the VGA tuning did not
    keep: all 10 frames take it, with the same poses.
 26. The nvidia-smi line again, one JSON line of the kernels, then the last
-   line {"ok": true, "device": {...}}.
+   line {"ok": true, "device": {...}}. Launches are exact under graph
+   replay (badslam_torch/ops/kernels.py): the counts a run reports are
+   those of the kernels the card ran.
 
 Each of phases 8-25 prints the card's name and power limit beside its
 numbers. Every phase before 25 launches K1 with its default tile, and the
@@ -752,6 +770,136 @@ def phase_slice(workdir: str) -> tuple:
     return data, launches, q, t, summary
 
 
+STEADY_ATOL = 1e-6
+
+
+def _steady_run(data: str, graph: bool) -> dict:
+    """The slice's frames and flags through BadSlam.run on cuda: with the
+    steady frame's CUDA graphs, or (graph false) with the same steady-frame
+    function called eagerly with the host-read Gauss-Newton loop."""
+    config = cli.config_from_args(cli.build_parser().parse_args([data, *SLICE_FLAGS]))
+    slam = BadSlam(config, load_tum_dataset(data), "cuda")
+    if not graph:
+        slam.steady_graph = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    frame_ms = dict(slam.frame_times_ms)
+    kf, drain = set(slam.keyframe_frames), set(slam.ba_drain_frames)
+    steady = [frame_ms[i] for i in sorted(frame_ms)[1:] if i not in kf and i not in drain]
+    out = dict(
+        slam=slam, wall=wall, launches=launches, q=slam.traj_q.cpu().numpy(),
+        t=slam.traj_t.cpu().numpy(), steady_ms=statistics.median(steady),
+        keyframe_ms=statistics.median([frame_ms[i] for i in slam.keyframe_frames[1:]]),
+        drain_ms=statistics.median([frame_ms[i] for i in drain - kf]),
+        gn_per_frame=slam.steady_gn_iterations() / (len(frame_ms) - 1),
+        peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+        chunks=slam.chunks_processed)
+    return out
+
+
+def _steady_window(data: str, graph: bool) -> dict:
+    """Steady frames alone, with the graphs (`graph`) or the eager call: the
+    slice's frames with BA off, run to frame 10 (the graphs captured), then
+    frames 11-19 as one chunk, timed: the host's wall time from the first
+    enqueue to the card's end and the card's span between CUDA events
+    around it; with graphs, the kernel nodes the card ran (node counts x
+    body runs). Then keyframe 20, and frames 21-23 as a chunk under
+    torch.profiler: the kernels and their device time as the profiler sees
+    them, host launches and graph replays. All per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = cli.build_parser().parse_args(
+        [data, *SLICE_FLAGS, "--max_num_ba_iterations_per_keyframe", "0"])
+    slam = BadSlam(cli.config_from_args(args), load_tum_dataset(data), "cuda")
+    if not graph:
+        slam.steady_graph = None
+    slam.run(0, 11)
+    nodes0 = slam.steady_graph.kernel_nodes_run() if graph else 0
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start_ev.record()
+    slam._process_chunk(11, 9, [])
+    end_ev.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 9
+    nodes_run = (slam.steady_graph.kernel_nodes_run() - nodes0) / 9 if graph else None
+    slam.process_frame(20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slam._process_chunk(21, 3, [])
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels_ = [e for e in events if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    host = sum(e.count for e in events if e.device_type.name == "CPU" and e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    return dict(
+        wall_ms=wall_ms, span_ms=start_ev.elapsed_time(end_ev) / 9, nodes_run=nodes_run,
+        profiled_kernels=sum(e.count for e in kernels_) / 3,
+        profiled_kernel_ms=sum(e.self_device_time_total for e in kernels_) / 1e3 / 3,
+        host_launches=host / 3,
+        replays=sum(e.count for e in events if e.key == "cudaGraphLaunch") / 3)
+
+
+def phase_steady(data: str) -> None:
+    """The steady frame as one CUDA graph per frame against the eager call
+    of the same function with the host-read loop, on the slice's frames;
+    then the steady frames alone on each path (_steady_window)."""
+    runs = {"graph": _steady_run(data, True), "eager": _steady_run(data, False)}
+    g, e = runs["graph"], runs["eager"]
+    replays = g["slam"].steady_graph.replays
+    windows = {k: _steady_window(data, k == "graph") for k in ("graph", "eager")}
+    dq, dt = float(np.abs(g["q"] - e["q"]).max()), float(np.abs(g["t"] - e["t"]).max())
+    caps = g["slam"].steady_graph.captures
+    print(f"steady ({SMI}): {FRAMES} VGA frames, graph / eager host loop: steady-frame "
+          f"median {g['steady_ms']:.3f} / {e['steady_ms']:.3f} ms, keyframe frames "
+          f"{g['keyframe_ms']:.3f} / {e['keyframe_ms']:.3f} ms, BA-drain frames "
+          f"{g['drain_ms']:.3f} / {e['drain_ms']:.3f} ms; wall {g['wall']:.2f} / "
+          f"{e['wall']:.2f} s; chunks {g['chunks']} / {e['chunks']}; max |dq| {dq:.3e}, "
+          f"|dt| {dt:.3e} (atol {STEADY_ATOL}); GN iterations per frame "
+          f"{g['gn_per_frame']:.2f} / {e['gn_per_frame']:.2f}; launches {g['launches']} / "
+          f"{e['launches']}; peak memory {g['peak_mib']:.1f} / {e['peak_mib']:.1f} MiB")
+    gw, ew = windows["graph"], windows["eager"]
+    print(f"  steady frames 11-19 with BA off, per frame, graph / eager: wall "
+          f"{gw['wall_ms']:.3f} / {ew['wall_ms']:.3f} ms, the card's span "
+          f"{gw['span_ms']:.3f} / {ew['span_ms']:.3f} ms; graph: {gw['nodes_run']:.1f} kernel "
+          f"nodes run (node counts x body runs), the card on the graphs "
+          f"{100 * gw['span_ms'] / gw['wall_ms']:.1f}% of the wall time; eager: kernel time "
+          f"{ew['profiled_kernel_ms']:.3f} ms, the card busy "
+          f"{100 * ew['profiled_kernel_ms'] / ew['wall_ms']:.1f}% of the wall time; frames "
+          f"21-23 under torch.profiler, graph / eager: {gw['profiled_kernels']:.1f} / "
+          f"{ew['profiled_kernels']:.1f} kernels seen, {gw['profiled_kernel_ms']:.3f} / "
+          f"{ew['profiled_kernel_ms']:.3f} ms kernel time, {gw['host_launches']:.1f} / "
+          f"{ew['host_launches']:.1f} host launches, {gw['replays']:.1f} / "
+          f"{ew['replays']:.1f} graph replays")
+    for c in caps:
+        print(f"  graph (test_two {c['test_two']}): capture {c['capture_s']:.3f} s, "
+              f"instantiate {c['instantiate_s']:.3f} s, {c['nodes']} nodes "
+              f"({c['kernel_nodes']} kernel nodes: {c['top_kernel_nodes']} outside the "
+              f"bodies of its {c['while_nodes']} WHILE nodes, per body by scale "
+              f"{c['body_kernel_nodes']}), {c['replays']} replays, pools "
+              f"{c['reserved_mib']:.1f} MiB")
+    checks = {
+        "graph poses equal the eager call's": dq <= STEADY_ATOL and dt <= STEADY_ATOL,
+        "K1 once per frame in both": (g["launches"][kernels.BILATERAL]
+                                      == e["launches"][kernels.BILATERAL] == FRAMES),
+        "K2 launches equal": g["launches"][kernels.GATHER] == e["launches"][kernels.GATHER] > 0,
+        "every steady frame replayed": replays == FRAMES - 1,
+        "chunks ran": g["chunks"] == e["chunks"] > 0,
+        "GN iterations equal": g["gn_per_frame"] == e["gn_per_frame"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"steady checks failed: {failed}")
+
+
 def phase_profile(data: str, out_dir: str) -> None:
     """The slice once more under the CLI's --profile (timings there carry
     the profiler's overhead; counts are exact)."""
@@ -1245,7 +1393,8 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
           f"gate {sum(a['consistent'] and not a['needed'] for a in attempts)}, before the gates "
           f"{len(probe.attempts) - len(attempts)}): {attempts}; ATE on {ate_on:.4f} m, off "
           f"{ate_off:.4f} m (ratio {ate_on / ate_off:.3f}, limit {LOOP_ATE_RATIO}); endpoint "
-          f"error {endpoint:.4f} m (limit {LOOP_ENDPOINT_M}); ({SMI})")
+          f"error {endpoint:.4f} m (limit {LOOP_ENDPOINT_M}); Gauss-Newton iterations per "
+          f"steady frame {slam.steady_gn_iterations() / (LOOP_FRAMES - 1):.2f}; ({SMI})")
     print(f"loop: features per keyframe {det.feature_counts}; worker ms per keyframe "
           f"{_ms_summary(probe.thread.worker_ms if probe.thread else [])}; by stage {stage}; "
           f"drain waits {_ms_summary(probe.waits_ms)}; per closure attempt "
@@ -2091,6 +2240,7 @@ def main(argv=None) -> int:
         try:
             data, slice_launches, q_slice, t_slice, slice_summary = _phase(
                 "slice", phase_slice, workdir)
+            _phase("steady", phase_steady, data)
             if profile_dir:
                 _phase("profile", phase_profile, data, profile_dir)
             q_odo, t_odo = _phase("odometry", phase_odometry, workdir, data)

@@ -36,6 +36,10 @@ Tolerances:
     holds for another float order; surfel counts within 1%), and
     DirectBA's integrated and streamed calls (poses atol 1e-4, the same
     iterations, surfel counts within 1%).
+  * the steady frame's CUDA graph replays against the eager call of the
+    same function with the host-read loop on the card: poses atol 1e-6
+    (the same kernels on the same inputs; measured 0), the same
+    Gauss-Newton iterations and the same launches.
 """
 
 import json
@@ -731,3 +735,143 @@ def test_timing_regions_add_no_synchronization(cuda):
     assert Timing.stats("inner").count == Timing.stats("outer").count == 50
     assert Timing.stats("outer").total >= Timing.stats("inner").total > 0
     Timing.reset()
+
+
+@pytest.mark.cuda
+def test_while_node_runs_its_body_while_the_flag_holds(cuda):
+    """A WHILE node captured around PyTorch work: its body runs until the
+    flag it writes is false (a count chosen on the card), and not at all
+    when the flag starts false."""
+    from badslam_torch.ops.conditional import WhileNodes
+
+    limit = torch.zeros((), dtype=torch.int32, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    total = torch.zeros(1000, device=cuda)
+    start = torch.zeros((), dtype=torch.bool, device=cuda)
+    nodes = WhileNodes(cuda)
+    stream = torch.cuda.Stream(cuda)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        count.zero_()
+        total.zero_()
+        flag = start.clone()
+        with nodes.while_(flag):
+            total.add_(torch.ones_like(total) * 2.0)
+            count.add_(1)
+            flag.copy_(count < limit)
+        graph.capture_end()
+    graph.instantiate()
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    assert nodes.count == 1 and nodes.body_node_counts()[1] >= 3
+    for n, first in ((7, True), (1, True), (5, False)):
+        limit.fill_(n)
+        start.fill_(first)
+        graph.replay()
+        torch.cuda.synchronize()
+        runs = n if first else 0
+        assert int(count) == runs and float(total[0]) == 2.0 * runs
+
+
+def _steady_sequence(tmp_path, frames=16):
+    path = str(tmp_path / "steady_seq")
+    synthetic.write_tum_dataset(
+        path, synthetic.default_camera(160, 120),
+        synthetic.random_plane_scene(np.random.default_rng(5), 6),
+        synthetic.smooth_trajectory(frames, scale=0.003))
+    return path
+
+
+def _steady_slam(path, device, graph=True, **kw):
+    """A front end on a 160x120 sequence with keyframes every 6 frames; with
+    `graph` false the steady frames call the same function eagerly with the
+    host-read loop."""
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch.frontend import BadSlam
+    from badslam_torch.io.dataset import load_tum_dataset
+
+    config = BadSlamConfig(num_scales=4, keyframe_interval=6, max_surfel_count=1 << 14,
+                           enable_loop_detection=False, fps_restriction=0, **kw)
+    slam = BadSlam(config, load_tum_dataset(path), device)
+    if not graph:
+        slam.steady_graph = None
+    return slam
+
+
+@pytest.mark.cuda
+def test_steady_graph_replay_matches_eager_call(cuda, tmp_path):
+    """Every frame after the first as a replay of the steady frame's CUDA
+    graphs (two chunks of 5 frames and the keyframe frames, parallel BA),
+    against the eager call of the same function with the host-read loop:
+    equal poses, equal Gauss-Newton iterations and exact launch counts (K1
+    once per frame, K2 as often as the eager run)."""
+    path = _steady_sequence(tmp_path, frames=13)
+    runs = []
+    for graph in (True, False):
+        slam = _steady_slam(path, cuda, graph)
+        kernels.reset_launch_counts()
+        slam.run()
+        runs.append((slam, dict(kernels.launch_counts)))
+    (g, lg), (e, le) = runs
+    assert g.steady_graph.replays == 12 and g.chunks_processed == e.chunks_processed == 2
+    torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
+    assert lg[kernels.BILATERAL] == le[kernels.BILATERAL] == 13
+    assert lg[kernels.GATHER] == le[kernels.GATHER] > 0
+    assert g.steady_gn_iterations() == e.steady_gn_iterations() > 0
+    caps = g.steady_graph.captures
+    assert [c["test_two"] for c in caps] == [False, True]
+    assert all(c["while_nodes"] == 4 and c["nodes"] > c["kernel_nodes"] > 0 for c in caps)
+
+
+@pytest.mark.cuda
+def test_steady_frames_make_no_host_sync(cuda, tmp_path):
+    """With its graphs captured, a chunk of steady frames and single steady
+    frames run under torch.cuda.set_sync_debug_mode("error"): no read, no
+    synchronizing copy (BA off, so nothing else runs between them)."""
+    slam = _steady_slam(_steady_sequence(tmp_path), cuda,
+                        max_num_ba_iterations_per_keyframe=0)
+    marks = []
+    slam.process_frame(0)
+    slam._process_chunk(1, 5, marks)  # captures both graphs
+    slam.process_frame(6)  # a keyframe
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam._process_chunk(7, 5, marks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    slam.process_frame(12)  # a keyframe
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in (13, 14, 15):
+            slam.process_frame(i)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert slam.has_pose[:16].all() and len(slam.steady_graph.captures) == 2
+    assert slam.steady_graph.replays == 15
+    assert np.isfinite(slam.traj_t.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_steady_graph_recaptures_on_new_intrinsics(cuda, tmp_path):
+    """A new camera (as self-calibration sets one) captures the steady frame
+    anew, since the intrinsics are baked into the graph; the replays then
+    equal the eager call with the new camera."""
+    path = _steady_sequence(tmp_path)
+    slams = [_steady_slam(path, cuda, graph, max_num_ba_iterations_per_keyframe=0)
+             for graph in (True, False)]
+    for slam in slams:
+        for i in range(4):
+            slam.process_frame(i)
+        c = slam.cam
+        slam.cam = c.with_intrinsics(c.fx * 1.002, c.fy, c.cx + 0.5, c.cy)
+        slam.cams_pyramid = tuple(slam.cam.pyramid_level(s) for s in range(4))
+        for i in range(4, 6):
+            slam.process_frame(i)
+    g, e = slams
+    assert [c["test_two"] for c in g.steady_graph.captures] == [False, True, True]
+    torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)

@@ -41,9 +41,9 @@ from test_torch_mapping import DEV, Pair
 torch.set_num_threads(1)
 
 POSE_ATOL = 1e-4
-# The JAX package's timers of its fused steady-frame program and scan
-# chunks, which the port does not have (badslam_torch/frontend.py).
-TPU_SHAPE_TIMERS = {"frame (fused)", "frame chunk (fused)", "frame chunk upload"}
+# The timers of the steady frame and its chunks (badslam_torch/steady.py),
+# the JAX package's names for its fused program and scan chunks.
+STEADY_TIMERS = {"frame (fused)", "frame chunk (fused)", "frame chunk upload"}
 STAGES = ("BA_surfel_creation", "BA_surfel_activation", "BA_geometry_optimization",
           "BA_surfel_merge", "BA_surfel_compaction", "BA_pose_optimization")
 CLI_FLAGS = ["--num_scales", "3", "--max_surfel_count", str(1 << 13),
@@ -268,19 +268,20 @@ def test_save_timings_rows(port_run):
     report = staged["report"].splitlines()
     assert report[0] == JTiming.report().splitlines()[0]
     names = {line[:44].rstrip() for line in report[1:]}
-    assert {"BA pose optimization", "bundle adjustment", "odometry",
-            "preprocessing"} <= names
+    # The first frame takes the per-frame path, every later frame the
+    # steady frame (frames 1-5 as one chunk), as in the JAX package.
+    assert {"BA pose optimization", "bundle adjustment", "preprocessing"} | STEADY_TIMERS <= names
+    assert "odometry" not in names
     assert "BA iterations (fused)" not in names
 
 
 def test_cli_rows_and_timers_match_jax_cli(tmp_path):
     """Both CLIs on one 7-frame sequence at input pyramid level 1 (128x96
     frames processed at 64x48: the JAX package then takes its per-frame
-    path, the one the port has) over two scales, with loop detection on its
-    worker thread, --sync_stage_profiling true, --save_timings and
-    --export_final_timings: the same rows, poses within 1e-4, and the
-    port's timer names are the JAX package's less its three steady-frame
-    program timers."""
+    path) over two scales, with loop detection on its worker thread,
+    --sync_stage_profiling true, --save_timings and --export_final_timings:
+    the same rows, poses within 1e-4, and the same timer names, none of the
+    steady frame's."""
     path = str(tmp_path / "dataset")
     _write_sequence(path, 128, 96, frames=7)
     flags = ["--num_scales", "2", *CLI_FLAGS[2:], "--pyramid_level_for_depth", "1",
@@ -309,7 +310,7 @@ def test_cli_rows_and_timers_match_jax_cli(tmp_path):
     jnames, tnames = names(out["jax"]["report"]), names(out["torch"]["report"])
     assert {"preprocessing", "odometry", "BA surfel creation",
             "loop detection (worker thread)"} <= jnames
-    assert tnames == jnames - TPU_SHAPE_TIMERS
+    assert tnames == jnames and not tnames & STEADY_TIMERS
 
 
 def test_mesh_timing_rows(port_run):
