@@ -11,11 +11,11 @@ kernel_opt_geometry.cc:80-201). Two sub-steps per BA iteration:
       Gauss-Newton system summed over keyframes, then a closed-form
       Cholesky solve per surfel.
 
-Keyframes are taken in batches of up to ``KEYFRAME_BATCH`` ([C, N]
-fields); only the keyframes of the operation's mask are visited, which
-changes nothing but the order of the float sums (masked-out keyframes
-contribute exact zeros in the JAX package). Averaged normals are
-re-normalized to unit length, as there.
+Keyframes are taken in fixed blocks of ``KEYFRAME_BATCH`` slots
+(``static_blocks``; [C, N] fields) with the operation's mask carried
+along: a keyframe outside the mask contributes exact zeros, as in the JAX
+package's fixed chunks, and no pass reads the mask back to the host.
+Averaged normals are re-normalized to unit length, as there.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from badslam_torch.geometry import se3
 from badslam_torch.geometry.linalg import rotate3
 from badslam_torch.mapping.association import (
     associate_surfels_with_frame,
+    hits,
     tangent_projections,
 )
-from badslam_torch.mapping.keyframes import KeyframeStack, keyframe_batches
+from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
 from badslam_torch.ops import robust
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 from badslam_torch.ops.preprocess import normal_z
@@ -111,8 +112,7 @@ def update_activation_and_normals(smap, cam, kstack: KeyframeStack,
     mask alone, which is exact: a surfel's association does not depend on
     its active flag."""
     carry = _act_normals_init(smap)
-    visit = participating | active_strict if update_normals else active_strict
-    for s in keyframe_batches(visit):
+    for s in static_blocks(kstack.q.shape[0]):
         carry = _act_normals_chunk(carry, kstack.rows(s), active_strict[s],
                                    participating[s], smap, cam, baseline_fx,
                                    update_normals)
@@ -125,9 +125,10 @@ def _normals_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
     nsum, cnt = carry
     _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
                         b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
+    hit = hits(a, b.mask)
     gn = _measured_normals(b.q, b.nx, b.ny, a)
-    return (nsum + torch.where(a.valid[..., None], gn, 0.0).sum(dim=0),
-            cnt + a.valid.sum(dim=0))
+    return (nsum + torch.where(hit[..., None], gn, 0.0).sum(dim=0),
+            cnt + hit.sum(dim=0))
 
 
 def _normals_finish(smap, carry):
@@ -140,7 +141,7 @@ def update_surfel_normals(smap, cam, kstack: KeyframeStack, baseline_fx: float):
     keyframes of kstack.mask."""
     _, nsum, cnt = _act_normals_init(smap)
     carry = (nsum, cnt)
-    for s in keyframe_batches(kstack.mask):
+    for s in static_blocks(kstack.q.shape[0]):
         carry = _normals_chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
     return _normals_finish(smap, carry)
 
@@ -177,7 +178,7 @@ def _pos1d_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
     _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
                         b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
     r, J = _depth_residual(cam, a, smap.pos.dtype)
-    w = torch.where(a.valid, robust.depth_residual_weight(r), 0.0)
+    w = torch.where(hits(a, b.mask), robust.depth_residual_weight(r), 0.0)
     return H + torch.sum(w * J * J, dim=0), bb + torch.sum(w * r * J, dim=0)
 
 
@@ -194,7 +195,7 @@ def _pos3d_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth):
     H00, H01, H02, H11, H12, H22, b0, b1, b2 = carry
     ftg, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
                           b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
-    hit = a.valid
+    hit = hits(a, b.mask)
     if use_depth:
         r, Jd = _depth_residual(cam, a, dtype)
         w = torch.where(hit, robust.depth_residual_weight(r), 0.0)
@@ -257,7 +258,7 @@ def _position_step(smap, cam, kstack: KeyframeStack, baseline_fx: float,
     """Sum the per-surfel position (+descriptor) Gauss-Newton system over
     the masked keyframes and solve it."""
     carry = _pos_init(smap, use_descriptor)
-    for s in keyframe_batches(kstack.mask):
+    for s in static_blocks(kstack.q.shape[0]):
         carry = _pos_chunk(carry, kstack.rows(s), smap, cam, baseline_fx,
                            use_depth, use_descriptor)
     return _pos_finish(smap, carry, use_descriptor)

@@ -44,6 +44,7 @@ from badslam_torch.mapping.association import (
 )
 from badslam_torch.mapping.keyframes import KeyframeStack, keyframe_batches
 from badslam_torch.ops import robust
+from badslam_torch.ops.conditional import HOST
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 
 DIAG_EPSILON = 1e-8  # kDiagEpsilon (kernel_pcg.cu:44)
@@ -404,15 +405,17 @@ def pcg_bundle_adjustment(direct_ba, max_iterations: int = 10,
     c = direct_ba.config
     if ks.count == 0:
         return
-    ids = torch.nonzero(ks.valid[: ks.count]).flatten().tolist()
-    smap = direct_ba._working_map(len(ids) if do_surfel_updates else 0)
+    slots = direct_ba._store_slots(ks.count)
+    smap = direct_ba._working_map(ks.live_count if do_surfel_updates else 0)
     smap = smap._replace(active=smap.valid)
     for it in range(max_iterations):
         with direct_ba.pcg_spans.span(), record_function("ba/pcg_iteration"):
             kstack = ks.stack(ks.valid)
             if do_surfel_updates:
                 if it == 0:
-                    smap, _ = direct_ba._create_surfels(smap, ids)
+                    smap, _ = direct_ba._create_surfels(
+                        smap, slots, kstack, slots.valid, direct_ba.min_observation_count(),
+                        HOST)
                     # Creation appends after the compact prefix: every valid
                     # surfel now lies in [0, count).
                     smap = sf.prefix(smap, int(smap.count))
@@ -440,6 +443,7 @@ def pcg_bundle_adjustment(direct_ba, max_iterations: int = 10,
         direct_ba.cg_steps.append(result.cg_steps)
     if do_surfel_updates:
         # Scheme-end tasks of the PCG path: merge and compact.
-        smap = sf.compact_surfels(direct_ba._merge_surfels(smap, ids))
+        smap = sf.compact_surfels(direct_ba._merge_surfels(
+            smap, ks.stack(ks.valid), slots.valid, HOST))
     direct_ba.surfels = sf.write_back(direct_ba.surfels, smap)
     direct_ba.iterations_run.append(max_iterations)

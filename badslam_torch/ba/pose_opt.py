@@ -6,13 +6,17 @@ kernel_opt_pose.cu:251-420): Gauss-Newton on each keyframe's 6-DoF pose
 with depth (point-to-plane, Tukey) and descriptor (tangent-point intensity,
 Huber) residuals over all surfels.
 
-The keyframes run in batches of up to ``KEYFRAME_BATCH``, each batch in
-lockstep: every Gauss-Newton step associates all surfels with all the
-batch's keyframes at once ([C, N] fields) and solves C 6x6 systems. A
-keyframe whose own loop has ended (converged, or 30 steps) keeps its pose
-while the others go on, exactly as the JAX package's vmapped while_loop.
-The loop reads one flag per step back to the host, as the CUDA original
-did.
+The keyframes run in fixed blocks of ``KEYFRAME_BATCH`` slots
+(``static_blocks``, the JAX package's chunks), each block in lockstep:
+every Gauss-Newton step associates all surfels with all the block's
+keyframes at once ([C, N] fields) and solves C 6x6 systems. Only the
+keyframes of the mask run; one whose own loop has ended (converged, or 30
+steps) keeps its pose while the others go on, exactly as the JAX
+package's vmapped while_loop. The block's loop runs while any of its
+keyframes runs, under a loop control (``ops.conditional``): the host loop
+(one flag read back per step, as the CUDA original did), the masked plain
+version (every step, no read) or, inside a captured CUDA graph, one WHILE
+node per block, so the card decides each block's exit.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ from badslam_torch.mapping.association import (
     associate_surfels_with_frame,
     tangent_projections,
 )
-from badslam_torch.mapping.keyframes import KeyframeStack, keyframe_batches
+from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
 from badslam_torch.ops import robust
+from badslam_torch.ops.conditional import HOST, Control, loop
 from badslam_torch.ops.interp import bilinear_and_gradient
 
 # Scale-1 convergence thresholds (convergence_analysis.h:45-52).
@@ -129,43 +134,50 @@ class PoseOptResult(NamedTuple):
     moved: torch.Tensor  # [K] bool: pose changed beyond the scale-1 threshold
 
 
-def _estimate_poses(smap, cam, q, t, depth, f_nx, f_ny, intensity,
-                    baseline_fx, use_depth, use_descriptor, max_iterations):
-    """The Gauss-Newton loops of a batch of C keyframes, in lockstep; each
-    keyframe stops updating when its own loop ends."""
-    running = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
-    eye = torch.eye(6, dtype=torch.float32, device=q.device)
-    for _ in range(max_iterations):
-        H, b, count = surfel_pose_coeffs(
-            smap, cam, q, t, depth, f_nx, f_ny, intensity, baseline_fx,
+def _estimate_poses(smap, cam, b: KeyframeStack, baseline_fx, use_depth,
+                    use_descriptor, max_iterations, control: Control = HOST):
+    """The Gauss-Newton loops of a block of C keyframes, in lockstep, for
+    the keyframes of b.mask; each keyframe stops updating when its own loop
+    ends, and the block's loop when all have ended."""
+    eye = torch.eye(6, dtype=torch.float32, device=b.q.device)
+
+    def running_any(state):
+        return state[2].any()
+
+    def step(state):
+        q, t, running = state
+        H, rhs, count = surfel_pose_coeffs(
+            smap, cam, q, t, b.depth, b.nx, b.ny, b.intensity, baseline_fx,
             use_depth, use_descriptor)
         ok = count > 6
-        x = solve_psd(torch.where(ok[:, None, None], H, eye), b)
+        x = solve_psd(torch.where(ok[:, None, None], H, eye), rhs)
         x = torch.where((ok & torch.all(torch.isfinite(x), dim=-1))[:, None],
                         x, 0.0)
         upd = se3.mul(se3.SE3(q, t), se3.exp(-x))
-        q = torch.where(running[:, None], upd.q, q)
-        t = torch.where(running[:, None], upd.t, t)
-        running = running & ~is_scale1_converged(x)
-        if not bool(running.any()):
-            break
+        return (torch.where(running[:, None], upd.q, q),
+                torch.where(running[:, None], upd.t, t),
+                running & ~is_scale1_converged(x))
+
+    (q, t, _), _ = loop(control, (b.q, b.t, b.mask), running_any, step,
+                        most=max_iterations, name="pose")
     return q, t
 
 
 def optimize_keyframe_poses(smap, cam, kstack: KeyframeStack,
                             baseline_fx: float = 40.0, use_depth: bool = True,
                             use_descriptor: bool = True,
-                            max_iterations: int = 30) -> PoseOptResult:
+                            max_iterations: int = 30,
+                            loop: Control = HOST) -> PoseOptResult:
     """Optimize every masked keyframe's pose against the (fixed) map; the
     others pass through unchanged. Poses are independent given the map, so
-    the batching does not change the result."""
+    the blocking does not change the result. `loop`: the Gauss-Newton loop
+    control (module docstring)."""
     q0, t0 = kstack.q, kstack.t
-    q, t = q0.clone(), t0.clone()
-    for s in keyframe_batches(kstack.mask):
-        q[s], t[s] = _estimate_poses(
-            smap, cam, q0[s], t0[s], kstack.depth[s], kstack.nx[s],
-            kstack.ny[s], kstack.intensity[s], baseline_fx, use_depth,
-            use_descriptor, max_iterations)
+    out = [_estimate_poses(smap, cam, kstack.rows(s), baseline_fx, use_depth,
+                           use_descriptor, max_iterations, loop)
+           for s in static_blocks(q0.shape[0])]
+    q = torch.cat([o[0] for o in out])
+    t = torch.cat([o[1] for o in out])
     diff = se3.mul(se3.inverse(se3.SE3(q0, t0)), se3.SE3(q, t))
     moved = kstack.mask & ~is_scale1_converged(se3.log(diff))
     return PoseOptResult(q=q, t=t, moved=moved)

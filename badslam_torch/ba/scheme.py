@@ -2,46 +2,84 @@
 
 Counterpart of ``badslam_tpu/ba/scheme.py`` (direct_ba.h:65-550,
 direct_ba.cc, direct_ba_alternating.cc:285-738). Per BA iteration, in the
-order of BundleAdjustmentAlternating (``_iteration_core`` there):
+order of BundleAdjustmentAlternating (``_iteration_core`` there and here):
 
   surfel creation for newly active keyframes -> surfel activation and
   normals -> surfel positions and descriptors -> surfel merge and
   compaction -> keyframe poses and re-activation -> covisible-active
   propagation.
 
-The iterations stop early when no keyframe is ACTIVE, as the JAX
-package's device while_loop does (``_iterations_while``); here the test is
-one host read per iteration, the CUDA original's own design. Likewise the
-map ops run on the prefix [0, count + room) of the surfel map, with
-`count` read once per BA call after the scheme-end compaction and `room`
-the most surfels this call can create: entries beyond are invalid, so the
-result is that of the whole capacity.
+The fused call. Every BA call that the JAX package runs as one program
+(no keyframe window, no self-calibration, no staged profiling, no mesh)
+runs here as one function of the map and keyframe state, ``_fused_program``
+(the JAX package's ``_ba_iterations`` / ``_ba_iterations_bucketed`` with
+its ``_scheme_end_tasks``): the previous epoch's scheme-end tasks when a
+drain starts a new epoch, the reset of the surfel active flags, the
+iterations, and on a keyframe call the epoch-ending scheme-end tasks. The
+iterations run while "fewer than max_iterations and any keyframe ACTIVE"
+(``_iterations_while`` there), with every valid keyframe ACTIVE on entry
+under the activate-all window. Which keyframes create, merge and optimize
+is a device mask, and every loop (the iterations, creation and merge per
+slot, each keyframe block's Gauss-Newton loop) runs under a loop control
+(``ops.conditional``): on the CPU and in the card's eager call the host
+loop, which reads each loop's flag back; the masked plain version, which
+reads nothing (for tests); or, captured as one CUDA graph per call on the
+card (``ba/graph.py``), WHILE nodes, so the card decides every exit and a
+call reads nothing back. ``max_iterations``, the epoch
+(``ba_iteration_count``) and the bootstrapping-aware
+``min_observation_count`` are device scalars there, so one graph serves
+every drain length.
 
-With intrinsics optimization (self-calibration) the JAX package leaves
-its fused program for its host loop: every one of the `max_iterations`
-iterations runs (no early exit) and is followed by the intrinsics step
-(``optimize_intrinsics_step``), which updates the camera and the depth
-deformation and re-derives the keyframes' planes; the port does the same.
-The PCG solver (``ba/pcg.py``) works on this same state.
+The buckets, as in the JAX package. The call works on the pow-2 keyframe
+bucket (``_keyframe_bucket``: the live slots first, padded with distinct
+dead slots, from ``keyframe_bucket_base`` with a high-water mark; the whole
+capacity when it would exceed half of it), gathered from the store at the
+start of the call and scattered back at its end, and on the prefix
+[0, bucket) of the surfel map, the pow-2 bucket of the host-known surfel
+bound (``_bucket_size`` from ``surfel_bucket_base``). The bound,
+``known_surfel_bound``, grows by count * cells once per BA epoch (each
+valid keyframe creates surfels at most once per epoch), is pre-sized for a
+dataset of known length (``prebudget_epochs``) and, with
+``sync_surfel_bucket``, re-synced from one read of the surfel count after
+an epoch-ending call: the only read of a BA call. The bucket is taken of
+the larger of that bound and the same bound without the pre-sizing
+(``_creation_bound``): the JAX package stops growing the bound over the
+pre-sized epochs even after a re-sync has lowered it, and the map's rows
+beyond the bucket would then drop surfels that creation makes; here the
+bucket always holds the count plus what the call can create, so rows
+beyond it are invalid and the result is that of the whole map.
+
+The host loop stays, as in the JAX package, for the final BA's fixed
+window, self-calibration, ``sync_stage_profiling`` and the mesh (below):
+``_iteration`` runs one iteration on the store's slots [0, count) with the
+host controls.
+
+With intrinsics optimization (self-calibration) every one of the
+`max_iterations` iterations runs (no early exit) and is followed by the
+intrinsics step (``optimize_intrinsics_step``), which updates the camera
+and the depth deformation and re-derives the keyframes' planes. The PCG
+solver (``ba/pcg.py``) works on this same state.
 
 Multi-device BA (``config.n_devices > 1``, or an explicit ``mesh``): the
 canonical map and keyframe store stay on ``device``; each BA call splits
-its working prefix into D row blocks over the mesh and writes them back at
-the end (the JAX package's per-call device_put of its working slice), and
-runs every stage through ``parallel/streamed.py``. The keyframe planes are
-replicated to each device of the mesh, or, when replicating them would
-exceed ``plane_replication_budget_mb`` (``_plane_streaming_wanted``, the
-JAX package's host-only formula), streamed: shard i holds the slots
+its working prefix [0, count + room) into D row blocks over the mesh and
+writes them back at the end (the JAX package's per-call device_put of its
+working slice), and runs every stage through ``parallel/streamed.py`` with
+host id lists. The keyframe planes are replicated to each device of the
+mesh, or, when replicating them would exceed
+``plane_replication_budget_mb`` (``_plane_streaming_wanted``, the JAX
+package's host-only formula), streamed: shard i holds the slots
 [i K/D, (i+1) K/D) of the K-slot store. Either way a block on the store's
 own device is a view of its tensors and one elsewhere a copy, refreshed at
 the next call for the slots whose planes changed, and rebuilt when the
 store grows (the slots' owners change). Both layouts keep the one-device
-iteration structure, the early exit included; the JAX package's streamed
-mode runs every iteration instead, only because its early exit lives
-inside its fused one-device program (a deviation there). The calls the
-JAX package sends through its host loop (the fixed window of the final
-BA, self-calibration) and the PCG solver run on ``device`` with the whole
-map, as without a mesh; their results are the same either way.
+iteration structure, the early exit included (one host read per
+iteration); the JAX package's streamed mode runs every iteration instead,
+only because its early exit lives inside its fused one-device program (a
+deviation there). The calls the JAX package sends through its host loop
+(the fixed window of the final BA, self-calibration) and the PCG solver
+run on ``device`` with the whole map, as without a mesh; their results are
+the same either way.
 
 With ``config.sync_stage_profiling`` each iteration runs as timed stages,
 each ended by a device synchronization, so each stage's timer holds its time
@@ -61,25 +99,23 @@ optimization too (``optimize_geometry_iteration``); only activation moves.
 text stream (SetSaveTimings, direct_ba.h:382; direct_ba_alternating.cc:
 630-688): under ``sync_stage_profiling``, per iteration a header
 ``BA_count <n> inner_iteration <i> keyframe_count <k> surfel_bound <b>``
-and one ``<stage> <ms>`` row per stage run; otherwise one row per call that
-the JAX package runs as its fused program (no keyframe window, no
-self-calibration, planes not streamed), ``BA_count <n> fused_iterations
-<max_iterations> keyframe_count <k> surfel_bound <b> sync_ms <ms>``, where
-``sync_ms`` is the host's wait in a device synchronization at the end of
-the iterations (the JAX package's block_until_ready) and
-``fused_iterations`` the call's budget, as there. ``surfel_bound`` is the
-row count of the call's working map, where the JAX package writes its
-pow-2 surfel bucket: both bound the surfel count, but they differ.
+and one ``<stage> <ms>`` row per stage run; otherwise one row per fused
+call, ``BA_count <n> fused_iterations <max_iterations> keyframe_count <k>
+surfel_bound <b> sync_ms <ms>``, where ``sync_ms`` is the host's wait in a
+device synchronization at the end of the call (the JAX package's
+block_until_ready) and ``fused_iterations`` the call's budget, as there.
+``surfel_bound`` is ``known_surfel_bound``, the JAX package's value.
 
-Not here: the pow-2 keyframe and surfel buckets (they bound XLA
-recompiles).
+``iterations_run`` lists the iterations of each call; a graph replay's
+count stays on the card until the list is read (a device read, for
+reports).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional, Union
 
 import torch
 from torch.profiler import record_function
@@ -95,7 +131,8 @@ from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
 from badslam_torch.mapping import keyframes as kfs
 from badslam_torch.mapping import surfels as sf
-from badslam_torch.mapping.keyframes import KeyframeStore
+from badslam_torch.mapping.keyframes import KeyframeStack, KeyframeStore
+from badslam_torch.ops.conditional import HOST, Control, loop
 from badslam_torch.ops.preprocess import ProcessedFrame
 from badslam_torch.utils.timing import Spans, Timing
 
@@ -107,6 +144,54 @@ COVISIBLE_ACTIVE = kfs.COVISIBLE_ACTIVE
 def _timer(name: Optional[str], device: torch.device):
     """The Timing region `name` of `device`'s work, or none for None."""
     return contextlib.nullcontext() if name is None else Timing.time(name, device=device)
+
+
+def _ids(mask: torch.Tensor) -> List[int]:
+    """The set slots of a mask (a host read; the mesh's stages take ids)."""
+    return torch.nonzero(mask).flatten().tolist()
+
+
+class Slots(NamedTuple):
+    """The keyframe state a BA call works on: views of the store's slots
+    [0, n), or the keyframe bucket gathered from it."""
+
+    depth: torch.Tensor
+    nx: torch.Tensor
+    ny: torch.Tensor
+    radius2: torch.Tensor
+    intensity: torch.Tensor
+    rgb: torch.Tensor
+    q: torch.Tensor
+    t: torch.Tensor
+    valid: torch.Tensor
+    activation: torch.Tensor
+    last_active: torch.Tensor
+    last_covis: torch.Tensor
+    covis: torch.Tensor  # [n, n]
+
+    def stack(self, q, t, mask) -> KeyframeStack:
+        return KeyframeStack(self.depth, self.nx, self.ny, self.radius2,
+                             self.intensity, q, t, mask)
+
+
+# The fields of Slots that a BA call writes, in the iteration state's order.
+_SLOT_STATE = ("q", "t", "activation", "last_active", "last_covis")
+_STORE_FIELD = {"q": "q", "t": "t", "activation": "activation",
+                "last_active": "last_active_iter", "last_covis": "last_covis_iter"}
+
+
+class FusedCall(NamedTuple):
+    """What a fused BA call does beyond its iterations (the graph's key
+    holds it): the previous epoch's scheme-end tasks first (a drain that
+    starts a new epoch), the epoch-ending ones last (a keyframe call), and
+    the iteration's statics."""
+
+    end_first: bool
+    end_last: bool
+    activate_all: bool
+    optimize_geometry: bool
+    do_surfel_updates: bool
+    optimize_poses: bool
 
 
 class DirectBA:
@@ -138,6 +223,15 @@ class DirectBA:
                                        capacity=self.config.keyframe_bucket_base)
         self.ba_iteration_count = 0
         self.last_ba_iteration_count = -1
+        # The host-known surfel bound and bucket state (module docstring):
+        # the JAX package's known_surfel_bound with its epoch and pre-sized
+        # epochs, the same bound without the pre-sizing, and the keyframe
+        # bucket's high-water mark.
+        self.known_surfel_bound = 0
+        self._creation_bound = 0
+        self._bound_epoch = -1
+        self._prebudgeted_epochs = 0
+        self._kf_bucket_floor = 0
         # Depth-deformation parameters (DepthParameters analog), identity
         # until self-calibration updates them.
         self.depth_params = empty_depth_params(
@@ -146,10 +240,11 @@ class DirectBA:
         # Set when self-calibration changed `cam`; the front end refreshes
         # its cameras and clears it.
         self.intrinsics_updated = False
-        # Diagnostics: iterations run by each BA call (alternating or PCG),
-        # the CG steps of each PCG outer iteration, and the elapsed time of
-        # each intrinsics step and each PCG outer iteration.
-        self.iterations_run = []
+        # Diagnostics: iterations run by each BA call (alternating or PCG;
+        # a graph replay's as a device scalar until read), the CG steps of
+        # each PCG outer iteration, and the elapsed time of each intrinsics
+        # step and each PCG outer iteration.
+        self._iterations_run: List[Union[int, torch.Tensor]] = []
         self.cg_steps = []
         self.intrinsics_spans = Spans(self.device)
         self.pcg_spans = Spans(self.device)
@@ -160,6 +255,18 @@ class DirectBA:
 
     def set_save_timings(self, stream) -> None:
         self.timings_stream = stream
+
+    @property
+    def iterations_run(self) -> List[int]:
+        """The iterations of each BA call so far (a device read of the
+        graph replays' counts not read yet)."""
+        runs = self._iterations_run
+        pending = [i for i, n in enumerate(runs) if isinstance(n, torch.Tensor)]
+        if pending:
+            values = torch.stack([runs[i] for i in pending]).tolist()
+            for i, v in zip(pending, values):
+                runs[i] = int(v)
+        return runs
 
     def _synchronize(self) -> None:
         """Wait for the BA work queued on this device and the mesh's."""
@@ -202,9 +309,69 @@ class DirectBA:
 
     def _working_map(self, new_keyframes: int) -> sf.SurfelMap:
         """The prefix [0, count + room) of the map, room being what
-        `new_keyframes` keyframes can create (one surfel per cell each)."""
+        `new_keyframes` keyframes can create (one surfel per cell each): a
+        read of the count, for the host paths (the mesh, PCG, export)."""
         size = self.surfel_count + new_keyframes * self._cells_per_keyframe()
         return sf.prefix(self.surfels, min(size, self.surfels.capacity))
+
+    # ------------------------------------------------------------------
+    # Buckets (host arithmetic, the JAX package's)
+    # ------------------------------------------------------------------
+
+    def _bucket_size(self, needed: int) -> int:
+        """The pow-2 surfel bucket from surfel_bucket_base that holds
+        `needed` rows, at most the capacity."""
+        cap = self.surfels.capacity
+        b = max(1, self.config.surfel_bucket_base)
+        while b < needed and b < cap:
+            b *= 2
+        return min(b, cap)
+
+    def surfel_bucket(self) -> int:
+        """The rows of the map a BA call works on (module docstring)."""
+        return self._bucket_size(max(self.known_surfel_bound, self._creation_bound))
+
+    def _grow_surfel_bound(self) -> None:
+        """Once per BA epoch: count * cells more surfels may be created."""
+        if self._bound_epoch != self.ba_iteration_count:
+            growth = self.keyframes.count * self._cells_per_keyframe()
+            if self.ba_iteration_count >= self._prebudgeted_epochs:
+                self.known_surfel_bound += growth
+            self._creation_bound += growth
+            self._bound_epoch = self.ba_iteration_count
+
+    def prebudget_epochs(self, expected_keyframes: int) -> None:
+        """Pre-size the surfel bound for a run with a known keyframe budget:
+        it covers the first `expected_keyframes` BA epochs, which then do
+        not grow it (the JAX package's prebudget_epochs)."""
+        e = max(0, int(expected_keyframes))
+        self.known_surfel_bound = max(
+            self.known_surfel_bound,
+            min(self._cells_per_keyframe() * (e * (e + 1)) // 2, self.surfels.capacity))
+        self._prebudgeted_epochs = e
+
+    def _keyframe_bucket(self) -> Optional[List[int]]:
+        """The slots of the keyframe bucket, live slots first and padded with
+        distinct dead slots, or None for the whole capacity (the JAX
+        package's _keyframe_bucket, from host metadata only): the pow-2
+        bucket from keyframe_bucket_base that holds the live keyframes,
+        never below its high-water mark, and only while it is at most half
+        the capacity."""
+        ks = self.keyframes
+        cap = ks.capacity
+        live = ks.live_count
+        if live == 0:
+            return None
+        b = max(1, self.config.keyframe_bucket_base, self._kf_bucket_floor)
+        while b < live:
+            b *= 2
+        if b > cap // 2:
+            return None
+        self._kf_bucket_floor = b
+        free = ks.free_slot_set
+        live_slots = [s for s in range(ks.count) if s not in free]
+        pad = [s for s in range(cap) if s >= ks.count or s in free][: b - len(live_slots)]
+        return live_slots + pad
 
     # ------------------------------------------------------------------
     # Surfel lifecycle
@@ -213,9 +380,20 @@ class DirectBA:
     def create_surfels_for_keyframe(self, kf_id: int,
                                     filter_new_surfels: bool = True) -> torch.Tensor:
         """Create surfels for one keyframe slot (the first keyframe's
-        bootstrap). Returns the number created as a device scalar."""
-        view = self._working_map(1)
-        view, created = self._create_surfels(view, [kf_id], filter_new_surfels)
+        bootstrap) on the whole map, as the JAX package. Returns the number
+        created as a device scalar."""
+        ks = self.keyframes
+        self.known_surfel_bound += self._cells_per_keyframe()
+        self._creation_bound += self._cells_per_keyframe()
+        mask = torch.zeros(ks.count, dtype=torch.bool, device=self.device)
+        mask[kf_id] = True
+        slots = self._store_slots(ks.count)
+        view, created = sf.create_surfels_for_keyframes(
+            self.surfels, self.cam, slots.stack(slots.q, slots.t, slots.valid), mask,
+            slots.covis, self.min_observation_count(),
+            baseline_fx=self.config.baseline_fx,
+            cell_size=self.config.sparse_surfel_cell_size,
+            filter_new_surfels=filter_new_surfels, rgb_stack=slots.rgb)
         self.surfels = sf.write_back(self.surfels, view)
         return created
 
@@ -252,66 +430,89 @@ class DirectBA:
         return self._planes
 
     # ------------------------------------------------------------------
+    # Keyframe state of a call
+    # ------------------------------------------------------------------
+
+    def _store_slots(self, n: int) -> Slots:
+        """Views of the store's slots [0, n)."""
+        ks = self.keyframes
+        return Slots(ks.depth[:n], ks.nx[:n], ks.ny[:n], ks.radius2[:n],
+                     ks.intensity[:n], ks.rgb[:n], ks.q[:n], ks.t[:n], ks.valid[:n],
+                     ks.activation[:n], ks.last_active_iter[:n], ks.last_covis_iter[:n],
+                     ks.covis[:n, :n])
+
+    def _gathered_slots(self, sel: Optional[torch.Tensor]) -> Slots:
+        """The keyframe bucket: the store's slots `sel` (an index tensor)
+        gathered, or views of the whole capacity for None."""
+        if sel is None:
+            return self._store_slots(self.keyframes.capacity)
+        full = self._store_slots(self.keyframes.capacity)
+        return Slots(*(x.index_select(0, sel) for x in full[:-1]),
+                     full.covis.index_select(0, sel).index_select(1, sel))
+
+    def _store_state(self, slots: Slots, state, sel: Optional[torch.Tensor]) -> None:
+        """Write a call's keyframe state (poses, activation, counters) back
+        into the store, in place: into the views, or scattered to `sel`."""
+        ks = self.keyframes
+        for name, value in zip(_SLOT_STATE, state):
+            if sel is None:
+                view = getattr(slots, name)
+                if value is not view:
+                    view.copy_(value)
+            else:
+                getattr(ks, _STORE_FIELD[name]).index_copy_(0, sel, value)
+
+    # ------------------------------------------------------------------
     # Stages: one device, or the mesh when the map is a ShardedMap
     # ------------------------------------------------------------------
 
-    def _create_surfels(self, smap, ids, filter_new_surfels=True):
-        ks = self.keyframes
+    def _create_surfels(self, smap, slots: Slots, stack: KeyframeStack, mask,
+                        min_obs, control: Control):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
-            k = ks.count
             return parallel.create_surfels_streamed(
-                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k], ids,
-                ks.covis, ks.valid, self.min_observation_count(),
-                baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
-                filter_new_surfels=filter_new_surfels)
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, _ids(mask),
+                slots.covis, slots.valid, min_obs, baseline_fx=c.baseline_fx,
+                cell_size=c.sparse_surfel_cell_size)
         return sf.create_surfels_for_keyframes(
-            smap, self.cam, ks.stack(), ids, ks.covis,
-            self.min_observation_count(), baseline_fx=c.baseline_fx,
-            cell_size=c.sparse_surfel_cell_size,
-            filter_new_surfels=filter_new_surfels, rgb_stack=ks.rgb)
+            smap, self.cam, stack, mask, slots.covis, min_obs,
+            baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
+            rgb_stack=slots.rgb, loop=control)
 
-    def _merge_surfels(self, smap, ids):
+    def _merge_surfels(self, smap, stack: KeyframeStack, mask, control: Control):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
-            ks = self.keyframes
             return parallel.merge_surfels_streamed(
-                self.mesh, smap, self.cam, self._planes, ks.q[:ks.count],
-                ks.t[:ks.count], ids, baseline_fx=c.baseline_fx,
-                cell_size=c.sparse_surfel_cell_size,
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, _ids(mask),
+                baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
                 merge_dist_factor=c.surfel_merge_dist_factor)
         return sf.merge_surfels_for_keyframes(
-            smap, self.cam, self.keyframes.stack(), ids,
-            baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
-            merge_dist_factor=c.surfel_merge_dist_factor)
+            smap, self.cam, stack, mask, baseline_fx=c.baseline_fx,
+            cell_size=c.sparse_surfel_cell_size,
+            merge_dist_factor=c.surfel_merge_dist_factor, loop=control)
 
     def _compact(self, smap):
         if isinstance(smap, parallel.ShardedMap):
             return parallel.compact_surfels_streamed(self.mesh, smap)
         return sf.compact_surfels(smap)
 
-    def _delete_surfels(self, smap):
-        ks = self.keyframes
-        k = ks.count
+    def _delete_surfels(self, smap, stack: KeyframeStack, min_obs):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
             return parallel.delete_surfels_streamed(
-                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
-                ks.valid[:k], self.min_observation_count(),
-                baseline_fx=c.baseline_fx)
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
+                stack.mask, min_obs, baseline_fx=c.baseline_fx)
         return sf.delete_surfels_and_update_radii(
-            smap, self.cam, ks.stack(), self.min_observation_count(),
-            baseline_fx=c.baseline_fx)
+            smap, self.cam, stack, min_obs, baseline_fx=c.baseline_fx)
 
-    def _geometry(self, smap, active_strict, participating, optimize_geometry):
+    def _geometry(self, smap, stack: KeyframeStack, active_strict, participating,
+                  optimize_geometry):
         """Surfel activation and normals, then (with optimize_geometry) the
         positions and descriptors over the participating keyframes. With
         optimize_geometry activation and normals are one pass, timed with
         the positions as geometry optimization, beside an empty activation
         stage (the module docstring)."""
         c = self.config
-        ks = self.keyframes
-        k = ks.count
         if optimize_geometry:
             with self._stage("BA surfel activation"):
                 pass  # fused into the geometry stage's pass
@@ -320,52 +521,48 @@ class DirectBA:
             if isinstance(smap, parallel.ShardedMap):
                 with record_function("ba/activation_geometry"):
                     return parallel.activation_geometry_streamed(
-                        self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
+                        self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
                         active_strict, participating, baseline_fx=c.baseline_fx,
                         use_depth=c.use_geometric_residuals,
                         use_descriptor=c.use_photometric_residuals,
                         optimize_geometry=optimize_geometry)
-            full_stack = ks.stack()
             with record_function("ba/activation_normals"):
                 smap = update_activation_and_normals(
-                    smap, self.cam, full_stack, active_strict, participating,
+                    smap, self.cam, stack, active_strict, participating,
                     baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
             if optimize_geometry:
                 with record_function("ba/position"):
                     smap = _position_step(
-                        smap, self.cam, full_stack._replace(mask=participating),
+                        smap, self.cam, stack._replace(mask=participating),
                         baseline_fx=c.baseline_fx,
                         use_depth=c.use_geometric_residuals,
                         use_descriptor=c.use_photometric_residuals)
         return smap
 
-    def _poses(self, smap, participating):
+    def _poses(self, smap, stack: KeyframeStack, control: Control):
         c = self.config
-        ks = self.keyframes
-        k = ks.count
         if isinstance(smap, parallel.ShardedMap):
             return parallel.optimize_poses_streamed(
-                self.mesh, smap, self.cam, self._planes, ks.q[:k], ks.t[:k],
-                participating, baseline_fx=c.baseline_fx,
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
+                stack.mask, baseline_fx=c.baseline_fx,
                 use_depth=c.use_geometric_residuals,
                 use_descriptor=c.use_photometric_residuals, max_iterations=30)
         return optimize_keyframe_poses(
-            smap, self.cam, ks.stack()._replace(mask=participating),
-            baseline_fx=c.baseline_fx, use_depth=c.use_geometric_residuals,
-            use_descriptor=c.use_photometric_residuals, max_iterations=30)
+            smap, self.cam, stack, baseline_fx=c.baseline_fx,
+            use_depth=c.use_geometric_residuals,
+            use_descriptor=c.use_photometric_residuals, max_iterations=30,
+            loop=control)
 
-    def _scheme_end_tasks(self, smap, do_surfel_updates: bool):
+    def _scheme_end_core(self, smap, slots: Slots, q, t, last_active, ba_iter,
+                         min_obs, do_surfel_updates: bool, control: Control = HOST):
         """PerformBASchemeEndTasks (direct_ba.cc:566-653): a final merge
         over this epoch's active keyframes, then delete and compact."""
-        ks = self.keyframes
-        k = ks.count
+        stack = slots.stack(q, t, slots.valid)
         with record_function("ba/scheme_end"):
             if do_surfel_updates:
-                recently_active = ks.valid[:k] & (
-                    ks.last_active_iter[:k] == self.ba_iteration_count)
-                smap = self._merge_surfels(
-                    smap, torch.nonzero(recently_active).flatten().tolist())
-            return self._compact(self._delete_surfels(smap))
+                recently_active = slots.valid & (last_active == ba_iter)
+                smap = self._merge_surfels(smap, stack, recently_active, control)
+            return self._compact(self._delete_surfels(smap, stack, min_obs))
 
     def _split(self, view):
         """The working view over the mesh (planes brought up to date), or
@@ -384,8 +581,11 @@ class DirectBA:
     def perform_ba_scheme_end_tasks(self, do_surfel_updates: bool = True) -> None:
         if self.keyframes.count == 0:
             return
-        view = self._scheme_end_tasks(self._split(self._working_map(0)),
-                                      do_surfel_updates)
+        slots = self._store_slots(self.keyframes.count)
+        view = self._scheme_end_core(
+            self._split(self._working_map(0)), slots, slots.q, slots.t,
+            slots.last_active, self.ba_iteration_count, self.min_observation_count(),
+            do_surfel_updates)
         self.surfels = sf.write_back(self.surfels, self._join(view))
 
     # ------------------------------------------------------------------
@@ -419,53 +619,122 @@ class DirectBA:
     # The alternating BA scheme
     # ------------------------------------------------------------------
 
-    def _iteration(self, smap, activate_all: bool, optimize_geometry: bool,
-                   do_surfel_updates: bool, optimize_poses: bool):
-        """One alternating-BA iteration (direct_ba_alternating.cc:345-626);
-        updates the keyframe store in place and returns the map. Each stage
-        runs in `_stage`, by its JAX timer name."""
-        c = self.config
-        ks = self.keyframes
-        k = ks.count
-        valid = ks.valid[:k]
-        activation = ks.activation[:k]
+    def _iteration_core(self, smap, slots: Slots, q, t, activation, last_active,
+                        last_covis, ba_iter, min_obs, *, activate_all: bool,
+                        optimize_geometry: bool, do_surfel_updates: bool,
+                        optimize_poses: bool, control: Control = HOST):
+        """One alternating-BA iteration (direct_ba_alternating.cc:345-626)
+        as a function of the map and the keyframe state (the JAX package's
+        _iteration_core): returns (map, q, t, activation, last_active,
+        last_covis). Each stage runs in `_stage`, by its JAX timer name."""
+        valid = slots.valid
         if activate_all:
             activation = torch.where(valid, ACTIVE, INACTIVE)
-        ba_iter = self.ba_iteration_count
-        la = ks.last_active_iter[:k]
-        lc = ks.last_covis_iter[:k]
-        newly_active = valid & (activation == ACTIVE) & (la != ba_iter)
-        newly_covis = valid & (activation == COVISIBLE_ACTIVE) & (lc != ba_iter)
-        ks.last_active_iter[:k] = torch.where(newly_active, ba_iter, la)
-        ks.last_covis_iter[:k] = torch.where(newly_covis, ba_iter, lc)
-        create_ids = torch.nonzero(newly_active).flatten().tolist()
+        newly_active = valid & (activation == ACTIVE) & (last_active != ba_iter)
+        newly_covis = valid & (activation == COVISIBLE_ACTIVE) & (last_covis != ba_iter)
+        last_active = torch.where(newly_active, ba_iter, last_active)
+        last_covis = torch.where(newly_covis, ba_iter, last_covis)
+        stack = slots.stack(q, t, valid)
 
         if optimize_geometry and do_surfel_updates:
             with self._stage("BA surfel creation"), record_function("ba/create"):
-                smap, _ = self._create_surfels(smap, create_ids)
+                smap, _ = self._create_surfels(smap, slots, stack, newly_active,
+                                               min_obs, control)
 
         active_strict = valid & (activation == ACTIVE)
         participating = valid & ((activation == ACTIVE)
                                  | (activation == COVISIBLE_ACTIVE))
-        smap = self._geometry(smap, active_strict, participating, optimize_geometry)
+        smap = self._geometry(smap, stack, active_strict, participating, optimize_geometry)
         if do_surfel_updates:
             with record_function("ba/merge_compact"):
                 with self._stage("BA surfel merge"):
-                    smap = self._merge_surfels(smap, create_ids)
+                    smap = self._merge_surfels(smap, stack, newly_active, control)
                 with self._stage("BA surfel compaction"):
                     smap = self._compact(smap)
 
         if optimize_poses:
             with self._stage("BA pose optimization"):
                 with record_function("ba/poses"):
-                    result = self._poses(smap, participating)
-                ks.set_poses(result.q, result.t, participating)
+                    result = self._poses(smap, stack._replace(mask=participating), control)
+                q = torch.where(participating[:, None], result.q, q)
+                t = torch.where(participating[:, None], result.t, t)
                 activation = torch.where(
                     participating, torch.where(result.moved, ACTIVE, INACTIVE),
                     activation)
-        ks.activation[:k] = kfs.propagate_covisible_active(
-            ks.covis[:k, :k], activation, valid)
-        return smap
+        activation = kfs.propagate_covisible_active(slots.covis, activation, valid)
+        return smap, q, t, activation, last_active, last_covis
+
+    def _iteration(self, smap, activate_all: bool, optimize_geometry: bool,
+                   do_surfel_updates: bool, optimize_poses: bool):
+        """One iteration of the host loop on the store's slots [0, count),
+        which it updates in place; returns the map."""
+        slots = self._store_slots(self.keyframes.count)
+        out = self._iteration_core(
+            smap, slots, slots.q, slots.t, slots.activation, slots.last_active,
+            slots.last_covis, self.ba_iteration_count, self.min_observation_count(),
+            activate_all=activate_all, optimize_geometry=optimize_geometry,
+            do_surfel_updates=do_surfel_updates, optimize_poses=optimize_poses)
+        self._store_state(slots, out[1:], None)
+        return out[0]
+
+    def _fused_program(self, smap, sel: Optional[torch.Tensor], limit: torch.Tensor,
+                       ba_iter: torch.Tensor, min_obs: torch.Tensor, call: FusedCall,
+                       control: Control, most: Optional[int] = None):
+        """The fused BA call on the working map `smap` (a prefix of the
+        map's storage) and the keyframe bucket `sel` (module docstring):
+        fewer than `limit` iterations (and at most `most`, the host bound
+        of the host and masked controls). Writes the keyframe state back
+        into the store and the map into its storage, in place; returns the
+        iterations run."""
+        slots = self._gathered_slots(sel)
+        valid = slots.valid
+        state = tuple(getattr(slots, name) for name in _SLOT_STATE)
+        if call.end_first:
+            smap = self._scheme_end_core(smap, slots, slots.q, slots.t, slots.last_active,
+                                         ba_iter, min_obs, call.do_surfel_updates,
+                                         control)
+        # Reset the surfel active flags for this BA block
+        # (direct_ba_alternating.cc:338).
+        smap = smap._replace(active=torch.zeros_like(smap.active))
+        if call.activate_all:
+            # The loop's test runs before the first iteration; with the
+            # activate-all window every valid keyframe enters it active.
+            state = (state[0], state[1], torch.where(valid, ACTIVE, INACTIVE), *state[3:])
+        n = len(smap)
+
+        def any_active(st):
+            return (valid & (st[n + 2] == ACTIVE)).any()
+
+        def step(st):
+            out = self._iteration_core(
+                sf.SurfelMap(*st[:n]), slots, *st[n:], ba_iter, min_obs,
+                activate_all=call.activate_all, optimize_geometry=call.optimize_geometry,
+                do_surfel_updates=call.do_surfel_updates,
+                optimize_poses=call.optimize_poses, control=control)
+            return (*out[0], *out[1:])
+
+        st, iterations = loop(control, (*smap, *state), any_active, step, most=most,
+                              limit=limit, name="iterations")
+        smap, state = sf.SurfelMap(*st[:n]), st[n:]
+        if call.end_last:
+            smap = self._scheme_end_core(smap, slots, state[0], state[1], state[3],
+                                         ba_iter, min_obs, call.do_surfel_updates,
+                                         control)
+        self._store_state(slots, state, sel)
+        sf.write_back(self.surfels, smap)
+        return iterations
+
+    def _fused_inputs(self, sel: Optional[List[int]], max_iterations: int):
+        """The device inputs of a fused call made eagerly: the keyframe
+        bucket's slots, the iteration limit, the epoch and the observation
+        filter's count (host values uploaded; nothing is read)."""
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.int64, device=self.device)
+
+        return (None if sel is None else torch.tensor(sel, dtype=torch.int64,
+                                                      device=self.device),
+                scalar(max_iterations), scalar(self.ba_iteration_count),
+                scalar(self.min_observation_count()))
 
     def bundle_adjustment(self, optimize_poses: bool = True,
                           optimize_geometry: bool = True,
@@ -475,10 +744,18 @@ class DirectBA:
                           activate_all: Optional[bool] = None,
                           optimize_depth_intrinsics: bool = False,
                           optimize_color_intrinsics: bool = False,
-                          active_keyframe_window=None) -> int:
+                          active_keyframe_window=None, loop: Control = HOST,
+                          graph=None):
         """Run up to `max_iterations` iterations of the alternating scheme,
         stopping early when no keyframe is ACTIVE. Returns the number of
-        iterations run.
+        iterations run: an int from the host loops, else an int64 scalar
+        tensor (a graph replay's on the card; ``iterations_run`` reads it
+        when that list is read).
+
+        A call the JAX package runs as its fused program (module docstring)
+        is the fused call: with `graph` (a ``ba.graph.BAGraph`` on a CUDA
+        device) one replay of its captured graph, else eagerly under the
+        loop control `loop` (HOST, or MASKED, which reads nothing).
 
         With `optimize_depth_intrinsics` / `optimize_color_intrinsics` every
         iteration runs and is followed by the intrinsics step (the JAX
@@ -509,36 +786,100 @@ class DirectBA:
                 optimize_poses, optimize_geometry, do_surfel_updates,
                 max_iterations, increase_ba_iteration_count, activate_all,
                 optimize_depth_intrinsics, optimize_color_intrinsics,
-                active_keyframe_window)
-        self.iterations_run.append(iterations)
+                active_keyframe_window, loop, graph)
+        self._iterations_run.append(iterations)
         return iterations
 
     def _bundle_adjustment(self, optimize_poses, optimize_geometry,
                            do_surfel_updates, max_iterations,
                            increase_ba_iteration_count, activate_all,
                            optimize_depth_intrinsics, optimize_color_intrinsics,
-                           active_keyframe_window) -> int:
+                           active_keyframe_window, control, graph):
+        c = self.config
+        fixed_window = active_keyframe_window is not None
+        intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
+        self._grow_surfel_bound()
+        end_first = (not increase_ba_iteration_count
+                     and self.ba_iteration_count != self.last_ba_iteration_count)
+        if end_first:
+            self.last_ba_iteration_count = self.ba_iteration_count
+        if not (fixed_window or intrinsics or c.sync_stage_profiling
+                or self.mesh is not None):
+            iterations = self._fused_bundle_adjustment(
+                max_iterations, FusedCall(end_first, increase_ba_iteration_count,
+                                          activate_all, optimize_geometry,
+                                          do_surfel_updates, optimize_poses),
+                control, graph)
+        else:
+            iterations = self._host_loop(
+                optimize_poses, optimize_geometry, do_surfel_updates, max_iterations,
+                increase_ba_iteration_count, activate_all, optimize_depth_intrinsics,
+                optimize_color_intrinsics, active_keyframe_window, end_first)
+        if increase_ba_iteration_count:
+            self.ba_iteration_count += 1
+            if c.sync_surfel_bucket:
+                # One read per epoch-ending call ("surfels_size_" resync),
+                # after the scheme-end compaction: the valid surfels are then
+                # packed into [0, count), so the bound may shrink safely.
+                self.known_surfel_bound = self._creation_bound = self.surfel_count + 64
+        return iterations
+
+    def _fused_bundle_adjustment(self, max_iterations: int, call: FusedCall,
+                                 control: Control, graph) -> Union[int, torch.Tensor]:
+        """The fused call (module docstring), timed as the JAX package's
+        fused program, with its timing row."""
+        sel = self._keyframe_bucket()
+        bucket = self.surfel_bucket()
+        with _timer("BA iterations (fused)", self.device):
+            if graph is not None:
+                iterations = graph.run(self, sel, bucket, max_iterations, call)
+            else:
+                sel_t, limit, ba_iter, min_obs = self._fused_inputs(sel, max_iterations)
+                iterations = self._fused_program(
+                    sf.prefix(self.surfels, bucket), sel_t, limit, ba_iter, min_obs,
+                    call, control, most=max_iterations)
+        self._fused_row(max_iterations)
+        return iterations
+
+    def _fused_row(self, max_iterations: int) -> None:
+        """The timing row of a call the JAX package runs as its fused
+        program, with the host's wait in a synchronization at its end."""
+        if self.timings_stream is None:
+            return
+        t0 = time.perf_counter()
+        self._synchronize()
+        self.timings_stream.write(
+            f"BA_count {self.ba_iteration_count} fused_iterations {max_iterations} "
+            f"keyframe_count {self.keyframes.live_count} surfel_bound "
+            f"{self.known_surfel_bound} sync_ms {1e3 * (time.perf_counter() - t0):.3f}\n")
+
+    def _host_loop(self, optimize_poses, optimize_geometry, do_surfel_updates,
+                   max_iterations, increase_ba_iteration_count, activate_all,
+                   optimize_depth_intrinsics, optimize_color_intrinsics,
+                   active_keyframe_window, end_first) -> int:
+        """The JAX package's host loop (fixed window, self-calibration,
+        staged profiling) and the mesh's calls, on the store's slots
+        [0, count), one iteration per host step."""
         c = self.config
         ks = self.keyframes
         k = ks.count
         fixed_window = active_keyframe_window is not None
         intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
-        # Each valid keyframe creates surfels at most once per epoch: those
-        # not yet active in this one bound what the call can create.
-        new_keyframes = int((ks.valid[:k] & (
-            ks.last_active_iter[:k] != self.ba_iteration_count)).sum())
-        smap = self._working_map(new_keyframes)
-        bound = smap.valid.shape[0]  # the rows' surfel_bound
-        # The JAX package's host-loop calls (every iteration runs) keep the
-        # whole map on this device.
         host_loop = fixed_window or intrinsics
-        if not host_loop:
-            smap = self._split(smap)
+        if self.mesh is not None and not host_loop:
+            # Each valid keyframe creates surfels at most once per epoch:
+            # those not yet active in this one bound what the call creates.
+            new_keyframes = int((ks.valid[:k] & (
+                ks.last_active_iter[:k] != self.ba_iteration_count)).sum())
+            smap = self._split(self._working_map(new_keyframes))
+        else:
+            smap = sf.prefix(self.surfels, self.surfel_bucket())
 
-        if (not increase_ba_iteration_count
-                and self.ba_iteration_count != self.last_ba_iteration_count):
-            self.last_ba_iteration_count = self.ba_iteration_count
-            smap = self._scheme_end_tasks(smap, do_surfel_updates)
+        if end_first:
+            slots = self._store_slots(k)
+            smap = self._scheme_end_core(smap, slots, slots.q, slots.t, slots.last_active,
+                                         self.ba_iteration_count,
+                                         self.min_observation_count(), do_surfel_updates)
 
         # Reset the surfel active flags for this BA block
         # (direct_ba_alternating.cc:338).
@@ -554,12 +895,12 @@ class DirectBA:
             ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
         # Staged profiling is one of the JAX package's host-loop modes too:
         # every iteration runs there, with the stages timed one by one. The
-        # other calls are its fused program, timed as one region.
+        # mesh's calls are its fused program, timed as one region.
         staged = c.sync_stage_profiling
         fused = None
         if not (host_loop or staged):
-            fused = ("BA iterations (streamed)" if isinstance(smap, parallel.ShardedMap)
-                     and self._streaming else "BA iterations (fused)")
+            fused = ("BA iterations (streamed)" if self._streaming
+                     else "BA iterations (fused)")
         iteration_timer = "BA iteration" if host_loop and not staged else None
         iterations = 0
         with _timer(fused, self.device):
@@ -572,7 +913,7 @@ class DirectBA:
                     self.timings_stream.write(
                         f"BA_count {self.ba_iteration_count} inner_iteration "
                         f"{iterations} keyframe_count {ks.live_count} "
-                        f"surfel_bound {bound}\n")
+                        f"surfel_bound {self.known_surfel_bound}\n")
                 with _timer(iteration_timer, self.device):
                     smap = self._iteration(smap, activate_all, optimize_geometry,
                                            do_surfel_updates, optimize_poses)
@@ -584,17 +925,14 @@ class DirectBA:
                         self._intrinsics_step(
                             smap, optimize_depth_intrinsics and c.use_geometric_residuals,
                             optimize_color_intrinsics and c.use_photometric_residuals)
-        if fused == "BA iterations (fused)" and self.timings_stream is not None:
-            t0 = time.perf_counter()
-            self._synchronize()
-            self.timings_stream.write(
-                f"BA_count {self.ba_iteration_count} fused_iterations {max_iterations} "
-                f"keyframe_count {ks.live_count} surfel_bound {bound} "
-                f"sync_ms {1e3 * (time.perf_counter() - t0):.3f}\n")
+        if fused == "BA iterations (fused)":
+            self._fused_row(max_iterations)
 
         if increase_ba_iteration_count:
-            smap = self._scheme_end_tasks(smap, do_surfel_updates)
-            self.ba_iteration_count += 1
+            slots = self._store_slots(k)
+            smap = self._scheme_end_core(smap, slots, slots.q, slots.t, slots.last_active,
+                                         self.ba_iteration_count,
+                                         self.min_observation_count(), do_surfel_updates)
         self.surfels = sf.write_back(self.surfels, self._join(smap))
         return iterations
 

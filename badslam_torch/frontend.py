@@ -53,10 +53,19 @@ replay per frame with no host read in between, and the queued BA
 iterations are drained once after the chunk, up to 2 per frame of it, as
 the JAX package's scan chunk does. The first frame, ``estimate_poses``
 false and input pyramid levels take the per-frame path, as in the JAX
-package. BA reads one flag per BA iteration back to the host. With
-``n_devices > 1`` each BA call runs over a mesh of devices
-(``ba/scheme.py``), and the map and keyframes stay on the one device
-between calls.
+package. Every BA call of the frame loop that the JAX package runs as its
+fused program (the keyframe's call and every drain, per frame and after a
+chunk) is the port's fused BA call (``ba/scheme.py``): on a CUDA device
+one replay of a captured CUDA graph (``ba.graph.BAGraph``) whose exits are
+decided on the card, so a chunk's replays and its drain queue with no host
+read; on the CPU the same function eagerly with the host loops
+(``ba_loop``, ``HOST``; ``MASKED`` reads nothing). ``ba_graph = None`` makes
+a card run the eager call. With ``sync_surfel_bucket`` an epoch-ending call
+reads the surfel count once, as in the JAX package. A dataset of known
+length sizes the keyframe store and the surfel bound up front (the JAX
+package's pre-sizing). With ``n_devices > 1`` each BA call runs over a mesh
+of devices with the host loop, and the map and keyframes stay on the one
+device between calls.
 
 Timed regions (``utils/timing.py``, on the card's clock on a GPU) carry the
 JAX package's timer names: ``frame (fused)`` (a steady frame, its upload
@@ -80,6 +89,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from badslam_torch.ba.graph import BAGraph
 from badslam_torch.ba.pcg import pcg_bundle_adjustment
 from badslam_torch.ba.scheme import DirectBA
 from badslam_torch.config import BadSlamConfig
@@ -94,6 +104,7 @@ from badslam_torch.loop.features import gray_from_rgb
 from badslam_torch.loop.thread import LoopDetectionThread
 from badslam_torch.loop.trajectory import deform_trajectory
 from badslam_torch.ops import kernels
+from badslam_torch.ops.conditional import HOST
 from badslam_torch.ops.preprocess import (
     ProcessedFrame,
     downscale_color,
@@ -192,6 +203,20 @@ class BadSlam:
         # `mesh`, a parallel.Mesh); the rest of the pipeline stays on device.
         self.direct_ba = DirectBA(self.cam, config, surfel_capacity,
                                   device=self.device, mesh=mesh)
+        # A dataset of known length: the keyframe store and the surfel bound
+        # sized for its keyframes up front, so no capacity grows and the
+        # BA graphs' buckets change less (badslam_tpu/frontend.py:330-343).
+        if (not hasattr(video, "wait_for_frame") and len(video) > 0
+                and config.keyframe_interval > 0):
+            frames = max(0, min(len(video), config.end_frame) - config.start_frame)
+            expected = min(frames // config.keyframe_interval + 2,
+                           config.max_keyframe_count)
+            self.direct_ba.keyframes._ensure_capacity(expected)
+            self.direct_ba.prebudget_epochs(expected)
+        # The fused BA calls: on a CUDA device as graph replays, else eagerly
+        # under the loop control ba_loop.
+        self.ba_graph = BAGraph(self.device) if self.device.type == "cuda" else None
+        self.ba_loop = HOST
 
         # Base keyframe state.
         self.base_kf_id: Optional[int] = None
@@ -215,6 +240,9 @@ class BadSlam:
         self._steady_key = steady_key(config)
         self.steady_graph = (SteadyFrameGraph(self.device)
                              if self.device.type == "cuda" else None)
+        # The Gauss-Newton loop control of the eager steady frames (HOST;
+        # MASKED reads nothing).
+        self.steady_loop = HOST
         self.chunks_processed = 0  # steady chunks run (_process_chunk)
         self._eager_gn_iterations = 0  # the host loop's, in steady frames
         # Parallel BA: iterations queued at a keyframe and drained two per
@@ -374,7 +402,7 @@ class BadSlam:
                     self._steady_key, self.cam, self.cams_pyramid, depth_raw=depth,
                     rgb=rgb, undistort_map=self._undistort_map,
                     idx=torch.tensor([frame_index], device=self.device),
-                    test_two=test_two, **state)
+                    test_two=test_two, loop=self.steady_loop, **state)
                 global_T_frame = se3.SE3(out.q, out.t)
                 self._eager_gn_iterations += sum(out.iterations)
         self.traj_q, self.traj_t = out.traj_q, out.traj_t
@@ -490,7 +518,8 @@ class BadSlam:
         with Timing.time("bundle adjustment", device=self.device):
             self.direct_ba.bundle_adjustment(
                 max_iterations=2 if c.parallel_ba else c.max_num_ba_iterations_per_keyframe,
-                do_surfel_updates=c.do_surfel_updates, **intrinsics)
+                do_surfel_updates=c.do_surfel_updates, loop=self.ba_loop,
+                graph=self.ba_graph, **intrinsics)
         if c.parallel_ba:
             self.queued_ba_iterations += max(0, c.max_num_ba_iterations_per_keyframe - 2)
 
@@ -513,7 +542,8 @@ class BadSlam:
             old = self._remember_keyframe_poses()
             self.direct_ba.bundle_adjustment(
                 max_iterations=n, do_surfel_updates=self.config.do_surfel_updates,
-                increase_ba_iteration_count=False)
+                increase_ba_iteration_count=False, loop=self.ba_loop,
+                graph=self.ba_graph)
             self.queued_ba_iterations -= n
             self._apply_ba_pose_updates(*old)
         self.ba_drain_frames.append(frame_index)
@@ -920,7 +950,10 @@ class BadSlam:
         kf_slot[kf_frames[in_range]] = kf_slots[in_range]
 
         def dev(x, dtype=torch.int64):
-            return torch.as_tensor(x, dtype=dtype).to(self.device)
+            host = torch.as_tensor(x, dtype=dtype)
+            if self.device.type != "cuda":
+                return host
+            return host.pin_memory().to(self.device, non_blocking=True)
 
         return (dev(prev_slot), dev(next_slot), dev(alpha, torch.float32),
                 dev(kf_slot))

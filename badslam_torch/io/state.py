@@ -179,6 +179,9 @@ def load_state(path: str, video, device: torch.device | str = "cuda"):
     ba.surfels = smap._replace(
         count=torch.tensor(int(z["sf_count"]), dtype=torch.int64, device=dev),
         **fields)
+    # The surfel bound is not in the snapshot (in neither package): the
+    # next BA call's bucket must still hold the restored surfels.
+    ba._creation_bound = max(ba._creation_bound, int(z["sf_count"]) + 64)
 
     base = int(z["base_kf_id"])
     if base >= 0:

@@ -108,6 +108,18 @@ def associate_surfels_with_frame(
     )
 
 
+def hits(a: Association, mask) -> torch.Tensor:
+    """The associations of a block of keyframes that count: those of the
+    keyframes of its [C] mask (all when `mask` is None)."""
+    return a.valid if mask is None else a.valid & mask[:, None]
+
+
+def free_space_violations(a: Association, mask) -> torch.Tensor:
+    """The free-space violations of a block of keyframes, as ``hits``."""
+    fsv = a.free_space_violation
+    return fsv if mask is None else fsv & mask[:, None]
+
+
 def tangent_projections(
     positions: torch.Tensor,   # [N, 3] global
     normals: torch.Tensor,     # [N, 3] global
@@ -123,11 +135,8 @@ def tangent_projections(
     k_tangent_scaling = 2.0
     n = normals
     pick_ey = (torch.abs(n[..., 0]) > 0.9)[..., None]
-    ex = n.new_zeros(3)
-    ex[0] = 1.0
-    ey = n.new_zeros(3)
-    ey[1] = 1.0
-    ref = torch.where(pick_ey, ey, ex)
+    axes = torch.eye(3, dtype=n.dtype, device=n.device)  # made on the device
+    ref = torch.where(pick_ey, axes[1], axes[0])
     t1 = torch.linalg.cross(n, ref, dim=-1)
     t1 = t1 * (k_tangent_scaling * torch.sqrt(
         radius2 / torch.clamp_min(torch.sum(t1 * t1, dim=-1), 1e-12)))[..., None]

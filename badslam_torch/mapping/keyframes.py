@@ -8,8 +8,18 @@ activation, covisibility, min/max depth and the BA bookkeeping counters are
 device tensors. The host keeps the slot count, the free slots and each
 slot's dataset frame index.
 
-The JAX package's power-of-two keyframe bucket ladder exists to bound XLA
-recompiles and is not ported: BA here works on the slots [0, count).
+Every field that a BA call reads or writes is updated in place (slot
+writes, ``copy_``), so a captured CUDA graph of a BA call
+(``ba/graph.py``) keeps reading the store's storage; only a growth of the
+capacity (``_grow``, ``_ensure_capacity``) reallocates it, and it bumps
+``generation``, which the graph's key holds: a grown store is captured
+anew. A front end with a known dataset length sizes the store up front
+(``_ensure_capacity``), as the JAX package does.
+
+Passes over several keyframes inside a BA call take ``static_blocks``:
+fixed blocks of ``KEYFRAME_BATCH`` slots with the operation's mask carried
+along (the JAX package's fixed chunks, which need no host read), where the
+host paths (PCG, intrinsics) take ``keyframe_batches`` of the set slots.
 
 Activation states mirror Keyframe::Activation (keyframe.h:54-67):
 INACTIVE=0, COVISIBLE_ACTIVE=1, ACTIVE=2.
@@ -51,6 +61,11 @@ def index_of(ids: List[int], device):
     return torch.tensor(ids, device=device)
 
 
+def static_blocks(n: int) -> List[slice]:
+    """The slots [0, n) in fixed blocks of up to KEYFRAME_BATCH."""
+    return [slice(i, min(i + KEYFRAME_BATCH, n)) for i in range(0, n, KEYFRAME_BATCH)]
+
+
 def keyframe_batches(mask: torch.Tensor) -> list:
     """The set slots of a [K] bool keyframe mask (one device read), in
     batches of up to KEYFRAME_BATCH, each as a slice where the slots are
@@ -86,15 +101,13 @@ def covisibility_row(cam, q, t, min_d, max_d, valid, new_id: int) -> torch.Tenso
     return row & valid & (ids != new_id)
 
 
-def register_covisibility(covis, activation, row, new_id: int):
+def register_covisibility(covis, activation, row, new_id: int) -> None:
     """Symmetric covisibility update and promotion of INACTIVE covisible
-    keyframes to COVISIBLE_ACTIVE (direct_ba.cc:240-247)."""
-    covis = covis.clone()
+    keyframes to COVISIBLE_ACTIVE (direct_ba.cc:240-247), in place."""
     covis[new_id] = row
     covis[:, new_id] = row
-    activation = torch.where(row & (activation == INACTIVE), COVISIBLE_ACTIVE,
-                             activation)
-    return covis, activation
+    activation.copy_(torch.where(row & (activation == INACTIVE), COVISIBLE_ACTIVE,
+                                 activation))
 
 
 def active_mask(valid, activation, include_covisible: bool) -> torch.Tensor:
@@ -151,6 +164,8 @@ class KeyframeStore:
         # copied them to its shards (ba/scheme.py); a reallocation by
         # _grow replaces every plane tensor and is seen there by itself.
         self.changed_slots: set = set()
+        # Bumped by every reallocation of the per-slot tensors.
+        self.generation = 0
         self._grow(max(1, capacity))
 
     # ------------------------------------------------------------------
@@ -188,6 +203,16 @@ class KeyframeStore:
             covis[:old, :old] = self.covis
         self.covis = covis
         self.capacity = new_cap
+        self.generation += 1
+
+    def _ensure_capacity(self, needed: int) -> None:
+        """Grow to the first power-of-two multiple of the capacity that
+        holds `needed` slots (the JAX package's _ensure_capacity)."""
+        new_cap = max(self.capacity, 1)
+        while new_cap < needed:
+            new_cap *= 2
+        if new_cap > self.capacity:
+            self._grow(new_cap)
 
     @property
     def free_slot_set(self) -> set:
@@ -215,8 +240,7 @@ class KeyframeStore:
             kf = self.free_slots.pop(0)
         else:
             kf = self.count
-            if kf + 1 > self.capacity:
-                self._grow(2 * self.capacity)
+            self._ensure_capacity(kf + 1)
             self.count += 1
             self.frame_indices.append(-1)
         self.frame_indices[kf] = frame_index
@@ -248,8 +272,7 @@ class KeyframeStore:
         self.last_covis_iter[kf] = -1
         row = covisibility_row(self.cam, self.q, self.t, self.min_depth,
                                self.max_depth, self.valid, kf)
-        self.covis, self.activation = register_covisibility(
-            self.covis, self.activation, row, kf)
+        register_covisibility(self.covis, self.activation, row, kf)
         return kf
 
     def remove_keyframe(self, kf: int) -> None:
@@ -326,15 +349,15 @@ class KeyframeStore:
         return active_mask(self.valid, self.activation, include_covisible)
 
     def propagate_covisible_active(self) -> None:
-        self.activation = propagate_covisible_active(
-            self.covis, self.activation, self.valid)
+        self.activation.copy_(propagate_covisible_active(
+            self.covis, self.activation, self.valid))
 
     def set_activation_window(self, lo: int, hi: int) -> None:
         """Activate the valid slots lo..hi and deactivate all others (the
         final BA's fixed window, main.cc:765-789)."""
         ids = torch.arange(self.capacity, device=self.device)
         window = self.valid & (ids >= lo) & (ids <= hi)
-        self.activation = torch.where(window, ACTIVE, INACTIVE)
+        self.activation.copy_(torch.where(window, ACTIVE, INACTIVE))
 
     def merge_redundant_keyframes(self, approx_merge_count: int) -> List[int]:
         """Free the most redundant keyframes (the memory-pressure path,

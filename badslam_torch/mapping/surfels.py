@@ -14,14 +14,18 @@ kernel_assign_colors.cu). As there:
   * compaction is a stable cumsum permutation: survivors keep their order.
 
 Every operation works on whatever capacity the map it is given has. BA
-hands it the prefix [0, count + room) of the full map (``prefix`` and
-``write_back``): entries beyond are invalid, so the result is the same as
-on the whole capacity.
+hands it the prefix [0, bucket) of the full map (``prefix`` and
+``write_back``), the JAX package's pow-2 surfel bucket: entries beyond the
+count are invalid, so the result is the same as on the whole capacity.
 
-Operations over several keyframes visit the keyframes of their mask in
-batches of up to ``KEYFRAME_BATCH`` ([C, N] fields, one K2 launch per
-plane and batch); keyframes outside the mask contribute exact zeros in the
-JAX package, so skipping them changes only the order of float sums.
+Operations over several keyframes visit them in fixed blocks of
+``KEYFRAME_BATCH`` slots with the mask carried along (``static_blocks``;
+[C, N] fields, one K2 launch per plane and block): a keyframe outside the
+mask contributes exact zeros, as in the JAX package. Creation and merge
+run once per set slot of their [K] mask, under a loop control
+(``ops.conditional.for_each_slot``: the host loop over the set slots, the
+masked plain version, or a WHILE node of a captured CUDA graph), and
+write nothing with a host-dependent shape, so a BA call captures whole.
 """
 
 from __future__ import annotations
@@ -36,10 +40,13 @@ from badslam_torch.geometry.linalg import rotate3, transform3
 from badslam_torch.mapping.association import (
     Association,
     associate_surfels_with_frame,
+    free_space_violations,
+    hits,
     tangent_projections,
 )
-from badslam_torch.mapping.keyframes import KeyframeStack, keyframe_batches
+from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
 from badslam_torch.ops import robust
+from badslam_torch.ops.conditional import HOST, Control, for_each_slot, pick
 from badslam_torch.ops.interp import bilinear, gather_nearest
 from badslam_torch.ops.preprocess import normal_z
 
@@ -83,13 +90,14 @@ def prefix(smap: SurfelMap, size: int) -> SurfelMap:
 
 
 def write_back(full: SurfelMap, view: SurfelMap) -> SurfelMap:
-    """Copy a worked-on prefix back into the full map, in place."""
+    """Copy a worked-on prefix back into the full map's storage, the count
+    included, in place; returns `full`."""
     size = view.capacity
-    for f in _ROW_FIELDS:
+    for f in _ROW_FIELDS + ("count",):
         dst, src = getattr(full, f), getattr(view, f)
         if src.data_ptr() != dst.data_ptr() or src.shape != dst.shape:
-            dst[:size].copy_(src)
-    return full._replace(count=view.count)
+            dst[:size].copy_(src) if dst.ndim else dst.copy_(src)
+    return full
 
 
 def _associate(smap: SurfelMap, cam, frame_q, frame_t, depth, f_nx, f_ny,
@@ -120,9 +128,10 @@ def occupied_cells(smap: SurfelMap, cam, kf_q, kf_t, depth, f_nx, f_ny,
     ftg = se3.inverse(se3.SE3(kf_q, kf_t))
     assoc = _associate(smap, cam, ftg.q, ftg.t, depth, f_nx, f_ny, baseline_fx)
     cell, hit = _cells(assoc, cell_size, hc, wc)
-    occ = torch.zeros(hc * wc, dtype=torch.bool, device=depth.device)
-    occ[cell[hit]] = True  # every write is True: order-free
-    return occ.reshape(hc, wc)
+    # Every write is True (order-free); the rest go to a spare last entry.
+    occ = torch.zeros(hc * wc + 1, dtype=torch.bool, device=depth.device)
+    occ.scatter_(0, torch.where(hit, cell, hc * wc), True)
+    return occ[: hc * wc].reshape(hc, wc)
 
 
 def merge_surfels_for_frame(smap: SurfelMap, cam, kf_q, kf_t, depth, f_nx,
@@ -166,15 +175,20 @@ def merge_surfels_for_frame(smap: SurfelMap, cam, kf_q, kf_t, depth, f_nx,
 
 
 def merge_surfels_for_keyframes(smap: SurfelMap, cam, kstack: KeyframeStack,
-                                merge_ids, baseline_fx: float, cell_size: int,
-                                merge_dist_factor: float = 0.8) -> SurfelMap:
-    """The merge pass for each keyframe slot in `merge_ids` (host list, in
-    slot order, as the JAX package's masked scan)."""
-    for i in merge_ids:
-        smap = merge_surfels_for_frame(
-            smap, cam, kstack.q[i], kstack.t[i], kstack.depth[i], kstack.nx[i],
-            kstack.ny[i], baseline_fx, cell_size, merge_dist_factor)
-    return smap
+                                merge_mask: torch.Tensor, baseline_fx: float,
+                                cell_size: int, merge_dist_factor: float = 0.8,
+                                loop: Control = HOST) -> SurfelMap:
+    """The merge pass for each set slot of the [K] bool `merge_mask`, in
+    slot order (the JAX package's scan with a cond per slot), under the
+    loop control `loop`."""
+    def step(state, i):
+        return merge_surfels_for_frame(
+            SurfelMap(*state), cam, pick(kstack.q, i), pick(kstack.t, i),
+            pick(kstack.depth, i), pick(kstack.nx, i), pick(kstack.ny, i),
+            baseline_fx, cell_size, merge_dist_factor)
+
+    k = kstack.q.shape[0]
+    return SurfelMap(*for_each_slot(loop, merge_mask[:k], smap, step, name="merge"))
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +254,8 @@ def observation_counts(carry, cand: Candidates, b: KeyframeStack, cam,
     a = associate_surfels_with_frame(
         cam, cand.pos, cand.normal, cand.valid, ftg.q, ftg.t,
         b.depth, b.nx, b.ny, baseline_fx)
-    return obs + a.valid.sum(dim=0), fsv + a.free_space_violation.sum(dim=0)
+    return (obs + hits(a, b.mask).sum(dim=0),
+            fsv + free_space_violations(a, b.mask).sum(dim=0))
 
 
 def candidate_descriptors_and_colors(cam, kf_q, kf_t, cand: Candidates,
@@ -271,24 +286,26 @@ def append_surfels(smap: SurfelMap, keep: torch.Tensor, cand: Candidates,
     """Append the kept candidates after `count` (global rows, in candidate
     order); rows at or beyond `limit` are dropped. `smap` holds the global
     rows [row0, row0 + capacity): only those are written, and `count` is
-    the global count. Returns (new map, number created)."""
+    the global count. Returns (new map, number created).
+
+    Each row takes its candidate by a search in the running count of the
+    kept ones (the row's rank among the new surfels), so no tensor's shape
+    depends on the data."""
     n = smap.capacity
-    dest = smap.count + torch.cumsum(keep.to(torch.int64), dim=0) - 1
-    ok = keep & (dest < limit)
-    loc = dest - row0
-    here = ok & (loc >= 0) & (loc < n)
-    loc = loc[here]
+    ranks = torch.cumsum(keep.to(torch.int64), dim=0)  # [M] kept so far
+    dest = smap.count + ranks - 1
+    created = (keep & (dest < limit)).sum()
+    rank = torch.arange(row0, row0 + n, device=keep.device) - smap.count
+    fill = (rank >= 0) & (rank < created)
+    src = torch.clamp(torch.searchsorted(ranks, rank + 1), max=keep.shape[0] - 1)
     new = {}
     for name, values in (("pos", cand.pos), ("normal", cand.normal),
                          ("radius2", cand.radius2), ("color", color), ("desc", desc)):
-        arr = getattr(smap, name).clone()
-        arr[loc] = values[here]
-        new[name] = arr
+        old = getattr(smap, name)
+        f = fill.reshape((n,) + (1,) * (old.ndim - 1))
+        new[name] = torch.where(f, values[src], old)
     for name in ("valid", "active"):  # new surfels start active
-        arr = getattr(smap, name).clone()
-        arr[loc] = True
-        new[name] = arr
-    created = ok.sum()
+        new[name] = getattr(smap, name) | fill
     return SurfelMap(count=smap.count + created, **new), created
 
 
@@ -314,7 +331,7 @@ def create_surfels_for_keyframe(
                              cell_size, smap.pos.dtype)
     if filter_new_surfels:
         carry = (torch.ones_like(cand.cx), torch.zeros_like(cand.cx))  # self-observation
-        for s in keyframe_batches(covis.mask):
+        for s in static_blocks(covis.q.shape[0]):
             carry = observation_counts(carry, cand, covis.rows(s), cam, baseline_fx)
         obs, fsv = carry
         keep = cand.valid & (obs >= min_observation_count) & (fsv <= obs)
@@ -326,23 +343,30 @@ def create_surfels_for_keyframe(
 
 
 def create_surfels_for_keyframes(
-    smap: SurfelMap, cam, kstack: KeyframeStack, create_ids, covis_matrix,
-    min_observation_count: int, baseline_fx: float, cell_size: int,
-    filter_new_surfels: bool = True, rgb_stack=None,
+    smap: SurfelMap, cam, kstack: KeyframeStack, create_mask: torch.Tensor,
+    covis_matrix, min_observation_count, baseline_fx: float, cell_size: int,
+    filter_new_surfels: bool = True, rgb_stack=None, loop: Control = HOST,
 ) -> Tuple[SurfelMap, torch.Tensor]:
-    """Create surfels for each keyframe slot in `create_ids` (host list, in
-    slot order). The observation filter counts in the valid keyframes
-    covisible with each one (kstack.mask is the valid mask)."""
-    total = smap.count.new_zeros(())
-    for i in create_ids:
-        covis = kstack._replace(mask=covis_matrix[i, : kstack.q.shape[0]] & kstack.mask)
-        smap, created = create_surfels_for_keyframe(
-            smap, cam, kstack.q[i], kstack.t[i], kstack.depth[i], kstack.nx[i],
-            kstack.ny[i], kstack.radius2[i], kstack.intensity[i], covis,
+    """Create surfels for each set slot of the [K] bool `create_mask`, in
+    slot order (the JAX package's scan with a cond per slot), under the
+    loop control `loop`. The observation filter counts in the valid
+    keyframes covisible with each one (kstack.mask is the valid mask);
+    `min_observation_count` is an int or an integer scalar tensor."""
+    k = kstack.q.shape[0]
+
+    def step(state, i):
+        covis = kstack._replace(mask=pick(covis_matrix, i)[:k] & kstack.mask)
+        new_map, created = create_surfels_for_keyframe(
+            SurfelMap(*state[:-1]), cam, pick(kstack.q, i), pick(kstack.t, i),
+            pick(kstack.depth, i), pick(kstack.nx, i), pick(kstack.ny, i),
+            pick(kstack.radius2, i), pick(kstack.intensity, i), covis,
             min_observation_count, baseline_fx, cell_size, filter_new_surfels,
-            rgb=None if rgb_stack is None else rgb_stack[i])
-        total = total + created
-    return smap, total
+            rgb=None if rgb_stack is None else pick(rgb_stack, i))
+        return (*new_map, state[-1] + created)
+
+    out = for_each_slot(loop, create_mask[:k], (*smap, smap.count.new_zeros(())), step,
+                        name="create")
+    return SurfelMap(*out[:-1]), out[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -376,9 +400,9 @@ def _delete_chunk(carry, b: KeyframeStack, smap: SurfelMap, cam, baseline_fx):
     obs, fsv, min_r2 = carry
     ftg = se3.inverse(se3.SE3(b.q, b.t))
     a = _associate(smap, cam, ftg.q, ftg.t, b.depth, b.nx, b.ny, baseline_fx)
-    hit = a.valid
+    hit = hits(a, b.mask)
     pr2 = gather_nearest(b.radius2, a.px, a.py)
-    return (obs + hit.sum(dim=0), fsv + a.free_space_violation.sum(dim=0),
+    return (obs + hit.sum(dim=0), fsv + free_space_violations(a, b.mask).sum(dim=0),
             torch.minimum(min_r2, torch.where(hit, pr2, math.inf).amin(dim=0)))
 
 
@@ -406,7 +430,7 @@ def delete_surfels_and_update_radii(smap: SurfelMap, cam, kstack: KeyframeStack,
     others' radius^2 to the smallest observed pixel radius^2
     (DeleteSurfelsAndUpdateRadiiCUDA, kernel_delete_surfels.cu)."""
     carry = _delete_init(smap)
-    for s in keyframe_batches(kstack.mask):
+    for s in static_blocks(kstack.q.shape[0]):
         carry = _delete_chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
     return _delete_finish(smap, carry, min_observation_count)[0]
 
@@ -436,11 +460,11 @@ def assign_colors(smap: SurfelMap, cam, kstack: KeyframeStack,
     dtype = smap.color.dtype
     cnt = torch.zeros(n, dtype=dtype, device=smap.pos.device)
     acc = torch.zeros((n, 3), dtype=dtype, device=smap.pos.device)
-    for s in keyframe_batches(kstack.mask):
-        ftg = se3.inverse(se3.SE3(kstack.q[s], kstack.t[s]))
-        a = _associate(smap, cam, ftg.q, ftg.t, kstack.depth[s], kstack.nx[s],
-                       kstack.ny[s], baseline_fx)
-        hit = a.valid
+    for s in static_blocks(kstack.q.shape[0]):
+        b = kstack.rows(s)
+        ftg = se3.inverse(se3.SE3(b.q, b.t))
+        a = _associate(smap, cam, ftg.q, ftg.t, b.depth, b.nx, b.ny, baseline_fx)
+        hit = hits(a, b.mask)
         planes = _rgb_planes(rgb_stack[s])  # [C, 3, H, W]
         sample = torch.stack([bilinear(planes[:, ch], a.pxy_x, a.pxy_y)
                               for ch in range(3)], dim=-1)

@@ -19,6 +19,9 @@ launch shape of its bilateral kernel (K1's tile,
   puts, so a caller may cache what it looked up per path and generation. Delete the file to forget every tuned value.
 * Keys are scoped by the device (``device_key``): the card's name, so a
   store tuned on another card model is never read, or ``cpu``.
+* Both entry points target the card unless the caller asks for the CPU
+  (``device="cpu"``), and raise RuntimeError where CUDA is missing, as
+  every entry point of the port does.
 """
 
 from __future__ import annotations
@@ -79,10 +82,18 @@ def put(key: str, value) -> None:
         json.dump(d, f, indent=2, sort_keys=True)
 
 
-def device_key(key: str, device="cpu") -> str:
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available "
+                           f"(pass device='cpu' to tune on the CPU)")
+    return device
+
+
+def device_key(key: str, device="cuda") -> str:
     """Scope a tuning key by the device: the card's name for a CUDA
     device (as torch.cuda.get_device_name gives it), ``cpu`` for the CPU."""
-    device = torch.device(device)
+    device = _device(device)
     if device.type == "cuda":
         return f"{torch.cuda.get_device_name(device)}:{key}"
     if device.type != "cpu":
@@ -117,7 +128,7 @@ def autotune(
     key: str,
     variants: Dict[str, Callable[[], object]],
     iterations: int = ITERATIONS,
-    device="cpu",
+    device="cuda",
 ) -> Optional[str]:
     """Time each no-argument variant thunk on `device`, persist the
     fastest one's name under ``device_key(key, device)`` and return it;
@@ -128,7 +139,7 @@ def autotune(
     while the calls are enqueued, so the pair times the card's work. On
     the CPU it is the host clock. A variant that raises is skipped and
     named on one log line."""
-    device = torch.device(device)
+    device = _device(device)
     last_times.clear()
     best_name: Optional[str] = None
     best_ms = float("inf")

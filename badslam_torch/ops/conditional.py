@@ -1,4 +1,5 @@
-"""CUDA-graph WHILE nodes, captured around PyTorch work (``csrc/conditional.cu``).
+"""CUDA-graph WHILE nodes, captured around PyTorch work (``csrc/conditional.cu``),
+and the three controls of a loop whose exit is decided by a device flag.
 
 ``WhileNodes`` serves one capture: inside ``with nodes.while_(cond):`` the
 block's work goes into the body of a new WHILE node of the graph being
@@ -6,22 +7,44 @@ captured on the current stream. At replay the body runs while the device
 flag `cond` (a CUDA bool scalar) is true: the card reads it when the node is
 reached and again at the end of each run of the body, so the block must
 update `cond` in place and make it false within a bounded number of runs.
-The body is captured on a stream of its own, and its tensors are allocated
-from a memory pool that belongs to the capture, so nothing of a body is
-handed out again while the graph lives. Keep the ``WhileNodes`` alive as
-long as the graph.
+WHILE nodes nest: a ``while_`` opened inside a body adds its node to that
+body's graph. Each nesting depth captures its bodies on a stream of its own
+(made with the ``WhileNodes``, up to `depth` levels), and every body's
+tensors are allocated from a memory pool that belongs to the capture, so
+nothing of a body is handed out again while the graph lives. Keep the
+``WhileNodes`` alive as long as the graph.
 
 A tensor made inside a body holds a value only when the body ran: copy what
 the rest of the graph needs into tensors made outside the body (the body's
 ``copy_`` is part of the body). A failure to add a node or to capture a body
 raises RuntimeError naming the call and the CUDA error; nothing falls back
 to the host.
+
+``loop`` runs a loop "while cond(state), at most n times" under one of three
+controls, with the same result under each:
+
+* ``HOST``: the plain loop, reading the flag back to the host before each
+  step (the eager path on the CPU and on a card);
+* ``MASKED``: `n` steps with no host read, each step's new state taken only
+  where the flag held (``torch.where``); the plain version of the device
+  loop, for tests;
+* a ``DeviceControl``: inside a CUDA-graph capture, one WHILE node whose body
+  is one step and ends by writing the flag, so the card decides the exit.
+
+``for_each_slot`` applies a step to every set slot of a [K] mask in slot
+order on top of ``loop``: the host loop over the set slots; every slot
+with the step's result kept where the mask is set; or one WHILE node whose
+body takes the next set slot from a device cursor, so it runs once per set
+slot and not at all for an empty mask. It is the counterpart of the JAX
+package's scan over the slots with a ``lax.cond`` on each slot's mask.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+from collections import Counter
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -74,44 +97,196 @@ def node_counts(graph_handle: int) -> tuple:
 
 
 class WhileNodes:
-    """The WHILE nodes of one capture on `device`: ``count`` counts them and
-    ``bodies`` holds their body graphs (for ``body_node_counts``)."""
+    """The WHILE nodes of one capture on `device`, nested up to `depth`
+    levels: ``count`` counts them and ``bodies`` holds their body graphs
+    (for ``body_node_counts``). ``streams`` are the body streams, one per
+    depth, made here so that a caller can set up library state on them
+    before the capture."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, depth: int = 1):
         device = torch.device(device)
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        self.stream = torch.cuda.Stream(self.device)
+        self.streams = [torch.cuda.Stream(self.device) for _ in range(max(1, depth))]
         self.pool = torch.cuda.MemPool()
         self.count = 0
         self.bodies = []
+        self._depth = 0
+
+    @property
+    def stream(self) -> torch.cuda.Stream:
+        return self.streams[0]
 
     @contextlib.contextmanager
     def while_(self, cond: torch.Tensor):
         if not (cond.is_cuda and cond.dtype == torch.bool and cond.numel() == 1):
             raise ValueError(f"a WHILE node's condition must be a CUDA bool scalar, got "
                              f"{tuple(cond.shape)} {cond.dtype} on {cond.device}")
+        if self._depth >= len(self.streams):
+            raise RuntimeError(f"WHILE nodes nested deeper than the {len(self.streams)} "
+                               f"levels this capture was made for")
         lib = _lib()
         parent = torch.cuda.current_stream(self.device)
+        stream = self.streams[self._depth]
         handle = ctypes.c_ulonglong()
         _check(lib.badslam_while_begin(parent.cuda_stream, cond.data_ptr(),
-                                       self.stream.cuda_stream, ctypes.byref(handle)),
+                                       stream.cuda_stream, ctypes.byref(handle)),
                "capturing a WHILE node (cudaGraphAddNode / cudaStreamBeginCaptureToGraph)")
         body = ctypes.c_void_p()
+        # The outermost body routes this thread's allocations to the pool;
+        # the bodies nested in it allocate from it already.
+        pool = (torch.cuda.use_mem_pool(self.pool, self.device) if self._depth == 0
+                else contextlib.nullcontext())
+        self._depth += 1
         try:
-            with torch.cuda.stream(self.stream), torch.cuda.use_mem_pool(self.pool, self.device):
+            with torch.cuda.stream(stream), pool:
                 yield
-                _check(lib.badslam_set_condition(self.stream.cuda_stream, handle.value,
+                _check(lib.badslam_set_condition(stream.cuda_stream, handle.value,
                                                  cond.data_ptr()),
                        "setting a WHILE node's condition in its body")
         finally:
-            err = lib.badslam_while_end(self.stream.cuda_stream, ctypes.byref(body))
+            self._depth -= 1
+            err = lib.badslam_while_end(stream.cuda_stream, ctypes.byref(body))
         _check(err, "ending a WHILE node's body (cudaStreamEndCapture)")
         self.count += 1
         self.bodies.append(body.value)
 
     def body_node_counts(self) -> tuple:
-        """(nodes, kernel nodes) in all the bodies together."""
+        """(nodes, kernel nodes) in all the bodies together (a nested body's
+        nodes are counted in its own entry, not in its parent's)."""
         counts = [node_counts(b) for b in self.bodies]
         return sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+# ---------------------------------------------------------------------------
+# Loop controls
+# ---------------------------------------------------------------------------
+
+HOST = "host"
+MASKED = "masked"
+
+
+class DeviceControl:
+    """Loops as WHILE nodes of the graph being captured. `nodes` is the
+    capture's ``WhileNodes``; `units` a device int64 tensor made (zeroed)
+    before the capture, with an entry per body: each run of body j adds one
+    to ``units[j]``. ``body_launches[j]`` holds the kernel launches captured
+    in body j (``kernels.count_into``; one run's, a nested body's apart),
+    ``body_names[j]`` its name and ``body_graphs[j]`` its body graph (for
+    ``node_counts``)."""
+
+    def __init__(self, nodes: WhileNodes, units: torch.Tensor):
+        self.nodes = nodes
+        self.units = units
+        self.body_launches: List[Counter] = []
+        self.body_names: List[str] = []
+        self.body_graphs: List[int] = []
+
+    @contextlib.contextmanager
+    def body(self, flag: torch.Tensor, name: str):
+        j = len(self.body_launches)
+        if j >= self.units.numel():
+            raise RuntimeError(f"more WHILE bodies than the {self.units.numel()} "
+                               f"counters made for this capture")
+        launches = Counter()
+        self.body_launches.append(launches)
+        self.body_names.append(name)
+        self.body_graphs.append(0)
+        with self.nodes.while_(flag), kernels.count_into(launches):
+            yield
+            self.units[j:j + 1].add_(1)
+        self.body_graphs[j] = self.nodes.bodies[-1]
+
+
+Control = Union[str, DeviceControl]
+State = Tuple[torch.Tensor, ...]
+
+
+def loop(control: Control, state: Sequence[torch.Tensor],
+         cond: Callable[[State], torch.Tensor], step: Callable[[State], Sequence[torch.Tensor]],
+         most: Optional[int] = None, limit: Optional[torch.Tensor] = None,
+         name: str = "loop") -> Tuple[State, Union[int, torch.Tensor]]:
+    """Run ``state = step(state)`` while ``cond(state)`` (a bool scalar
+    tensor) holds, at most `most` times (a host int) and, with `limit` (an
+    integer scalar tensor), fewer than `limit` times. Returns (state, steps
+    run): an int under HOST, an int64 scalar tensor otherwise. `step` must
+    not change the tensors it is given. HOST and MASKED need `most`; a
+    DeviceControl takes the bound from `limit` when given (so one capture
+    serves any bound), else from `most`."""
+    state = tuple(state)
+    if control == HOST:
+        i = 0
+        while i < most and (limit is None or i < int(limit)) and bool(cond(state)):
+            state = tuple(step(state))
+            i += 1
+        return state, i
+    ref = state[0]
+    if control == MASKED:
+        i = torch.zeros((), dtype=torch.int64, device=ref.device)
+        for _ in range(most):
+            run = cond(state)
+            if limit is not None:
+                run = run & (i < limit)
+            new = tuple(step(state))
+            state = tuple(torch.where(run, n, o) for n, o in zip(new, state))
+            i = i + run.to(torch.int64)
+        return state, i
+    if not isinstance(control, DeviceControl):
+        raise ValueError(f"unknown loop control {control!r}")
+    # The state lives in buffers made outside the body, which updates them
+    # in place; `flag` is the WHILE node's condition.
+    bound = limit if limit is not None else most
+    bufs = tuple(s.clone() for s in state)
+    i = torch.zeros((), dtype=torch.int64, device=ref.device)
+    flag = cond(bufs) & (i < bound)
+    with control.body(flag, name):
+        new = tuple(step(bufs))
+        for b, n in zip(bufs, new):
+            if n is not b:
+                b.copy_(n)
+        i.add_(1)
+        flag.copy_(cond(bufs) & (i < bound))
+    return bufs, i
+
+
+def pick(x: torch.Tensor, i: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Row i of x, for a host int or an integer scalar tensor."""
+    if isinstance(i, int):
+        return x[i]
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
+def for_each_slot(control: Control, mask: torch.Tensor, state: Sequence[torch.Tensor],
+                  step: Callable[[State, Union[int, torch.Tensor]], Sequence[torch.Tensor]],
+                  name: str = "slots") -> State:
+    """``state = step(state, i)`` for each set slot i of the [K] bool mask,
+    in slot order (module docstring). `i` is a host int under HOST and
+    MASKED, an int64 scalar tensor under a DeviceControl. `step` must not
+    change the tensors it is given."""
+    state = tuple(state)
+    k = mask.shape[0]
+    if control == HOST:
+        for i in torch.nonzero(mask).flatten().tolist():
+            state = tuple(step(state, i))
+        return state
+    if control == MASKED:
+        for i in range(k):
+            new = tuple(step(state, i))
+            state = tuple(torch.where(mask[i], n, o) for n, o in zip(new, state))
+        return state
+    slots = torch.arange(k, device=mask.device)
+
+    def next_slot(cursor):
+        return torch.where(mask & (slots >= cursor), slots, k).amin()
+
+    def cond(st):
+        return next_slot(st[-1]) < k
+
+    def advance(st):
+        i = next_slot(st[-1])
+        return (*step(st[:-1], i), i + 1)
+
+    cursor = torch.zeros((), dtype=torch.int64, device=mask.device)
+    out, _ = loop(control, (*state, cursor), cond, advance, most=k, name=name)
+    return out[:-1]

@@ -20,8 +20,8 @@ base keyframe's pyramid and pose, the motion history, the trajectory, the
 trajectory index as a device int, the depth deformation), captures
 ``steady_frame`` once per key and replays it. Each pyramid level's
 Gauss-Newton loop is captured as one WHILE node whose body is one iteration
-(``tracking.pairwise.DeviceLoop``, ``ops.conditional``), so the early exit
-is decided on the card. The key is
+(``ops.conditional.DeviceControl``), so the early exit is decided on the
+card. The key is
 the JAX package's ``_steady_key`` (``SteadyKey``) plus the frame's shape,
 the undistortion map, ``test_two``, the cameras (their intrinsics are host
 floats baked into the graph, so self-calibration captures anew) and K1's
@@ -50,16 +50,16 @@ from torch.profiler import record_function
 from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
 from badslam_torch.ops import kernels
-from badslam_torch.ops.conditional import WhileNodes, node_counts
+from badslam_torch.ops.conditional import (
+    HOST,
+    Control,
+    DeviceControl,
+    WhileNodes,
+    node_counts,
+)
 from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
 from badslam_torch.ops.pyramid import FramePyramidLevel, build_pyramid
-from badslam_torch.tracking.pairwise import (
-    HOST,
-    DeviceLoop,
-    Loop,
-    device_constants,
-    track_frame_pairwise,
-)
+from badslam_torch.tracking.pairwise import device_constants, track_frame_pairwise
 
 
 class SteadyKey(NamedTuple):
@@ -107,7 +107,7 @@ class SteadyOutputs(NamedTuple):
 
 def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_map,
                  a, cfactor, base_q, base_t, traj_q, traj_t, hist_q, hist_t, idx,
-                 *, test_two: bool, loop: Loop = HOST) -> SteadyOutputs:
+                 *, test_two: bool, loop: Control = HOST) -> SteadyOutputs:
     """One steady frame (badslam_tpu/frontend.py:109-157). `depth_raw` is the
     raw depth as an integer tensor (scaled by key.raw_to_float), `rgb` u8
     [H, W, 3], `idx` the frame's trajectory row as a device int tensor of
@@ -186,7 +186,8 @@ class SteadyFrameGraph:
         self.idx = torch.zeros(1, dtype=torch.int64, device=device)
         self.captures: List[dict] = []
         self.replays = 0
-        # Each capture's device count of Gauss-Newton bodies run per scale.
+        # Each capture's device count of Gauss-Newton bodies run per scale,
+        # coarsest first.
         self._iterations: List[torch.Tensor] = []
 
     # -- static inputs ---------------------------------------------------
@@ -282,8 +283,10 @@ class SteadyFrameGraph:
             with torch.cuda.stream(s):
                 ones @ ones
             current.wait_stream(s)
-        iterations = torch.zeros(key.num_scales, dtype=torch.int32, device=self.device)
-        body: Dict[int, Counter] = {}
+        # One WHILE body per scale, captured coarsest first; each run of
+        # body j adds one to units[j].
+        units = torch.zeros(key.num_scales, dtype=torch.int64, device=self.device)
+        control = DeviceControl(nodes, units)
         launches: Counter = Counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         reserved = torch.cuda.memory_reserved(self.device)
@@ -297,7 +300,7 @@ class SteadyFrameGraph:
                         key, cam, cams, self.base_pyr, st["depth_raw"], st["rgb"],
                         undistort_map, st["a"], st["cfactor"], st["base_q"], st["base_t"],
                         st["traj_q"], st["traj_t"], st["hist_q"], st["hist_t"], self.idx,
-                        test_two=test_two, loop=DeviceLoop(nodes, iterations, body))
+                        test_two=test_two, loop=control)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -313,8 +316,8 @@ class SteadyFrameGraph:
         t2 = time.perf_counter()
         current.wait_stream(stream)
         top, top_kernels = node_counts(graph.raw_cuda_graph())
-        # The bodies were captured coarsest scale first.
-        bodies = [node_counts(b) for b in reversed(nodes.bodies)]
+        # Per scale, finest first.
+        bodies = [node_counts(b) for b in reversed(control.body_graphs)]
         record = dict(
             test_two=test_two, capture_s=t1 - t0, instantiate_s=t2 - t1,
             nodes=top + sum(b[0] for b in bodies),
@@ -324,10 +327,9 @@ class SteadyFrameGraph:
             reserved_mib=(torch.cuda.memory_reserved(self.device) - reserved) / 2**20,
             replays=0)
         captured = _Captured(graph, nodes, outputs, launches, record)
-        kernels.count_on_device(graph, iterations,
-                                [body.get(s, Counter()) for s in range(key.num_scales)])
+        kernels.count_on_device(graph, units, control.body_launches)
         self.captures.append(record)
-        self._iterations.append(iterations)
+        self._iterations.append(units)
         return captured
 
     def gn_iterations(self) -> int:
@@ -340,7 +342,7 @@ class SteadyFrameGraph:
         replay those outside the WHILE bodies, per run of a body its own
         (a device read)."""
         total = 0
-        for record, iterations in zip(self.captures, self._iterations):
+        for record, units in zip(self.captures, self._iterations):
             total += record["replays"] * record["top_kernel_nodes"] + sum(
-                n * k for n, k in zip(iterations.tolist(), record["body_kernel_nodes"]))
+                n * k for n, k in zip(reversed(units.tolist()), record["body_kernel_nodes"]))
         return total

@@ -8,20 +8,20 @@ coarse-to-fine Gauss-Newton over an image pyramid.
 The JAX package runs the whole optimization in one jitted program with a
 ``lax.while_loop`` early exit (``badslam_tpu/tracking/pairwise.py:423-452``).
 Here one Gauss-Newton iteration (``_gn_step``) runs on device state (q, t
-and the convergence flag), and the caller picks the loop around it
-(`loop`):
+and the convergence flag), and the caller picks the loop control around
+it (`loop`, ``ops.conditional.loop``):
 
-* ``"host"``: a Python loop that reads the convergence flag once per
+* ``HOST``: a Python loop that reads the convergence flag once per
   iteration, one host sync each, as the original CUDA tracker did when it
-  solved each 6x6 step on the CPU. The CPU, the per-frame path and the
-  warm-up of a capture use it.
-* ``"masked"``: ``max_iterations`` steps, each frozen by ``torch.where``
+  solved each 6x6 step on the CPU. The CPU and the per-frame path use it.
+* ``MASKED``: ``max_iterations`` steps, each frozen by ``torch.where``
   once the flag is set: no host read, the same bits as the host loop. The
   plain version of the device loop, for tests.
-* a ``DeviceLoop``: inside a CUDA-graph capture, the level's loop is one
-  WHILE node whose body is one step and whose condition, written by the
-  step, is "not converged and under ``max_iterations``", so the early exit
-  is decided on the card (``steady.SteadyFrameGraph``).
+* a ``DeviceControl``: inside a CUDA-graph capture, the level's loop is
+  one WHILE node (named ``gn/scale<s>``) whose body is one step and whose
+  condition, written by the step, is "not converged and under
+  ``max_iterations``", so the early exit is decided on the card
+  (``steady.SteadyFrameGraph``).
 
 All three stop at `max_iterations` or on convergence, the JAX loop's
 semantics.
@@ -29,7 +29,6 @@ semantics.
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Dict, List, NamedTuple, Tuple, Union
 
 import torch
@@ -38,7 +37,9 @@ from torch.profiler import record_function
 from badslam_torch.geometry import se3
 from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.geometry.linalg import solve_psd
-from badslam_torch.ops import kernels, robust
+from badslam_torch.ops import robust
+from badslam_torch.ops.conditional import HOST, Control
+from badslam_torch.ops.conditional import loop as run_loop
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 from badslam_torch.ops.preprocess import normal_z, shift2d
 from badslam_torch.ops.pyramid import FramePyramidLevel
@@ -57,20 +58,8 @@ class TrackingResult(NamedTuple):
     # host loop, a device bool tensor from the others.
     converged: Union[bool, torch.Tensor]
     # Gauss-Newton iterations run per scale (index = scale): ints from the
-    # host loop, device int32 scalars from the others.
+    # host loop, device int64 scalars from the others.
     iterations: tuple = ()
-
-
-class DeviceLoop(NamedTuple):
-    """The Gauss-Newton loop as WHILE nodes of a CUDA graph being captured
-    (see the module docstring). `nodes` is the capture's
-    ``ops.conditional.WhileNodes``; each run of a body adds one to
-    ``iterations[scale]`` (a device int32 [num_scales] that the caller
-    keeps), and the launches captured in the body of a scale go into
-    ``body_launches[scale]`` (``kernels.count_into``): one run's."""
-    nodes: object
-    iterations: torch.Tensor
-    body_launches: Dict[int, Counter]
 
 
 def _transform_planes(R: torch.Tensor, t: torch.Tensor, x, y, z):
@@ -447,61 +436,30 @@ def _gn_step(cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
     return q, t, _is_converged(x, scaling_factor)
 
 
-HOST = "host"
-MASKED = "masked"
-Loop = Union[str, DeviceLoop]
-
-
 def _gn_level(
     cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
     use_depth, use_descriptor, max_iterations, use_gradmag=False,
-    loop: Loop = HOST, scale: int = 0,
+    loop: Control = HOST, scale: int = 0,
 ):
     """Gauss-Newton at one pyramid level with early exit, under the loop
     control `loop` (module docstring). Returns (q, t, converged,
     iterations)."""
     span = f"gn_iteration/width{cam.width}"
 
-    def step(q, t):
+    def step(state):
         with record_function(span):
-            return _gn_step(cam, base, tracked, q, t, scaling_factor, damping,
-                            baseline_fx, use_depth, use_descriptor, use_gradmag)
+            return _gn_step(cam, base, tracked, state[0], state[1], scaling_factor,
+                            damping, baseline_fx, use_depth, use_descriptor, use_gradmag)
 
+    def running(state):
+        return ~state[2]
+
+    converged = torch.zeros((), dtype=torch.bool, device=q.device)
+    (q, t, converged), it = run_loop(loop, (q, t, converged), running, step,
+                                     most=max_iterations, name=f"gn/scale{scale}")
     if loop == HOST:
-        it, conv = 0, False
-        while it < max_iterations and not conv:
-            q, t, c = step(q, t)
-            conv = bool(c)
-            it += 1
-        return q, t, conv, it
-    if loop == MASKED:
-        conv = torch.zeros((), dtype=torch.bool, device=q.device)
-        it = torch.zeros((), dtype=torch.int32, device=q.device)
-        for _ in range(max_iterations):
-            nq, nt, c = step(q, t)
-            q = torch.where(conv, q, nq)
-            t = torch.where(conv, t, nt)
-            it = it + (~conv).to(torch.int32)
-            conv = conv | c
-        return q, t, conv, it
-    if not isinstance(loop, DeviceLoop):
-        raise ValueError(f"unknown Gauss-Newton loop control {loop!r}")
-    # The state lives in buffers made outside the body, which updates them
-    # in place; `running` is the WHILE node's condition.
-    q, t = q.clone(), t.clone()
-    running = torch.full((), max_iterations > 0, dtype=torch.bool, device=q.device)
-    conv = torch.zeros((), dtype=torch.bool, device=q.device)
-    it = torch.zeros((), dtype=torch.int32, device=q.device)
-    launches = loop.body_launches.setdefault(scale, Counter())
-    with loop.nodes.while_(running), kernels.count_into(launches):
-        nq, nt, c = step(q, t)
-        q.copy_(nq)
-        t.copy_(nt)
-        conv.copy_(c)
-        it.add_(1)
-        loop.iterations[scale].add_(1)
-        running.copy_(~c & (it < max_iterations))
-    return q, t, conv, it
+        converged = bool(converged)
+    return q, t, converged, it
 
 
 def _duel(cam, base, tracked, qa, ta, qb, tb, threshold_factor, baseline_fx,
@@ -534,7 +492,7 @@ def track_frame_pairwise(
     test_two_initial_estimates: bool = False,
     max_iterations: int = 30,
     use_pyramid_level_0: bool = True,
-    loop: Loop = HOST,
+    loop: Control = HOST,
 ) -> TrackingResult:
     """Estimate base_T_frame aligning `tracked` to `base`, coarse to fine.
 

@@ -57,6 +57,22 @@ failure, so any failure exits non-zero before the last line is printed):
    the kernel nodes the card ran), and frames 21-23 as a chunk under
    torch.profiler (kernels and kernel time as it sees them, host launches,
    graph replays), per frame.
+   Phase ba_graph, after steady: every BA call that the JAX package runs as
+   its fused program (the keyframe calls and the drains) is one replay of a
+   captured CUDA graph per call (badslam_torch/ba/graph.py), its loops WHILE
+   nodes. This phase runs the slice's frames through BadSlam.run once with
+   the BA graphs and once with `ba_graph = None` (the same function with
+   host loops), in this process: poses equal (max |dq|, |dt| within 1e-6),
+   the same BA iterations per call (the device counter), surfels and K2
+   launches, K1 once per frame, every call replayed; then three more drain
+   calls on each finished state, device ms per call (the first, a capture,
+   dropped); then frames 0-20 with `--sync_surfel_bucket false` and a
+   replayed drain and keyframe call, each with its trajectory deformation,
+   under torch.cuda.set_sync_debug_mode("error"). Prints the keyframe,
+   drain and steady medians, BA ms per call, iterations, surfels, launches,
+   replays, peak memory, and per graph its capture and instantiate seconds,
+   nodes, WHILE nodes and pool memory. The loop phase also prints its BA
+   graphs' captures, buckets, replays and keyframe-frame median.
 6. The odometry path: the first 10 frames with BA off; K1 once per frame,
    ATE below 1e-3 m.
 7. The card against the CPU: a 160x120, 13-frame BA sequence on both
@@ -900,6 +916,133 @@ def phase_steady(data: str) -> None:
         raise AssertionError(f"steady checks failed: {failed}")
 
 
+BA_GRAPH_ATOL = 1e-6
+
+
+def _ba_run(data: str, graph: bool) -> dict:
+    """The slice's frames and flags through BadSlam.run on cuda: with the
+    fused BA calls as CUDA-graph replays, or (graph false) with the same
+    function called eagerly with the host loops. The steady frames are
+    graph replays in both."""
+    config = cli.config_from_args(cli.build_parser().parse_args([data, *SLICE_FLAGS]))
+    slam = BadSlam(config, load_tum_dataset(data), "cuda")
+    if not graph:
+        slam.ba_graph = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    frame_ms = dict(slam.frame_times_ms)
+    kf, drain = set(slam.keyframe_frames), set(slam.ba_drain_frames)
+    steady = [frame_ms[i] for i in sorted(frame_ms)[1:] if i not in kf and i not in drain]
+    ba = slam.direct_ba
+    return dict(
+        slam=slam, wall=wall, launches=launches, q=slam.traj_q.cpu().numpy(),
+        t=slam.traj_t.cpu().numpy(), steady_ms=statistics.median(steady),
+        keyframe_ms=statistics.median([frame_ms[i] for i in slam.keyframe_frames[1:]]),
+        drain_ms=statistics.median([frame_ms[i] for i in drain - kf]),
+        iterations=list(ba.iterations_run), surfels=ba.surfel_count,
+        ba_ms=ba.ba_spans.ms(), peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _ba_sync_check(data: str) -> dict:
+    """One replayed drain and one replayed keyframe call, each with the
+    trajectory deformation after it, under torch.cuda.set_sync_debug_mode
+    ("error"), with sync_surfel_bucket false: frames 0-20 of the slice run
+    first (their BA calls capture the graphs of both kinds). Raises if
+    either syncs."""
+    args = cli.build_parser().parse_args(
+        [data, *SLICE_FLAGS, "--sync_surfel_bucket", "false"])
+    slam = BadSlam(cli.config_from_args(args), load_tum_dataset(data), "cuda")
+    slam.run(0, 21)
+    graph, ba = slam.ba_graph, slam.direct_ba
+    captures, replays = len(graph.captures), graph.replays
+    queued = slam.queued_ba_iterations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam._drain_queued_ba(2, 20)
+        old = slam._remember_keyframe_poses()
+        ba.bundle_adjustment(max_iterations=2, loop=slam.ba_loop, graph=graph)
+        slam._apply_ba_pose_updates(*old)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(captures=len(graph.captures) - captures, replays=graph.replays - replays,
+                drained=queued - slam.queued_ba_iterations,
+                iterations=ba.iterations_run[-2:])
+
+
+def _drain_calls_ms(slam, calls: int = 4) -> list:
+    """Device ms (CUDA events) of `calls` drain calls of 2 iterations on the
+    finished run's state: replays of one graph (the first call captures it)
+    or eager calls; the first call is dropped."""
+    ms = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        slam.direct_ba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False,
+                                         loop=slam.ba_loop, graph=slam.ba_graph)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms[1:]
+
+
+def phase_ba_graph(data: str) -> None:
+    """The fused BA call as one CUDA graph per call against the eager call
+    of the same function with the host loops, on the slice's frames, and
+    then three more drain calls on each finished state, timed; then a
+    replayed drain and keyframe call under the sync check."""
+    runs = {"graph": _ba_run(data, True), "eager": _ba_run(data, False)}
+    g, e = runs["graph"], runs["eager"]
+    bag = g["slam"].ba_graph
+    dq, dt = float(np.abs(g["q"] - e["q"]).max()), float(np.abs(g["t"] - e["t"]).max())
+    drain_ms = {k: _drain_calls_ms(r["slam"]) for k, r in runs.items()}
+    sync = _ba_sync_check(data)
+    print(f"ba_graph ({SMI}): {FRAMES} VGA frames, BA graph / eager host loops: keyframe "
+          f"frames median {g['keyframe_ms']:.3f} / {e['keyframe_ms']:.3f} ms, BA-drain frames "
+          f"{g['drain_ms']:.3f} / {e['drain_ms']:.3f} ms, steady frames {g['steady_ms']:.3f} / "
+          f"{e['steady_ms']:.3f} ms; BA ms per call {_ms_median(g['ba_ms'])} / "
+          f"{_ms_median(e['ba_ms'])}; wall {g['wall']:.2f} / {e['wall']:.2f} s; BA iterations "
+          f"per call {g['iterations']} / {e['iterations']}; max |dq| {dq:.3e}, |dt| {dt:.3e} "
+          f"(atol {BA_GRAPH_ATOL}); surfels {g['surfels']} / {e['surfels']}; launches "
+          f"{g['launches']} / {e['launches']}; replays {bag.replays}; peak memory "
+          f"{g['peak_mib']:.1f} / {e['peak_mib']:.1f} MiB; then drain calls of 2 "
+          f"iterations on the finished state, device ms per call: replays "
+          f"{', '.join(f'{x:.3f}' for x in drain_ms['graph'])} / eager "
+          f"{', '.join(f'{x:.3f}' for x in drain_ms['eager'])}")
+    for c in bag.captures:
+        print(f"  BA graph (scheme-end first {c['end_first']}, last {c['end_last']}, "
+              f"keyframe bucket {c['keyframe_bucket']}, surfel bucket {c['surfel_bucket']}): "
+              f"capture {c['capture_s']:.3f} s, instantiate {c['instantiate_s']:.3f} s, "
+              f"{c['nodes']} nodes ({c['kernel_nodes']} kernel nodes: "
+              f"{c['top_kernel_nodes']} outside the bodies of its {c['while_nodes']} WHILE "
+              f"nodes, per body {c['body_kernel_nodes']}), {c['replays']} replays, pools "
+              f"{c['reserved_mib']:.1f} MiB")
+    print(f"  under set_sync_debug_mode('error') with sync_surfel_bucket false: a replayed "
+          f"drain ({sync['drained']} iterations queued) and keyframe call, iterations "
+          f"{sync['iterations']}, {sync['replays']} replays, {sync['captures']} captures, "
+          f"no sync")
+    checks = {
+        "graph poses equal the eager call's": dq <= BA_GRAPH_ATOL and dt <= BA_GRAPH_ATOL,
+        "BA iterations equal": g["iterations"] == e["iterations"] and sum(g["iterations"]) > 0,
+        "K2 launches equal": g["launches"][kernels.GATHER] == e["launches"][kernels.GATHER] > 0,
+        "K1 once per frame in both": (g["launches"][kernels.BILATERAL]
+                                      == e["launches"][kernels.BILATERAL] == FRAMES),
+        "surfel counts equal": g["surfels"] == e["surfels"] > 0,
+        "every BA call replayed": bag.replays == len(g["iterations"]) + len(drain_ms["graph"]) + 1,
+        "the sync check replayed both calls": sync["replays"] == 2 and sync["captures"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ba_graph checks failed: {failed}")
+
+
 def phase_profile(data: str, out_dir: str) -> None:
     """The slice once more under the CLI's --profile (timings there carry
     the profiler's overhead; counts are exact)."""
@@ -1403,6 +1546,15 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
           f"{summary['keyframes']}; surfels {summary['surfels']}; loop off (its own process, "
           f"beside phases 5-14): per-frame median {statistics.median(off_ms):.2f} ms; "
           f"peak memory {peak_mb:.1f} MiB; launches {launches} ({SMI})")
+    bag = slam.ba_graph
+    print(f"loop: BA graphs: {len(bag.captures)} captures (keyframe / surfel buckets "
+          f"{sorted({(c['keyframe_bucket'], c['surfel_bucket']) for c in bag.captures})}), "
+          f"capture {sum(c['capture_s'] for c in bag.captures):.2f} s and instantiate "
+          f"{sum(c['instantiate_s'] for c in bag.captures):.2f} s in all, {bag.replays} "
+          f"replays; keyframe frames median "
+          f"{statistics.median([frame_ms[i] for i in sorted(kf_frames)]):.2f} ms "
+          f"({len(kf_frames)}); BA ms per call {_ms_median(slam.direct_ba.ba_spans.ms())} "
+          f"({SMI})")
     checks = {
         "a closure applied": slam.loop_closure_count >= 1,
         f"none applied by frame {LOOP_AT - 1}": all(f >= LOOP_AT for f in applied),
@@ -1413,6 +1565,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
             [np.r_[p.q, p.t] for p in poses_off]))),
         "K1 once per frame": launches[kernels.BILATERAL] == LOOP_FRAMES,
         "K2 launched in the refinement": sum(attempt_k2) > 0,
+        "the BA calls replayed graphs": bag.replays == len(summary["ba_iterations"]) > 0,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2241,6 +2394,7 @@ def main(argv=None) -> int:
             data, slice_launches, q_slice, t_slice, slice_summary = _phase(
                 "slice", phase_slice, workdir)
             _phase("steady", phase_steady, data)
+            _phase("ba_graph", phase_ba_graph, data)
             if profile_dir:
                 _phase("profile", phase_profile, data, profile_dir)
             q_odo, t_odo = _phase("odometry", phase_odometry, workdir, data)

@@ -60,7 +60,7 @@ def _sleeper(seconds, calls=None):
 def _both(variants_for, iterations=3):
     """(JAX winner, port winner) of the same variants."""
     return (jtuner.autotune("k", variants_for(), iterations=iterations),
-            ttuner.autotune("k", variants_for(), iterations=iterations))
+            ttuner.autotune("k", variants_for(), iterations=iterations, device="cpu"))
 
 
 @pytest.mark.parametrize("order", [("slow", "fast", "mid"), ("fast", "mid", "slow")],
@@ -78,8 +78,9 @@ def test_each_variant_called_one_plus_iterations(stores, iterations):
     counts = {}
     for package in (jtuner, ttuner):
         calls = {"a": [], "b": []}
+        extra = {"device": "cpu"} if package is ttuner else {}
         package.autotune("k", {n: _sleeper(0.0, calls[n]) for n in calls},
-                         iterations=iterations)
+                         iterations=iterations, **extra)
         counts[package.__name__] = {n: len(c) for n, c in calls.items()}
     assert counts[jtuner.__name__] == counts[ttuner.__name__] == {
         "a": 1 + iterations, "b": 1 + iterations}
@@ -115,6 +116,20 @@ def test_winner_is_persisted_under_the_same_key_as_jax(stores):
     assert jax_store == torch_store == {"cpu:k": "fast"}
     assert ttuner.device_key("k", "cpu") == jtuner.backend_key("k") == "cpu:k"
     assert ttuner.get("cpu:k") == jtuner.get("cpu:k") == "fast"
+
+
+def test_entry_points_default_to_the_card(stores):
+    """autotune and device_key target the card unless the caller asks for
+    the CPU, and raise without CUDA (as DirectBA does): a call on the card's
+    machine never times the CPU's enqueue of CUDA work by accident."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttuner.device_key("k")
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttuner.autotune("k", {"a": _sleeper(0.0, calls)})
+    assert calls == [] and not os.path.exists(stores["torch"])
 
 
 def test_store_round_trips(stores, monkeypatch):

@@ -40,6 +40,10 @@ Tolerances:
     same function with the host-read loop on the card: poses atol 1e-6
     (the same kernels on the same inputs; measured 0), the same
     Gauss-Newton iterations and the same launches.
+  * the fused BA call's CUDA graph replays against the eager call of the
+    same function with the host loops on the card: poses atol 1e-6, the
+    same iterations, surfel counts and K2 launches; replays make no sync
+    with sync_surfel_bucket false; a bucket change captures anew.
 """
 
 import json
@@ -875,3 +879,83 @@ def test_steady_graph_recaptures_on_new_intrinsics(cuda, tmp_path):
     assert [c["test_two"] for c in g.steady_graph.captures] == [False, True, True]
     torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
     torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ba_graph_replays_equal_the_eager_call(cuda, tmp_path):
+    """Every BA call of a run (keyframe calls and drains) as a replay of its
+    captured graph, against the eager call of the same function with the
+    host loops: the same poses, iterations, surfels and K2 launches."""
+    path = _steady_sequence(tmp_path)
+    runs = []
+    for graph in (True, False):
+        slam = _steady_slam(path, cuda, max_num_ba_iterations_per_keyframe=4)
+        if not graph:
+            slam.ba_graph = None
+        kernels.reset_launch_counts()
+        slam.run()
+        torch.cuda.synchronize()
+        runs.append((slam, dict(kernels.launch_counts)))
+    (g, lg), (e, le) = runs
+    torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
+    iterations = g.direct_ba.iterations_run
+    assert iterations == e.direct_ba.iterations_run and sum(iterations) > 0
+    assert g.direct_ba.surfel_count == e.direct_ba.surfel_count > 0
+    assert lg[kernels.GATHER] == le[kernels.GATHER] > 0
+    assert g.ba_graph.replays == len(iterations) and len(g.ba_graph.captures) >= 2
+    assert all(c["while_nodes"] >= 4 and c["nodes"] > c["kernel_nodes"] > 0
+               for c in g.ba_graph.captures)
+
+
+@pytest.mark.cuda
+def test_ba_graph_replays_make_no_host_sync(cuda, tmp_path):
+    """With both call kinds captured, a replayed drain and keyframe call,
+    each with the trajectory deformation after it, run under
+    torch.cuda.set_sync_debug_mode("error") with sync_surfel_bucket false."""
+    slam = _steady_slam(_steady_sequence(tmp_path), cuda,
+                        max_num_ba_iterations_per_keyframe=4, sync_surfel_bucket=False)
+    slam.run(0, 13)  # keyframe calls at 6 and 12, a chunk's drain at 11
+    bag, ba = slam.ba_graph, slam.direct_ba
+    captures, replays = len(bag.captures), bag.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam._drain_queued_ba(2, 12)
+        old = slam._remember_keyframe_poses()
+        ba.bundle_adjustment(max_iterations=2, loop=slam.ba_loop, graph=bag)
+        slam._apply_ba_pose_updates(*old)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(bag.captures) == captures and bag.replays == replays + 2
+    assert np.isfinite(slam.traj_t.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_ba_graph_recaptures_when_a_bucket_changes(cuda, tmp_path):
+    """A larger surfel bucket captures the call anew and frees the graph of
+    the smaller one; the replay equals the eager call on the same state."""
+    path = _steady_sequence(tmp_path)
+    slams = [_steady_slam(path, cuda, max_num_ba_iterations_per_keyframe=4,
+                          surfel_bucket_base=1024) for _ in range(2)]
+    slams[1].ba_graph = None
+    before = []
+    for slam in slams:
+        slam.run(0, 8)
+        ba = slam.direct_ba
+        before.append(ba.surfel_bucket())
+        ba.known_surfel_bound = ba._creation_bound = 2 * before[-1] + 1
+    bag = slams[0].ba_graph
+    captures = len(bag.captures)
+    for slam in slams:
+        slam.direct_ba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False,
+                                         graph=slam.ba_graph)
+    torch.cuda.synchronize()
+    g, e = (slam.direct_ba for slam in slams)
+    assert len(bag.captures) == captures + 1
+    assert bag.captures[-1]["surfel_bucket"] == g.surfel_bucket() > before[0] == before[1]
+    assert {k.surfel_bucket for k in bag._graphs} == {g.surfel_bucket()}
+    torch.testing.assert_close(g.keyframes.q, e.keyframes.q, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g.keyframes.t, e.keyframes.t, atol=1e-6, rtol=0)
+    assert g.surfel_count == e.surfel_count > 0

@@ -112,7 +112,7 @@ def test_import_badslam_torch_leaves_jax_out():
     code = (
         "import sys\n"
         "import badslam_torch, badslam_torch.cli, badslam_torch.frontend\n"
-        "import badslam_torch.ba.scheme, badslam_torch.probe_gather\n"
+        "import badslam_torch.ba.scheme, badslam_torch.ba.graph, badslam_torch.probe_gather\n"
         "import badslam_torch.synthetic, badslam_torch.convert\n"
         "import badslam_torch.ops.kernels, badslam_torch.io.state\n"
         "import badslam_torch.ba.pcg, badslam_torch.ba.intrinsics_opt\n"

@@ -85,6 +85,26 @@ class Pair:
         return self.t.keyframes.stack(ids)
 
 
+class HostRead(AssertionError):
+    pass
+
+
+_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy")
+
+
+def forbid_host_reads(mp: pytest.MonkeyPatch) -> None:
+    """Make every tensor-to-host conversion raise: bool(), int(), float(),
+    operator.index(), .item(), .tolist(), .numpy(). Shared by the port's
+    read-free tests (test_torch_steady.py, test_torch_ba_readfree.py)."""
+    def poisoned(name):
+        def read(self, *args, **kwargs):
+            raise HostRead(f"host read of a {tuple(self.shape)} tensor ({name})")
+        return read
+
+    for name in _READS:
+        mp.setattr(torch.Tensor, name, poisoned(name))
+
+
 def assert_maps_equal(tm, jm, atol=1e-5):
     assert int(tm.count) == int(jm.count)
     tv, jv = tm.valid.numpy(), np.asarray(jm.valid)
@@ -149,7 +169,10 @@ def test_merge_removes_duplicates_like_jax():
     p.j.surfels = dup._replace(valid=dup.valid | saved.valid)
     p.jmap_to_port()
     p.j._merge_surfels_masked(p.j.keyframes.mask_for_ids([kf0]))
-    p.t.surfels = p.t._merge_surfels(p.t.surfels, [kf0])
+    c = p.t.config
+    p.t.surfels = tsf.merge_surfels_for_keyframes(
+        p.t.surfels, p.tcam, p.tstack([kf0]), p.t.keyframes.mask_for_ids([kf0]),
+        c.baseline_fx, c.sparse_surfel_cell_size, c.surfel_merge_dist_factor)
     assert p.j.surfel_count == n1
     assert_maps_equal(p.t.surfels, p.j.surfels)
 

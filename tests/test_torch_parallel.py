@@ -43,6 +43,7 @@ from badslam_torch.ba.scheme import DirectBA as TDirectBA
 from badslam_torch.cli import run as torch_run
 from badslam_torch.config import BadSlamConfig as TConfig
 from badslam_torch.io import dataset as tds
+from badslam_torch.mapping.keyframes import KeyframeStack
 from badslam_torch.mapping import surfels as tsf
 from badslam_torch.parallel.dryrun import dryrun_multichip
 
@@ -201,9 +202,9 @@ def test_estimate_pose_sharded(scene):
     q0, t0 = (torch.tensor(np.asarray(x), dtype=torch.float32) for x in (pert.q, pert.t))
     q, t = tpar.estimate_pose_sharded(scene.mesh, tmap, scene.tcam, q0, t0, tks.depth[1],
                                       tks.nx[1], tks.ny[1], tks.intensity[1])
-    oq, ot = tpose._estimate_poses(tmap, scene.tcam, q0[None], t0[None], tks.depth[1:2],
-                                   tks.nx[1:2], tks.ny[1:2], tks.intensity[1:2], 40.0,
-                                   True, True, 30)
+    one = KeyframeStack(tks.depth[1:2], tks.nx[1:2], tks.ny[1:2], None,
+                        tks.intensity[1:2], q0[None], t0[None], torch.ones(1, dtype=torch.bool))
+    oq, ot = tpose._estimate_poses(tmap, scene.tcam, one, 40.0, True, True, 30)
     _assert_poses(q[None], t[None], np.asarray(jq)[None], np.asarray(jt)[None], POSE_ATOL)
     _assert_poses(q[None], t[None], oq, ot, OWN_POSE_ATOL)
     _assert_poses(q[None], t[None], np.asarray(GT[1].q)[None], np.asarray(GT[1].t)[None],
@@ -244,8 +245,8 @@ def test_create_surfels_streamed(scene, streamed):
         baseline_fx=40.0, cell_size=4)
     out = tpar.gather_rows(scene.mesh, sm)
     own, own_created = tsf.create_surfels_for_keyframes(
-        scene.port_map(scene.jmap), scene.tcam, tks.stack(), ids, tks.covis, 2, 40.0, 4,
-        rgb_stack=tks.rgb)
+        scene.port_map(scene.jmap), scene.tcam, tks.stack(), tks.mask_for_ids(ids),
+        tks.covis, 2, 40.0, 4, rgb_stack=tks.rgb)
     assert int(created) == int(jcreated) == int(own_created) > 50
     _assert_maps(out, jmap, ("valid", "active"))
     _assert_same(out, own)
@@ -291,8 +292,8 @@ def test_merge_and_compact_streamed(scene, streamed):
         scene.mesh, tpar.shard_rows(scene.mesh, scene.port_map(m)), scene.tcam,
         _planes(scene, streamed), tks.q[:D], tks.t[:D], ids, baseline_fx=40.0, cell_size=4)
     merged = tpar.gather_rows(scene.mesh, sm)
-    own = tsf.merge_surfels_for_keyframes(scene.port_map(m), scene.tcam, tks.stack(), ids,
-                                          40.0, 4)
+    own = tsf.merge_surfels_for_keyframes(scene.port_map(m), scene.tcam, tks.stack(),
+                                          tks.mask_for_ids(ids), 40.0, 4)
     assert int(m.count) - int(merged.count) > 100  # the copies merged
     _assert_maps(merged, jmerged, ("valid", "active"))
     _assert_same(merged, own)

@@ -35,6 +35,8 @@ from badslam_torch.geometry import se3_np as s3
 from badslam_torch.io import dataset as tds
 from badslam_torch.steady import steady_frame, steady_key
 
+from test_torch_mapping import HostRead, forbid_host_reads
+
 torch.set_num_threads(1)
 
 POSE_ATOL = 1e-4
@@ -76,33 +78,14 @@ def _inputs(slam, i):
             slam._hist_q.clone(), slam._hist_t.clone(), torch.tensor([i]))
 
 
-class _HostRead(AssertionError):
-    pass
-
-
-_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy")
-
-
-def _forbid_host_reads(mp: pytest.MonkeyPatch) -> None:
-    """Make every tensor-to-host conversion raise: bool(), int(), float(),
-    operator.index(), .item(), .tolist(), .numpy()."""
-    def poisoned(name):
-        def read(self, *args, **kwargs):
-            raise _HostRead(f"host read of a {tuple(self.shape)} tensor ({name})")
-        return read
-
-    for name in _READS:
-        mp.setattr(torch.Tensor, name, poisoned(name))
-
-
 def test_forbid_host_reads_fires():
     x = torch.ones(3)
     with pytest.MonkeyPatch.context() as mp:
-        _forbid_host_reads(mp)
+        forbid_host_reads(mp)
         for read in (lambda: bool(x[0]), lambda: float(x[0]), lambda: int(x[0]),
                      lambda: x[0].item(), lambda: x.tolist(), lambda: x.numpy(),
                      lambda: [1, 2, 3][x[0].to(torch.int64)]):
-            with pytest.raises(_HostRead):
+            with pytest.raises(HostRead):
                 read()
     assert bool(x[0]) and x.tolist() == [1.0, 1.0, 1.0]
 
@@ -118,7 +101,7 @@ def test_masked_steady_frame_is_read_free(sequence):
     args = _inputs(slam, 4)
     ref = steady_frame(*_inputs(slam, 4), test_two=True, loop="host")
     with pytest.MonkeyPatch.context() as mp:
-        _forbid_host_reads(mp)
+        forbid_host_reads(mp)
         out = steady_frame(*args, test_two=True, loop="masked")
     for a, b in ((out.q, ref.q), (out.t, ref.t), (out.hist_q, ref.hist_q),
                  (out.traj_t, ref.traj_t)):

@@ -8,10 +8,9 @@ Tolerances:
   * the report table: character for character, for the same add_time
     calls; snapshot and delta: equal;
   * rows: the same keys in the same order, and equal BA_count,
-    inner_iteration, fused_iterations and keyframe_count (their ms are
-    times and differ); surfel_bound, which the JAX package takes from its
-    pow-2 surfel bucket and the port from its working map, must bound the
-    surfel count;
+    inner_iteration, fused_iterations, keyframe_count and surfel_bound (the
+    host-known surfel bound, known_surfel_bound in both packages; it bounds
+    the surfel count); their ms are times and differ;
   * poses under sync_stage_profiling against the JAX package's staged run:
     atol 1e-4 (tests/test_torch_ba.py's and test_torch_slice.py's hold; two
     float orders); the port's unflagged run with and without --save_timings:
@@ -179,13 +178,14 @@ def _fields(row: str) -> dict:
 
 
 def _assert_rows_match(jrows, trows, surfels: int):
-    """The same keys in the same order; the counting fields equal; the
-    port's surfel_bound bounds the surfel count; every ms a number."""
+    """The same keys in the same order; the counting fields and the surfel
+    bound equal; the bound bounds the surfel count; every ms a number."""
     assert [r.split()[0] for r in trows] == [r.split()[0] for r in jrows]
     for jr, tr in zip(jrows, trows):
         jf, tf = _fields(jr), _fields(tr)
         assert list(tf) == list(jf), (tr, jr)
-        for key in ("BA_count", "inner_iteration", "fused_iterations", "keyframe_count"):
+        for key in ("BA_count", "inner_iteration", "fused_iterations", "keyframe_count",
+                    "surfel_bound"):
             assert tf.get(key) == jf.get(key), (key, tr, jr)
         if "surfel_bound" in tf:
             assert int(tf["surfel_bound"]) >= surfels
