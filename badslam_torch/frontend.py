@@ -28,7 +28,11 @@ RANSAC), on a worker thread with ``parallel_loop_detection`` (the default),
 whose results are applied when the next keyframe arrives and at the end of
 ``run``. A candidate is refined by three tracker runs against the matched
 keyframe and its temporal neighbours, gated, and applied through the pose
-graph and the trajectory deformation (``loop/closure.py``).
+graph and the trajectory deformation (``loop/closure.py``), all with no
+host read, as in the JAX package: on a CUDA device as one replay of the
+attempt's captured CUDA graph (``loop.graph.ClosureGraph``), on the CPU
+eagerly under ``closure_loop``; ``closure_graph = None`` makes a card run
+the eager call. ``loop_closure_count`` reads the device counter.
 
 ``run_live`` consumes a live stream (``io/live_inputs.py``) frame by frame
 as it arrives. With a ``live_viewer`` (``viz/viewer.py``) every keyframe
@@ -98,7 +102,8 @@ from badslam_torch.geometry import se3_np as s3
 from badslam_torch.io.dataset import RGBDVideo, save_tum_trajectory
 from badslam_torch.io.ply import save_ply
 from badslam_torch.io.preload import PreLoadThread
-from badslam_torch.loop.closure import apply_closure
+from badslam_torch.loop import closure
+from badslam_torch.loop.graph import ClosureGraph
 from badslam_torch.loop.detector import LoopDetector
 from badslam_torch.loop.features import gray_from_rgb
 from badslam_torch.loop.thread import LoopDetectionThread
@@ -269,11 +274,18 @@ class BadSlam:
         # run controls before each frame.
         self.live_viewer = None
 
-        # Loop closure (badslam_tpu/frontend.py:365-395).
-        self.loop_closure_count = 0
+        # Loop closure (badslam_tpu/frontend.py:365-395). The closures
+        # applied, counted on the device (loop_closure_count reads it).
+        self._closure_count = torch.zeros((), dtype=torch.int64, device=self.device)
         # One entry per closure attempt: the frame being processed, the two
-        # keyframe slots, the refinements run and the two gates' outcomes.
-        self.closure_attempts: List[dict] = []
+        # keyframe slots, the refinements run and the two gates' outcomes
+        # (device bools until closure_attempts reads them).
+        self._closure_attempts: List[dict] = []
+        # The attempts: on a CUDA device as graph replays, else eagerly under
+        # the loop control closure_loop (HOST; MASKED reads nothing).
+        self.closure_graph = (ClosureGraph(self.device)
+                              if self.device.type == "cuda" else None)
+        self.closure_loop = HOST
         self.loop_detector: Optional[LoopDetector] = None
         self._loop_thread: Optional[LoopDetectionThread] = None
         self._loop_pending_seq = -1
@@ -297,6 +309,27 @@ class BadSlam:
                 images_size=det_size, image_frequency=freq)
             if config.parallel_loop_detection:
                 self._loop_thread = LoopDetectionThread(self.loop_detector)
+
+    @property
+    def loop_closure_count(self) -> int:
+        """The loop closures applied (a device read: for reports and
+        snapshots, badslam_tpu/frontend.py:440-448)."""
+        return int(self._closure_count)
+
+    @loop_closure_count.setter
+    def loop_closure_count(self, value: int) -> None:
+        self._closure_count.fill_(int(value))
+
+    @property
+    def closure_attempts(self) -> List[dict]:
+        """One dict per closure attempt: frame, kf, matched, refinements,
+        consistent, needed. The gates' outcomes are read from the device
+        the first time an attempt is read here."""
+        for a in self._closure_attempts:
+            if isinstance(a["consistent"], torch.Tensor):
+                a["consistent"], a["needed"] = (
+                    bool(x) for x in torch.stack([a["consistent"], a["needed"]]).tolist())
+        return self._closure_attempts
 
     def close(self) -> None:
         """Stop the loop-detection worker thread (idempotent)."""
@@ -729,19 +762,17 @@ class BadSlam:
                 with Timing.time("loop closure attempt", device=self.device):
                     self._attempt_loop_closure(r.kf_id, r.candidate, r.cur_T_matched)
 
-    def _keyframe_pyramid(self, kf_id: int):
-        ks = self.direct_ba.keyframes
-        return build_pyramid(ks.depth[kf_id], ks.nx[kf_id], ks.ny[kf_id],
-                             ks.intensity[kf_id], self.config.num_scales,
-                             gradmag=self.config.use_gradmag)
-
     def _attempt_loop_closure(self, kf_id: int, matched_id: int,
                               cur_T_matched_init: s3.SE3) -> None:
-        """Verify a candidate and apply it: direct refinement of
-        cur_T_matched against the matched keyframe and its temporal
-        neighbours (loop_detector.cc:436-548), then the gates, the pose
-        graph and the trajectory deformation (loop/closure.py). A rejected
-        candidate leaves every pose as it was."""
+        """Verify a candidate and apply it with no host read
+        (badslam_tpu/frontend.py:987-1080): the host supplies only
+        value-free metadata (the live order, the refinements' slots,
+        RANSAC's pose, the detector's keypoints, the deformation brackets);
+        the refinements, the gates, the pose graph and the gated in-place
+        update of the keyframe poses, the trajectory and the closure counter
+        run on the device (loop/closure.py), on a CUDA device as one replay
+        of the attempt's graph (loop/graph.py). A rejected candidate leaves
+        every pose bit-identical."""
         c = self.config
         ks = self.direct_ba.keyframes
         # Live keyframes in temporal order (slots are recycled by merging).
@@ -754,48 +785,30 @@ class BadSlam:
                      if 0 <= j < len(order) and order[j] != kf_id]
         if len(neighbors) < 2:
             return
+        det = self.loop_detector
+        points = det.features[kf_id].points_local if det is not None else np.zeros((0, 3))
+        host = closure.make_inputs(
+            order, cur_pos, matched_pos, neighbors, cur_T_matched_init.q,
+            cur_T_matched_init.t, points, det.max_features if det is not None else 1,
+            self._bracket_host())
+        key = closure.ClosureKey(
+            c.num_scales, c.use_gradmag, c.baseline_fx, c.use_geometric_residuals,
+            c.use_photometric_residuals and not c.use_gradmag, c.tracking_max_iterations,
+            len(neighbors))
         with record_function("loop_closure_attempt"):
-            dev = self.device
-            init_host = se3.SE3(
-                torch.as_tensor(np.asarray(cur_T_matched_init.q), dtype=torch.float32).to(dev),
-                torch.as_tensor(np.asarray(cur_T_matched_init.t), dtype=torch.float32).to(dev))
-            # The current keyframe is the tracker's base: it estimates
-            # cur_T_old, initialized from RANSAC and the keyframe poses.
-            cur_pyr = self._keyframe_pyramid(kf_id)
-            matched_pose = ks.pose(matched_id)
-            ref_q, ref_t = [], []
-            for old in neighbors:
-                matched_T_old = se3.mul(se3.inverse(matched_pose), ks.pose(old))
-                init = se3.mul(init_host, matched_T_old)
-                res = track_frame_pairwise(
-                    self.cams_pyramid, cur_pyr, self._keyframe_pyramid(old),
-                    init.q, init.t, init.q, init.t,
-                    baseline_fx=c.baseline_fx,
-                    use_depth=c.use_geometric_residuals,
-                    use_descriptor=c.use_photometric_residuals and not c.use_gradmag,
-                    use_gradmag=c.use_gradmag,
-                    max_iterations=c.tracking_max_iterations)
-                cur_T_matched = se3.mul(se3.SE3(res.q, res.t), se3.inverse(matched_T_old))
-                ref_q.append(cur_T_matched.q)
-                ref_t.append(cur_T_matched.t)
-            pts = torch.as_tensor(self.loop_detector.features[kf_id].points_local).to(dev)
-            brackets = self._bracket_arrays()
-            out = apply_closure(
-                ks.q, ks.t, torch.as_tensor(order, device=dev), cur_pos, matched_pos,
-                torch.stack(ref_q), torch.stack(ref_t),
-                torch.ones(len(ref_q), dtype=torch.bool, device=dev),
-                pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
-                self.traj_q, self.traj_t, *brackets, self.cam)
-            self.closure_attempts.append(dict(
+            state = (self.cams_pyramid, self.cam, ks, self.traj_q, self.traj_t,
+                     self._closure_count)
+            if self.closure_graph is not None:
+                out = self.closure_graph.run(key, *state, host)
+            else:
+                out = closure.attempt_closure(key, *state, closure.upload(host, self.device),
+                                              loop=self.closure_loop)
+            self._closure_attempts.append(dict(
                 frame=self.last_frame_index, kf=kf_id, matched=matched_id,
                 refinements=len(neighbors), consistent=out.consistent,
                 needed=out.needed))
-            if out.ok:
-                ks.q.copy_(out.kq)
-                ks.t.copy_(out.kt)
-                self.traj_q, self.traj_t = out.traj_q, out.traj_t
-                self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
-                self.loop_closure_count += 1
+            # The odometry anchor (a device copy, not a read).
+            self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
 
     # ------------------------------------------------------------------
     # Live viewer commands (badslam_tpu/frontend.py:1084-1200)
@@ -921,10 +934,10 @@ class BadSlam:
         ks = self.direct_ba.keyframes
         return ks.q.clone(), ks.t.clone()
 
-    def _bracket_arrays(self):
+    def _bracket_host(self):
         """Per frame: the bracketing keyframe slots, the interpolation
         fraction and the frame's own keyframe slot (or -1), from the live
-        keyframes' dataset frame indices (host arithmetic)."""
+        keyframes' dataset frame indices (host arithmetic, numpy)."""
         ks = self.direct_ba.keyframes
         pairs = sorted(
             (f, s) for s, f in enumerate(ks.frame_indices[: ks.count])
@@ -948,29 +961,35 @@ class BadSlam:
         kf_slot = np.full(n_frames, -1, np.int64)
         in_range = kf_frames < n_frames
         kf_slot[kf_frames[in_range]] = kf_slots[in_range]
+        return prev_slot, next_slot, alpha.astype(np.float32), kf_slot
 
-        def dev(x, dtype=torch.int64):
-            host = torch.as_tensor(x, dtype=dtype)
-            if self.device.type != "cuda":
-                return host
-            return host.pin_memory().to(self.device, non_blocking=True)
-
-        return (dev(prev_slot), dev(next_slot), dev(alpha, torch.float32),
-                dev(kf_slot))
+    def _bracket_arrays(self):
+        """The brackets of _bracket_host on the device (through pinned
+        memory, without waiting, on a CUDA device)."""
+        out = []
+        for x in self._bracket_host():
+            host = torch.from_numpy(x)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            out.append(host.to(self.device, non_blocking=True))
+        return tuple(out)
 
     def _apply_ba_pose_updates(self, old_kq, old_kt) -> None:
         """After every BA call: deform the whole trajectory along with the
         keyframes (bad_slam.cc:529-534 -> trajectory_deformation.cc:61-130)
-        and re-read the base keyframe's pose."""
+        and re-read the base keyframe's pose. The trajectory is written in
+        place, so its buffers (a steady graph's static inputs on a card, and
+        the closure graph's key) keep their storage."""
         ks = self.direct_ba.keyframes
         if ks.count == 0:
             return
         with record_function("trajectory_deformation"), \
                 Timing.time("trajectory deformation", device=self.device):
             prev_slot, next_slot, alpha, kf_slot = self._bracket_arrays()
-            self.traj_q, self.traj_t = deform_trajectory(
-                self.traj_q, self.traj_t, old_kq, old_kt, ks.q, ks.t,
-                prev_slot, next_slot, alpha, kf_slot)
+            q, t = deform_trajectory(self.traj_q, self.traj_t, old_kq, old_kt, ks.q, ks.t,
+                                     prev_slot, next_slot, alpha, kf_slot)
+            self.traj_q.copy_(q)
+            self.traj_t.copy_(t)
             self.base_kf_global_T_frame = ks.pose(self.base_kf_id)
 
     def final_bundle_adjustment(self, window_size: int = 16,

@@ -16,8 +16,9 @@ Two solvers, as in the JAX package:
   torch on the keyframe store's device: float32, a dense 6n x 6n system,
   vertex 0 held by a 1e4 prior, 1e-5 damping, 20 iterations, non-finite
   deltas zeroed, the chain measurements taken from the input poses (so a
-  loop weight of 0 makes the solve a no-op up to rounding). The dense
-  system is solved with ``torch.linalg.solve``.
+  loop weight of 0 makes the solve a no-op up to rounding), the chain past
+  a live prefix weighted 0 (a padded order). The dense system is solved by
+  LU (``torch.linalg.solve_ex``) with no host read.
 """
 
 from __future__ import annotations
@@ -136,36 +137,49 @@ def _adjoint_t(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)            # [..., 6, 6]
 
 
+def _device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`x` (a host number or a scalar tensor on `device`) as a [1] tensor of
+    `dtype` on `device`, made without a copy from the host (a fill)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype).reshape(1)
+    return torch.full((1,), x, dtype=dtype, device=device)
+
+
 def optimize_pose_graph_device(
     q: torch.Tensor,        # [n, 4] keyframe rotations in temporal order
     t: torch.Tensor,        # [n, 3]
-    loop_a: int,            # loop edge source vertex (the matched keyframe)
-    loop_b: int,            # loop edge target vertex (the current keyframe)
+    n_live,                 # live prefix length of the order (rows past it inert)
+    loop_a,                 # loop edge source vertex (the matched position)
+    loop_b,                 # loop edge target vertex (the current position)
     loop_zq: torch.Tensor,  # [4] measurement Z = X_a^-1 X_b (matched_T_cur)
     loop_zt: torch.Tensor,  # [3]
-    loop_weight: float = 1.0,
+    loop_weight=1.0,        # 0 disables the loop edge (a no-op up to rounding)
     iterations: int = 20,
 ):
     """Chain + loop-edge Gauss-Newton on the poses' device; returns the
-    optimized (q, t)."""
+    optimized (q, t). `n_live`, `loop_a`, `loop_b` and `loop_weight` are
+    host numbers or scalar tensors on the poses' device: nothing is read
+    back and no tensor is built from host values, so the function runs
+    inside a CUDA-graph capture. The chain edges past the live prefix have
+    weight 0, so a padded vertex has b = 0 and the damping pins its delta
+    at exactly 0 (badslam_tpu/loop/pose_graph.py:158-228)."""
     n = q.shape[0]
     dev = q.device
     chain_z = se3.mul(se3.inverse(se3.SE3(q[:-1], t[:-1])), se3.SE3(q[1:], t[1:]))
-    ia = torch.cat([torch.arange(n - 1, device=dev),
-                    torch.tensor([loop_a], device=dev)])
-    ib = torch.cat([torch.arange(1, n, device=dev),
-                    torch.tensor([loop_b], device=dev)])
+    chain = torch.arange(n - 1, device=dev)
+    ia = torch.cat([chain, _device_scalar(loop_a, torch.int64, dev)])
+    ib = torch.cat([chain + 1, _device_scalar(loop_b, torch.int64, dev)])
     zq = torch.cat([chain_z.q, loop_zq.reshape(1, 4).to(q)])
     zt = torch.cat([chain_z.t, loop_zt.reshape(1, 3).to(t)])
-    w = torch.ones(n, dtype=torch.float32, device=dev)
-    w[-1] = loop_weight
+    w = torch.cat([(chain < _device_scalar(n_live, torch.int64, dev) - 1).to(torch.float32),
+                   _device_scalar(loop_weight, torch.float32, dev)])
     we = w[:, None, None]
     Z_inv = se3.inverse(se3.SE3(zq, zt))
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     damped = 1e-5 * torch.eye(6 * n, dtype=torch.float32, device=dev)
 
     cq, ct = q, t
-    for _ in range(iterations):
+    for _ in range(iterations):  # the JAX package's fori_loop
         rel = se3.mul(se3.inverse(se3.SE3(cq[ia], ct[ia])), se3.SE3(cq[ib], ct[ib]))
         r = se3.log(se3.mul(Z_inv, rel))                    # [E, 6]
         inv_rel = se3.inverse(rel)
@@ -182,7 +196,10 @@ def optimize_pose_graph_device(
         # Gauge prior on vertex 0, plus damping.
         H[0, 0] += 1e4 * eye6
         Hd = H.permute(0, 2, 1, 3).reshape(6 * n, 6 * n) + damped
-        delta = torch.linalg.solve(Hd, -bv.reshape(-1)).reshape(n, 6)
+        # LU as jnp.linalg.solve; solve_ex leaves `info` on the device, so
+        # the solve neither syncs nor refuses a capture (on cuSOLVER, which
+        # ClosureGraph selects for its capture).
+        delta = torch.linalg.solve_ex(Hd, -bv.reshape(-1), check_errors=False)[0].reshape(n, 6)
         delta = torch.where(torch.isfinite(delta), delta, torch.zeros_like(delta))
         upd = se3.mul(se3.SE3(cq, ct), se3.exp(delta))
         cq, ct = upd.q, upd.t

@@ -128,17 +128,32 @@ failure, so any failure exits non-zero before the last line is printed):
    (their times include its share of the host and the card); this phase
    waits for it and makes the run with loop detection on alone. Checks the JAX test's asserts (a closure, none applied by frame 149,
    ATE on below 0.66 x ATE off, endpoint error below 0.6 m), K1 once per
-   frame, K2 launched in the closure's refinement; prints the frames the
-   closures applied at, the attempts and each gate's rejections, features
-   per keyframe, the worker's ms per keyframe and per stage, the drain's
-   waits, ms and K2 launches per closure attempt, per-frame medians
-   (keyframe frames with a closure attempt apart), both ATEs and peak
-   memory. The kernels line's K1 and K2 launches are this run's.
+   frame, K2 launched in the closure's refinement, every attempt that
+   reached the gates a run of its CUDA graph (loop/graph.py: a capture or
+   a replay); prints the frames the closures applied at, the attempts and
+   each gate's rejections, features per keyframe, the worker's ms per
+   keyframe and per stage, the drain's waits, per closure attempt whether
+   it captured or replayed, its ms between CUDA events, its K2 launches
+   (from the graph's device counters) and its gates (read after the run),
+   each closure graph's capture record, per-frame medians (keyframe frames
+   with a closure attempt apart), both ATEs and peak memory; then the
+   first attempt again on the finished state, restored before each call:
+   device ms of two replays against two eager calls, alternating. The
+   kernels line's K1 and K2 launches are the run's.
 16. The card against the CPU on loop closure: test_loop.py:211's injected
    candidate at 128x96 (16 frames, BA off, drift injected into the last
-   keyframe) on both devices: keyframe poses and the trajectory to 1e-4,
-   one closure on each, the drift more than halved, and a candidate the
-   necessity gate rejects leaving every pose bit-identical on both.
+   keyframe) on both devices, the card's attempts graph runs: keyframe
+   poses and the trajectory to 1e-4, one closure on each, the drift more
+   than halved, and a candidate the necessity gate rejects leaving every
+   pose bit-identical on both.
+   Phase closure_graph, after it: the same candidate on the card, on one
+   state, rejected and accepted in turn, each as a replay of the attempt's
+   graph and as the eager call of the same function with the host loop:
+   keyframe poses and trajectory max |dq|, |dt| <= 1e-6, the same gates and
+   K2 launches, a replayed rejection bit-identical; a replayed accepting
+   and rejecting attempt under set_sync_debug_mode("error"); prints the
+   graph's capture and instantiate seconds, nodes, kernel nodes, WHILE
+   nodes and pool memory, and device ms per replay against per eager call.
 17. Live input from a directory (the live path): the slice's 30 VGA
    frames (PNGs written by io/png.py) dropped into a directory at 30 FPS
    by a writer thread while `cli.run --live dir:` follows it on cuda with
@@ -1402,24 +1417,48 @@ def phase_cpu_calibration(workdir: str) -> None:
         raise AssertionError(f"CPU and CUDA disagree on the self-calibrating paths {failed}")
 
 
+def _in_frame() -> bool:
+    """Whether the caller runs inside BadSlam.process_frame (a closure
+    attempt at a keyframe, not the one after the frame loop)."""
+    f = sys._getframe()
+    while f is not None:
+        if f.f_code is BadSlam.process_frame.__code__:
+            return True
+        f = f.f_back
+    return False
+
+
 class _LoopProbe:
     """For the duration of a run: each closure attempt's time between CUDA
-    events and its K2 launches, and each drain's wait for the detection
-    thread on the host clock (the front end's methods, wrapped)."""
+    events, whether it captured or replayed the attempt's graph, and its
+    K2 launches, and each drain's wait for the detection thread on the host
+    clock (the front end's methods, wrapped). A graph run's K2 launches
+    come from the graph's device counters (read after the run)."""
 
     def __enter__(self):
-        self.attempts, self.waits_ms, self.thread = [], [], None
+        self.attempts, self.frames, self.args, self.waits_ms, self.thread = [], [], [], [], None
         self._orig = (BadSlam._attempt_loop_closure, LoopDetectionThread.wait_through)
         attempt, wait = self._orig
         probe = self
 
         def timed_attempt(slam, *args):
+            graph = slam.closure_graph
+            replays = graph.replays if graph is not None else 0
+            captures = len(graph.captures) if graph is not None else 0
             k2 = kernels.launch_counts[kernels.GATHER]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             attempt(slam, *args)
             end.record()
-            probe.attempts.append((start, end, kernels.launch_counts[kernels.GATHER] - k2))
+            if graph is not None and graph.replays > replays:
+                kind = "capture" if len(graph.captures) > captures else "replay"
+                run = (graph, replays)
+            else:
+                kind, run = ("eager" if graph is None else "none"), None
+            probe.attempts.append((start, end, kind, run,
+                                   kernels.launch_counts[kernels.GATHER] - k2))
+            probe.frames.append(slam.last_frame_index if _in_frame() else None)
+            probe.args.append(args)
 
         def timed_wait(thread, seq):
             t0 = time.perf_counter()
@@ -1436,7 +1475,52 @@ class _LoopProbe:
 
     def attempt_ms(self) -> list:
         torch.cuda.synchronize()
-        return [s.elapsed_time(e) for s, e, _ in self.attempts]
+        return [s.elapsed_time(e) for s, e, *_ in self.attempts]
+
+    def attempt_k2(self) -> list:
+        """K2 launches per attempt: a graph run's from its device counters,
+        an eager call's as counted at launch."""
+        out = []
+        for _, _, _, run, host in self.attempts:
+            if run is None:
+                out.append(host)
+            else:
+                graph, index = run
+                launches = graph.replay_launches()[index]
+                out.append(sum(n for (name, _, _), n in launches.items()
+                               if name == kernels.GATHER))
+        return out
+
+
+def _attempt_ms_again(slam, args, rounds: int = 2) -> dict:
+    """The run's first closure attempt again on its finished state,
+    restored before each call: device ms (CUDA events) of `rounds` replays
+    of its graph and `rounds` eager calls with the host loop, alternating
+    after one untimed replay (a capture if the state's storage changed)."""
+    ks, graph = slam.direct_ba.keyframes, slam.closure_graph
+    state = (ks.q, ks.t, slam.traj_q, slam.traj_t)
+    saved, count = [x.clone() for x in state], slam.loop_closure_count
+    ms = {"replay": [], "eager": []}
+    for i in range(2 * rounds + 1):
+        mode = "replay" if i % 2 == 0 else "eager"
+        for dst, src in zip(state, saved):
+            dst.copy_(src)
+        slam.closure_graph = graph if mode == "replay" else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        try:
+            start.record()
+            slam._attempt_loop_closure(*args)
+            end.record()
+        finally:
+            slam.closure_graph = graph
+        end.synchronize()
+        if i > 0:
+            ms[mode].append(start.elapsed_time(end))
+    for dst, src in zip(state, saved):
+        dst.copy_(src)
+    slam.loop_closure_count = count
+    return ms
 
 
 def _endpoint_error(est, gt) -> float:
@@ -1518,7 +1602,8 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
     det = slam.loop_detector
     stage = {k: _ms_summary(v) for k, v in det.timings_ms.items()}
     attempt_ms = probe.attempt_ms()
-    attempt_k2 = [k2 for _, _, k2 in probe.attempts]
+    attempt_k2 = probe.attempt_k2()
+    attempt_kinds = [kind for _, _, kind, _, _ in probe.attempts]
     frame_ms = dict(summary["frame_ms"])
     kf_frames = set(summary["keyframe_frames"][1:])
     attempt_frames = {a["frame"] for a in attempts} & kf_frames
@@ -1546,6 +1631,33 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
           f"{summary['keyframes']}; surfels {summary['surfels']}; loop off (its own process, "
           f"beside phases 5-14): per-frame median {statistics.median(off_ms):.2f} ms; "
           f"peak memory {peak_mb:.1f} MiB; launches {launches} ({SMI})")
+    cg = slam.closure_graph
+    # Each frame's BA ms: the calls in run order are each frame's drain,
+    # then its keyframe call (the first keyframe runs none).
+    calls = sorted([(f, 0) for f in summary["ba_drain_frames"]]
+                   + [(f, 1) for f in summary["keyframe_frames"][1:]])
+    ba_at = {}
+    if len(calls) == len(summary["ba_call_ms"]):
+        for (f, _), ms in zip(calls, summary["ba_call_ms"]):
+            ba_at[f] = ba_at.get(f, 0.0) + ms
+    gated = iter(attempts)  # the attempts that reached the gates, in order
+    for i, (kind, ms, k2, f) in enumerate(zip(attempt_kinds, attempt_ms, attempt_k2,
+                                              probe.frames)):
+        gates = None if kind == "none" else next(gated)
+        ba = ba_at.get(f, float("nan"))
+        where = ("after the frame loop" if f is None else
+                 f"the frame {frame_ms[f]:.3f} ms: the attempt, its BA calls {ba:.3f} ms and "
+                 f"{frame_ms[f] - ms - ba:.3f} ms of the rest; the next frame "
+                 f"{frame_ms.get(f + 1, float('nan')):.3f} ms")
+        print(f"loop: closure attempt {i} in frame {f}: {kind}, {ms:.3f} ms between CUDA "
+              f"events, K2 launches {k2}, gates {gates}; {where} ({SMI})")
+    for c in cg.captures:
+        print(f"loop: closure graph (order bucket {c['order_bucket']}, {c['refinements']} "
+              f"refinements): capture {c['capture_s']:.3f} s, instantiate "
+              f"{c['instantiate_s']:.3f} s, {c['nodes']} nodes ({c['kernel_nodes']} kernel "
+              f"nodes, {c['top_kernel_nodes']} outside the bodies of its {c['while_nodes']} "
+              f"WHILE nodes), {c['replays']} replays, pools {c['reserved_mib']:.1f} MiB "
+              f"({SMI})")
     bag = slam.ba_graph
     print(f"loop: BA graphs: {len(bag.captures)} captures (keyframe / surfel buckets "
           f"{sorted({(c['keyframe_bucket'], c['surfel_bucket']) for c in bag.captures})}), "
@@ -1565,8 +1677,16 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
             [np.r_[p.q, p.t] for p in poses_off]))),
         "K1 once per frame": launches[kernels.BILATERAL] == LOOP_FRAMES,
         "K2 launched in the refinement": sum(attempt_k2) > 0,
+        "every attempt that reached the gates ran its closure graph":
+            cg.replays == len(attempts) == sum(k in ("capture", "replay")
+                                                 for k in attempt_kinds),
         "the BA calls replayed graphs": bag.replays == len(summary["ba_iterations"]) > 0,
     }
+    if probe.args:
+        again = _attempt_ms_again(slam, probe.args[0])
+        print(f"loop: the first closure attempt again on the finished state, device ms per "
+              f"attempt: replays {', '.join(f'{x:.3f}' for x in again['replay'])} / eager "
+              f"{', '.join(f'{x:.3f}' for x in again['eager'])} ({SMI})")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"loop checks failed: {failed}")
@@ -1607,11 +1727,13 @@ def _injected_closure(data: str, device: str) -> dict:
                                   torch.tensor(moved.t, dtype=torch.float32)))
         drift = float(np.linalg.norm(moved.t - true.t))
         slam._attempt_loop_closure(last, 0, cur_T_matched)
+        kernels.flush_launch_counts()
         return dict(q=ks.q.cpu().numpy(), t=ks.t.cpu().numpy(),
                     traj_q=slam.traj_q.cpu().numpy(), traj_t=slam.traj_t.cpu().numpy(),
                     closures=slam.loop_closure_count, rejected=rejected, untouched=untouched,
                     drift=drift, after=float(np.linalg.norm(host(last).t - true.t)),
-                    k2=kernels.launch_counts[kernels.GATHER])
+                    k2=kernels.launch_counts[kernels.GATHER],
+                    graph_runs=0 if slam.closure_graph is None else slam.closure_graph.replays)
     finally:
         slam.close()
 
@@ -1629,11 +1751,133 @@ def phase_cpu_loop(workdir: str) -> None:
           f"{g['closures']} cpu {c['closures']}; last keyframe drift {g['drift']:.4f} m -> "
           f"cuda {g['after']:.4f}, cpu {c['after']:.4f} m; rejected candidate cuda "
           f"{g['rejected']} (poses untouched {g['untouched']}), cpu {c['rejected']} (poses "
-          f"untouched {c['untouched']}); K2 launches in the two cuda attempts {g['k2']} ({SMI})")
+          f"untouched {c['untouched']}); K2 launches in the two cuda attempts {g['k2']}, "
+          f"closure graph runs {g['graph_runs']} ({SMI})")
     if not (dk <= POSE_ATOL and dtraj <= POSE_ATOL and g["closures"] == c["closures"] == 1
             and g["untouched"] and c["untouched"] and not g["rejected"]["needed"]
-            and not c["rejected"]["needed"] and g["after"] < 0.5 * g["drift"] and g["k2"] > 0):
+            and not c["rejected"]["needed"] and g["after"] < 0.5 * g["drift"] and g["k2"] > 0
+            and g["graph_runs"] == 2):
         raise AssertionError("CPU and CUDA disagree on the injected loop closure")
+
+
+# Phase closure_graph: replay against the eager call, per candidate, in
+# this many rounds of (replay, eager).
+CLOSURE_GRAPH_ATOL = 1e-6
+CLOSURE_ROUNDS = 3
+
+
+def phase_closure_graph(workdir: str) -> None:
+    """Phase 16's injected candidate on the card, on one state restored
+    before each attempt: rejected (40 keypoints, no drift) and accepted
+    (drift injected) in turn, each as a replay of the attempt's CUDA graph
+    and as the eager call of the same function with the host loop; then a
+    replayed accepting and rejecting attempt under the sync check."""
+    slam = BadSlam(BadSlamConfig(**CPU_LOOP_CONFIG),
+                   load_tum_dataset(os.path.join(workdir, "cpu_loop")), "cuda")
+    try:
+        slam.run()
+        ks, det, graph = slam.direct_ba.keyframes, slam.loop_detector, slam.closure_graph
+        last = ks.count - 1
+
+        def host(k):
+            return s3.SE3(ks.q[k].double().cpu().numpy(), ks.t[k].double().cpu().numpy())
+
+        true = host(last)
+        cur_T_matched = s3.mul(s3.inverse(true), host(0))
+        moved = s3.mul(s3.SE3(np.asarray(CPU_LOOP_DRIFT.q, float),
+                              np.asarray(CPU_LOOP_DRIFT.t, float)), true)
+        moved = se3.SE3(torch.tensor(moved.q, dtype=torch.float32),
+                        torch.tensor(moved.t, dtype=torch.float32))
+        rng = np.random.default_rng(0)
+        pts = np.stack([rng.uniform(-0.5, 0.5, 40), rng.uniform(-0.4, 0.4, 40),
+                        rng.uniform(1.0, 2.0, 40)], -1).astype(np.float32)
+        own = det.features[last]
+        state = (ks.q, ks.t, slam.traj_q, slam.traj_t)
+        saved = [x.clone() for x in state]
+
+        def attempt(accept: bool, replay: bool, sync_check: bool = False) -> dict:
+            for dst, src in zip(state, saved):
+                dst.copy_(src)
+            slam.loop_closure_count = 0
+            if accept:
+                ks.set_pose(last, moved)
+            else:
+                det.features[last] = own._replace(points_local=pts)
+            before = [x.clone() for x in state]
+            slam.closure_graph = graph if replay else None
+            kernels.reset_launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            try:
+                if sync_check:
+                    torch.cuda.set_sync_debug_mode("error")
+                start.record()
+                slam._attempt_loop_closure(last, 0, cur_T_matched)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                det.features[last] = own
+                slam.closure_graph = graph
+            end.synchronize()
+            kernels.flush_launch_counts()
+            a = slam.closure_attempts[-1]
+            return dict(ms=start.elapsed_time(end), before=before,
+                        after=[x.clone() for x in state], gates=(a["consistent"], a["needed"]),
+                        count=slam.loop_closure_count, k2=kernels.launch_counts[kernels.GATHER])
+
+        capture = attempt(True, True)
+        runs = {(accept, replay): [] for accept in (False, True) for replay in (True, False)}
+        for _ in range(CLOSURE_ROUNDS):
+            for accept in (False, True):
+                for replay in (True, False):
+                    runs[accept, replay].append(attempt(accept, replay))
+        replays_before = graph.replays
+        synced = [attempt(accept, True, sync_check=True) for accept in (True, False)]
+    finally:
+        slam.close()
+    failed = []
+    for accept in (False, True):
+        name = "accepted" if accept else "rejected"
+        g, e = runs[accept, True], runs[accept, False]
+        dq = max(float((a["after"][i] - b["after"][i]).abs().max())
+                 for a in g for b in e for i in (0, 2))
+        dt = max(float((a["after"][i] - b["after"][i]).abs().max())
+                 for a in g for b in e for i in (1, 3))
+        gates = {r["gates"] for r in g + e}
+        k2 = {r["k2"] for r in g + e}
+        counts = {r["count"] for r in g + e}
+        print(f"closure_graph ({SMI}): the {name} candidate (128x96, 3 scales), replay / "
+              f"eager: device ms per attempt {_ms_summary([r['ms'] for r in g])} / "
+              f"{_ms_summary([r['ms'] for r in e])}; keyframe poses and trajectory max |dq| "
+              f"{dq:.3e}, |dt| {dt:.3e} (atol {CLOSURE_GRAPH_ATOL}); gates {sorted(gates)}; "
+              f"K2 launches per attempt {sorted(k2)}; closures {sorted(counts)}")
+        if not (dq <= CLOSURE_GRAPH_ATOL and dt <= CLOSURE_GRAPH_ATOL):
+            failed.append(f"{name}: replay and eager poses differ")
+        if gates != {(True, accept)} or counts != {int(accept)}:
+            failed.append(f"{name}: gates {gates}, closures {counts}")
+        if len(k2) != 1 or 0 in k2:
+            failed.append(f"{name}: K2 launches {k2}")
+        if not accept and not all(torch.equal(a, b) for r in g
+                                  for a, b in zip(r["before"], r["after"])):
+            failed.append("a replayed rejection moved a pose")
+    for c in graph.captures:
+        print(f"  closure graph (order bucket {c['order_bucket']}, {c['refinements']} "
+              f"refinements): capture {c['capture_s']:.3f} s, instantiate "
+              f"{c['instantiate_s']:.3f} s, {c['nodes']} nodes ({c['kernel_nodes']} kernel "
+              f"nodes: {c['top_kernel_nodes']} outside the bodies of its {c['while_nodes']} "
+              f"WHILE nodes, per body {c['body_kernel_nodes']}), {c['replays']} replays, pools "
+              f"{c['reserved_mib']:.1f} MiB; the capturing attempt {capture['ms']:.3f} ms "
+              f"between CUDA events")
+    print(f"  under set_sync_debug_mode('error'): a replayed accepting and a replayed "
+          f"rejecting attempt, gates {[r['gates'] for r in synced]}, "
+          f"{graph.replays - replays_before} replays, no sync")
+    if len(graph.captures) != 1 or graph.replays - replays_before != 2:
+        failed.append(f"captures {len(graph.captures)}, sync-check replays "
+                      f"{graph.replays - replays_before}")
+    if [r["gates"] for r in synced] != [(True, True), (True, False)]:
+        failed.append(f"sync-check gates {[r['gates'] for r in synced]}")
+    if failed:
+        raise AssertionError(f"closure_graph checks failed: {failed}")
 
 
 # Live input (phases 17-21): the slice's 30 VGA frames arrive at 30 FPS.
@@ -2408,6 +2652,7 @@ def main(argv=None) -> int:
             _phase("cpu_calibration", phase_cpu_calibration, workdir)
             loop_launches = _phase("loop", phase_loop, workdir, off_job)
             _phase("cpu_loop", phase_cpu_loop, workdir)
+            _phase("closure_graph", phase_closure_graph, workdir)
             live_slam, q_live, t_live, live_launches = _phase("live", phase_live, workdir, data)
             _phase("tcp", phase_tcp, workdir, data, q_live, t_live)
             _phase("viewer_controls", phase_viewer_controls, workdir, live_slam)

@@ -44,6 +44,10 @@ Tolerances:
     same function with the host loops on the card: poses atol 1e-6, the
     same iterations, surfel counts and K2 launches; replays make no sync
     with sync_surfel_bucket false; a bucket change captures anew.
+  * a loop-closure attempt's CUDA graph replay against the eager call of
+    the same function with the host loop on the card: poses and trajectory
+    atol 1e-6, the same gates and K2 launches, a rejection bit-identical;
+    replays make no sync.
 """
 
 import json
@@ -478,17 +482,21 @@ def test_loop_closure_cuda_matches_cpu(cuda):
         def dev(x, dtype=None):
             return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
-        out.append(apply_closure(
-            dev(q), dev(t), dev(np.arange(16)), 15, 0,
+        # Written in place: the store's poses, the trajectory, the counter.
+        state = [dev(x).clone() for x in (q, t, traj_q, traj_t)]
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        res = apply_closure(
+            state[0], state[1], dev(np.arange(16)), 16, 15, 0,
             dev(np.stack([r.q for r in refs]), torch.float32),
             dev(np.stack([r.t for r in refs]), torch.float32),
-            dev(np.ones(3, bool)), dev(pts), dev(np.ones(60, bool)), dev(traj_q), dev(traj_t),
-            dev(prev), dev(nxt), dev(alpha), dev(kf_slot), cam))
-    card, cpu = out
-    assert card.ok and cpu.ok
-    for name in ("kq", "kt", "traj_q", "traj_t"):
-        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), atol=1e-5, rtol=0)
-    assert float((card.kt.cpu() - torch.from_numpy(t)).abs().max()) > 1e-2
+            dev(np.ones(3, bool)), dev(pts), dev(np.ones(60, bool)), state[2], state[3],
+            dev(prev), dev(nxt), dev(alpha), dev(kf_slot), count, cam)
+        out.append((bool(res.ok), int(count), state))
+    (card_ok, card_n, card), (cpu_ok, cpu_n, cpu) = out
+    assert card_ok and cpu_ok and card_n == cpu_n == 1
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    assert float((card[1].cpu() - torch.from_numpy(t)).abs().max()) > 1e-2
 
 
 def _live_run(device, path, viewer_dir=None):
@@ -959,3 +967,109 @@ def test_ba_graph_recaptures_when_a_bucket_changes(cuda, tmp_path):
     torch.testing.assert_close(g.keyframes.q, e.keyframes.q, atol=1e-6, rtol=0)
     torch.testing.assert_close(g.keyframes.t, e.keyframes.t, atol=1e-6, rtol=0)
     assert g.surfel_count == e.surfel_count > 0
+
+
+def _closure_state(cuda, tmp_path):
+    """tests/test_torch_closure_readfree.py's 13-frame run at 96x80 on the
+    card, loop detection on the front end's thread; returns the front end
+    and a copy of the state an attempt writes."""
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch.frontend import BadSlam
+    from badslam_torch.io.dataset import load_tum_dataset
+
+    path = str(tmp_path / "closure")
+    synthetic.write_tum_dataset(path, synthetic.default_camera(96, 80),
+                                synthetic.random_plane_scene(np.random.default_rng(4), 3),
+                                synthetic.smooth_trajectory(13, scale=0.002))
+    config = BadSlamConfig(num_scales=3, keyframe_interval=4,
+                           max_num_ba_iterations_per_keyframe=2, max_surfel_count=1 << 13,
+                           tracking_max_iterations=8, enable_loop_detection=True,
+                           parallel_loop_detection=False)
+    slam = BadSlam(config, load_tum_dataset(path), cuda)
+    for i in range(13):
+        slam.process_frame(i)
+    ks = slam.direct_ba.keyframes
+    return slam, [x.clone() for x in (ks.q, ks.t, slam.traj_q, slam.traj_t)]
+
+
+def _closure_attempt(slam, saved, accept, sync_check=False):
+    """The state restored, then the last keyframe closed onto the first with
+    RANSAC's pose the identity: with drift injected into the last keyframe
+    (accepted) or with 40 keypoints and none (the necessity gate rejects);
+    with `sync_check` the attempt alone runs under
+    torch.cuda.set_sync_debug_mode("error"). Returns the state before and
+    after it."""
+    from badslam_torch.geometry import se3
+    from badslam_torch.geometry import se3_np as s3
+
+    ks = slam.direct_ba.keyframes
+    for dst, src in zip((ks.q, ks.t, slam.traj_q, slam.traj_t), saved):
+        dst.copy_(src)
+    order = ks.live_slots_in_time_order()
+    last, feats = order[-1], slam.loop_detector.features
+    own = feats[last]
+    if accept:
+        drift = synthetic.pose(tx=0.04, ty=-0.02, rz=0.01)
+        true = s3.SE3(ks.q[last].double().cpu().numpy(), ks.t[last].double().cpu().numpy())
+        moved = s3.mul(s3.SE3(np.asarray(drift.q, float), np.asarray(drift.t, float)), true)
+        ks.set_pose(last, se3.SE3(torch.tensor(moved.q, dtype=torch.float32),
+                                  torch.tensor(moved.t, dtype=torch.float32)))
+    else:
+        rng = np.random.default_rng(0)
+        feats[last] = own._replace(points_local=np.stack(
+            [rng.uniform(-0.4, 0.4, 40), rng.uniform(-0.3, 0.3, 40),
+             rng.uniform(1.0, 2.0, 40)], -1).astype(np.float32))
+    before = [x.clone() for x in (ks.q, ks.t, slam.traj_q, slam.traj_t)]
+    torch.cuda.synchronize()
+    try:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        slam._attempt_loop_closure(last, order[0], s3.identity())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        feats[last] = own
+    torch.cuda.synchronize()
+    return before, [x.clone() for x in (ks.q, ks.t, slam.traj_q, slam.traj_t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accept", [True, False], ids=["accepted", "rejected"])
+def test_closure_graph_replay_equals_the_eager_call(cuda, tmp_path, accept):
+    """A closure attempt as a replay of its captured graph against the eager
+    call of the same function with the host loop, on one state: poses and
+    trajectory max |dq|, |dt| <= 1e-6, the same gates, the same K2
+    launches; a rejected replay leaves every pose bit-identical."""
+    slam, saved = _closure_state(cuda, tmp_path)
+    graph, out = slam.closure_graph, {}
+    for name in ("replay", "eager"):
+        slam.closure_graph = graph if name == "replay" else None
+        slam.loop_closure_count = 0
+        kernels.reset_launch_counts()
+        before, after = _closure_attempt(slam, saved, accept)
+        kernels.flush_launch_counts()
+        out[name] = (after, slam.closure_attempts[-1], slam.loop_closure_count,
+                     kernels.launch_counts[kernels.GATHER])
+    (g, ga, gn, gk), (e, ea, en, ek) = out["replay"], out["eager"]
+    assert graph.replays == 1 and len(graph.captures) == 1
+    assert graph.captures[0]["while_nodes"] == 2 * 3
+    assert ga == ea and gn == en == int(accept) and gk == ek > 0
+    for a, b in zip(g, e):
+        assert float((a - b).abs().max()) <= 1e-6
+    if not accept:
+        assert all(torch.equal(a, b) for a, b in zip(before, g))
+
+
+@pytest.mark.cuda
+def test_closure_graph_replays_make_no_host_sync(cuda, tmp_path):
+    """With the attempt's graph captured, a replayed accepting and a replayed
+    rejecting attempt run under torch.cuda.set_sync_debug_mode("error")."""
+    slam, saved = _closure_state(cuda, tmp_path)
+    _closure_attempt(slam, saved, True)  # captures
+    graph = slam.closure_graph
+    captures = len(graph.captures)
+    for accept in (True, False):
+        _closure_attempt(slam, saved, accept, sync_check=True)
+    assert len(graph.captures) == captures and graph.replays == 3
+    assert slam.loop_closure_count == 2
+    assert [(a["consistent"], a["needed"]) for a in slam.closure_attempts] == [
+        (True, True), (True, True), (True, False)]

@@ -134,6 +134,7 @@ def test_import_badslam_torch_leaves_jax_out():
         "import badslam_torch.tools.gen_cli_docs\n"
         "import badslam_torch.ops.autotune\n"
         "import badslam_torch.steady, badslam_torch.ops.conditional\n"
+        "import badslam_torch.loop.graph\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "tpu = sorted(m for m in sys.modules if m.split('.')[0] == 'badslam_tpu')\n"

@@ -10,7 +10,8 @@ Tolerances:
     decisions, detector candidates; L1 and query scores 1e-12;
   * the front end's float32 pose graph 1e-5, and with loop weight 0 a
     no-op to 1e-6; apply_closure: poses and trajectory 1e-5 (the JAX
-    package pads the order with vertex 0; the port does not);
+    package's padded order scatters duplicates of vertex 0; the port drops
+    its padded positions), a rejection bit-identical;
   * the port's own extractor is held on outcomes (the JAX package's uses
     OpenCV's ORB): test_loop.py's fixture asserts, and camera points equal
     to the JAX unprojection of its keypoints.
@@ -198,7 +199,7 @@ def test_device_pose_graph_matches_jax():
             jnp.asarray(q), jnp.asarray(t), jnp.int32(16), jnp.int32(0), jnp.int32(15),
             jnp.asarray(zq), jnp.asarray(zt), jnp.float32(w))
         pq, pt = tpg.optimize_pose_graph_device(
-            torch.from_numpy(q), torch.from_numpy(t), 0, 15,
+            torch.from_numpy(q), torch.from_numpy(t), 16, 0, 15,
             torch.from_numpy(zq), torch.from_numpy(zt), loop_weight=w)
         np.testing.assert_allclose(pq.numpy(), np.asarray(jq), atol=1e-5, rtol=0)
         np.testing.assert_allclose(pt.numpy(), np.asarray(jt), atol=1e-5, rtol=0)
@@ -585,30 +586,33 @@ def test_apply_closure_matches_jax(accept):
         jnp.int32(0), jnp.asarray(rq), jnp.asarray(rt), jnp.ones(3, bool),
         jnp.asarray(pts), jnp.ones(60, bool), jnp.asarray(tq), jnp.asarray(tt),
         *(jnp.asarray(a) for a in br), jnp.int32(0), jcam)
-    args = [torch.from_numpy(a) for a in (kq, kt, order)]
-    kq_before, kt_before = args[0].clone(), args[1].clone()
+    # The port writes the store, the trajectory and the counter in place.
+    state = [torch.from_numpy(a.copy()) for a in (kq, kt, tq, tt)]
+    count = torch.zeros((), dtype=torch.int64)
     out = tclosure.apply_closure(
-        *args, 15, 0, torch.from_numpy(rq), torch.from_numpy(rt), torch.ones(3, dtype=torch.bool),
-        torch.from_numpy(pts), torch.ones(60, dtype=torch.bool),
-        torch.from_numpy(tq), torch.from_numpy(tt), *(torch.from_numpy(a) for a in br),
-        camera_from_numpy(jcam))
-    assert out.ok == bool(j_out[5]) == accept
-    assert int(j_out[4]) == int(accept)
-    assert torch.equal(args[0], kq_before) and torch.equal(args[1], kt_before)
+        state[0], state[1], torch.from_numpy(order), n, 15, 0, torch.from_numpy(rq),
+        torch.from_numpy(rt), torch.ones(3, dtype=torch.bool), torch.from_numpy(pts),
+        torch.ones(60, dtype=torch.bool), state[2], state[3],
+        *(torch.from_numpy(a) for a in br), count, camera_from_numpy(jcam))
+    assert bool(out.ok) == bool(j_out[5]) == accept
+    assert int(j_out[4]) == int(count) == int(accept)
     if not accept:
-        assert out.consistent is False and out.needed is True and out.kq is None
+        assert not bool(out.consistent) and bool(out.needed)
+        for got, before in zip(state, (kq, kt, tq, tt)):
+            assert torch.equal(got, torch.from_numpy(before))
         return
+    out_kq, out_kt, out_tq, out_tt = state
     # Vertex 0 (slot order[0]) may differ by about residual / 1e4 under the
     # gauge prior: the JAX package's padded duplicates scatter either its
     # moved or its input value. Measured: 1.2e-7 on the keyframe poses,
     # 2.7e-7 on the trajectory.
-    np.testing.assert_allclose(out.kq.numpy(), np.asarray(j_out[0]), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(out.kt.numpy(), np.asarray(j_out[1]), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(out.traj_q.numpy(), np.asarray(j_out[2]), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(out.traj_t.numpy(), np.asarray(j_out[3]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out_kq.numpy(), np.asarray(j_out[0]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out_kt.numpy(), np.asarray(j_out[1]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out_tq.numpy(), np.asarray(j_out[2]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out_tt.numpy(), np.asarray(j_out[3]), atol=1e-5, rtol=0)
     # The closure moved keyframe 15 onto keyframe 0's measurement.
-    cur = js3.SE3(out.kq[slots[15]].double().numpy(), out.kt[slots[15]].double().numpy())
-    m0 = js3.SE3(out.kq[slots[0]].double().numpy(), out.kt[slots[0]].double().numpy())
+    cur = js3.SE3(out_kq[slots[15]].double().numpy(), out_kt[slots[15]].double().numpy())
+    m0 = js3.SE3(out_kq[slots[0]].double().numpy(), out_kt[slots[0]].double().numpy())
     err = np.linalg.norm(js3.log(js3.mul(js3.inverse(js3.mul(js3.inverse(cur), m0)), cur_T_matched))[:3])
     before = np.linalg.norm(js3.log(js3.mul(js3.inverse(js3.mul(js3.inverse(poses[15]), poses[0])),
                                             cur_T_matched))[:3])
