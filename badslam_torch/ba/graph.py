@@ -32,6 +32,19 @@ and the camera (its intrinsics are host floats baked into the graph). A
 capture whose buckets or storage differ from a held graph's frees that
 graph and its pools, so they do not pile up over a long run.
 
+A call over a device mesh (``DirectBA.mesh``, every shard on this graph's
+card) is captured the same way: the program splits its surfel bucket over
+the shards and runs the stages of ``parallel/streamed.py``, whose creation
+and merge are WHILE nodes over the call's mask and whose pose optimization
+is one WHILE node per block of each shard's rows. The key then also holds
+the mesh's devices, whether the planes stream (streamed planes take the
+whole keyframe capacity, replicated ones the bucket) and the data pointers
+of the planes' blocks, so a rebuilt ``Planes`` is captured anew and frees
+the outgrown graph. ``DirectBA`` refreshes the planes on the host before
+the replay; with every shard on one card the blocks are views of the
+store, so nothing is copied. A mesh over several cards is not captured
+(``run`` raises): the front end runs such a call eagerly.
+
 Captured on a side stream with ``capture_error_mode="thread_local"``. A
 capture or instantiation failure raises; nothing falls back to the eager
 call (``BadSlam.ba_graph = None`` asks for the eager call).
@@ -39,7 +52,8 @@ call (``BadSlam.ba_graph = None`` asks for the eager call).
 Counts: the K2 launches of one replay outside the WHILE bodies are added
 on the host per replay, and those of each body per run of it from a
 device counter (``kernels.count_on_device``), so ``kernels.launch_counts``
-stay exact with no read per call. Each replay's iteration count is copied
+stay exact with no read per call, per shard tag too (``launch_tags``: the
+tag of a launch is recorded at the capture). Each replay's iteration count is copied
 on the card and read with ``DirectBA.iterations_run`` (a report).
 ``captures`` holds one record per capture: its key's kind and buckets,
 capture and instantiate seconds, node counts (all; kernel nodes; kernel
@@ -57,13 +71,18 @@ import torch
 
 from badslam_torch.ba.scheme import DirectBA, FusedCall
 from badslam_torch.mapping import surfels as sf
+from badslam_torch.mapping.keyframes import KEYFRAME_BATCH
 from badslam_torch.ops import kernels
 from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
 
-# Counters made per capture for its WHILE bodies: the iterations, creation,
-# merge, two scheme-end merges and one Gauss-Newton loop per keyframe block
-# (up to 64 blocks, a bucket of 512 keyframes).
-_MAX_BODIES = 69
+
+def _bodies(keyframes: int, shards: int) -> int:
+    """The WHILE bodies a capture can make: the iterations, creation, merge,
+    two scheme-end merges and one Gauss-Newton loop per keyframe block of
+    each shard's rows (a counter is made per body before the capture)."""
+    per_shard = -(-keyframes // shards)
+    return 5 + shards * -(-per_shard // KEYFRAME_BATCH)
+
 
 
 class BAKey(NamedTuple):
@@ -77,7 +96,8 @@ class BAKey(NamedTuple):
     cell_size: int
     merge_dist_factor: float
     cam: object
-    storage: tuple  # the store's generation and the map's data pointers
+    storage: tuple  # the store's generation, the map's and the planes' data pointers
+    mesh: tuple     # over a mesh: its devices and whether the planes stream; else ()
 
 
 class _Captured(NamedTuple):
@@ -128,16 +148,25 @@ class BAGraph:
         ks, m = ba.keyframes, ba.surfels
         storage = (ks.generation, ks.depth.data_ptr(), ks.q.data_ptr(),
                    *(getattr(m, f).data_ptr() for f in m._fields))
+        mesh = ()
+        if ba.mesh is not None:
+            storage += tuple(b.data_ptr() for blocks in ba._planes.blocks.values()
+                             for b in blocks)
+            mesh = (ba.mesh.devices, ba._streaming)
         return BAKey(call, ks.capacity if sel is None else len(sel), sel is None, bucket,
                      c.use_geometric_residuals, c.use_photometric_residuals,
                      c.baseline_fx, c.sparse_surfel_cell_size, c.surfel_merge_dist_factor,
-                     ba.cam, storage)
+                     ba.cam, storage, mesh)
 
     def run(self, ba: DirectBA, sel: Optional[List[int]], bucket: int,
             max_iterations: int, call: FusedCall) -> torch.Tensor:
         """Fill the static inputs and replay the graph of this call,
         capturing it first if there is none. Returns the iterations run, a
-        device int64 scalar of its own."""
+        device int64 scalar of its own. Over a mesh, every shard must be on
+        this graph's device, and the planes brought up to date before."""
+        if ba.mesh is not None and ba.mesh.distinct() != [self.device]:
+            raise ValueError(f"a BA graph on {self.device} cannot hold a call over "
+                             f"{ba.mesh}: its shards must all be on that card")
         sel_t = None if sel is None else self._slots(sel)
         self.limit.fill_(max_iterations)
         self.ba_iter.fill_(ba.ba_iteration_count)
@@ -147,8 +176,9 @@ class BAGraph:
         if captured is None:
             for old in [k for k in self._graphs
                         if (k.keyframe_bucket, k.whole_capacity, k.surfel_bucket,
-                            k.storage, k.cam) != (key.keyframe_bucket, key.whole_capacity,
-                                                  key.surfel_bucket, key.storage, key.cam)]:
+                            k.storage, k.cam, k.mesh)
+                        != (key.keyframe_bucket, key.whole_capacity, key.surfel_bucket,
+                            key.storage, key.cam, key.mesh)]:
                 del self._graphs[old]
             captured = self._graphs[key] = self._capture(ba, sel_t, bucket, call, key)
         kernels.add_launches(captured.launches)
@@ -171,7 +201,9 @@ class BAGraph:
             with torch.cuda.stream(s):
                 ones @ ones
             current.wait_stream(s)
-        units = torch.zeros(_MAX_BODIES, dtype=torch.int64, device=device)
+        units = torch.zeros(_bodies(key.keyframe_bucket,
+                                    1 if ba.mesh is None else ba.mesh.size),
+                            dtype=torch.int64, device=device)
         control = DeviceControl(nodes, units)
         launches: Counter = Counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -206,6 +238,7 @@ class BAGraph:
             body_kernels.setdefault(name, []).append(k)
         record = dict(
             end_first=call.end_first, end_last=call.end_last,
+            shards=1 if ba.mesh is None else ba.mesh.size, streamed=ba._streaming,
             keyframe_bucket=key.keyframe_bucket, surfel_bucket=bucket,
             capture_s=t1 - t0, instantiate_s=t2 - t1,
             nodes=top + sum(b[0] for b in bodies),

@@ -444,6 +444,6 @@ def pcg_bundle_adjustment(direct_ba, max_iterations: int = 10,
     if do_surfel_updates:
         # Scheme-end tasks of the PCG path: merge and compact.
         smap = sf.compact_surfels(direct_ba._merge_surfels(
-            smap, ks.stack(ks.valid), slots.valid, HOST))
+            smap, slots, ks.stack(ks.valid), slots.valid, HOST))
     direct_ba.surfels = sf.write_back(direct_ba.surfels, smap)
     direct_ba.iterations_run.append(max_iterations)

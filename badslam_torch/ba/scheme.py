@@ -10,8 +10,9 @@ order of BundleAdjustmentAlternating (``_iteration_core`` there and here):
   propagation.
 
 The fused call. Every BA call that the JAX package runs as one program
-(no keyframe window, no self-calibration, no staged profiling, no mesh)
-runs here as one function of the map and keyframe state, ``_fused_program``
+(no keyframe window, no self-calibration, no staged profiling), on one
+device or over a mesh (below), runs here as one function of the map and
+keyframe state, ``_fused_program``
 (the JAX package's ``_ba_iterations`` / ``_ba_iterations_bucketed`` with
 its ``_scheme_end_tasks``): the previous epoch's scheme-end tasks when a
 drain starts a new epoch, the reset of the surfel active flags, the
@@ -50,9 +51,8 @@ bucket always holds the count plus what the call can create, so rows
 beyond it are invalid and the result is that of the whole map.
 
 The host loop stays, as in the JAX package, for the final BA's fixed
-window, self-calibration, ``sync_stage_profiling`` and the mesh (below):
-``_iteration`` runs one iteration on the store's slots [0, count) with the
-host controls.
+window, self-calibration and ``sync_stage_profiling``: ``_iteration`` runs
+one iteration on the store's slots [0, count) with the host controls.
 
 With intrinsics optimization (self-calibration) every one of the
 `max_iterations` iterations runs (no early exit) and is followed by the
@@ -61,25 +61,34 @@ and the depth deformation and re-derives the keyframes' planes. The PCG
 solver (``ba/pcg.py``) works on this same state.
 
 Multi-device BA (``config.n_devices > 1``, or an explicit ``mesh``): the
-canonical map and keyframe store stay on ``device``; each BA call splits
-its working prefix [0, count + room) into D row blocks over the mesh and
-writes them back at the end (the JAX package's per-call device_put of its
-working slice), and runs every stage through ``parallel/streamed.py`` with
-host id lists. The keyframe planes are replicated to each device of the
-mesh, or, when replicating them would exceed
+canonical map and keyframe store stay on ``device``. A fused call over the
+mesh is the same ``_fused_program``: it splits its surfel bucket into D row
+blocks over the mesh (``parallel.shard_rows``, the JAX package's
+``P("d")`` over its sliced map), runs every stage through
+``parallel/streamed.py`` with the call's masks and its loop control, and
+writes the rows back into the map's storage at the end, so it reads
+nothing back and captures as one CUDA graph per call (``ba/graph.py``)
+when every shard is on the one card. The keyframe planes are replicated
+to each device of the mesh, or, when replicating them would exceed
 ``plane_replication_budget_mb`` (``_plane_streaming_wanted``, the JAX
 package's host-only formula), streamed: shard i holds the slots
 [i K/D, (i+1) K/D) of the K-slot store. Either way a block on the store's
-own device is a view of its tensors and one elsewhere a copy, refreshed at
-the next call for the slots whose planes changed, and rebuilt when the
-store grows (the slots' owners change). Both layouts keep the one-device
-iteration structure, the early exit included (one host read per
-iteration); the JAX package's streamed mode runs every iteration instead,
-only because its early exit lives inside its fused one-device program (a
-deviation there). The calls the JAX package sends through its host loop
-(the fixed window of the final BA, self-calibration) and the PCG solver
-run on ``device`` with the whole map, as without a mesh; their results are
-the same either way.
+own device is a view of its tensors and one elsewhere a copy, refreshed
+on the host before the next call for the slots whose planes changed, and
+rebuilt when the store grows (the slots' owners change). Replicated
+planes take the keyframe bucket, as the one-device call does (the JAX
+package's ``_ba_iterations_bucketed`` over the mesh); streamed ones the
+whole capacity, as the JAX package's ``_run_iterations_streamed`` (its
+rows are the slots the shards hold), timed as ``BA iterations
+(streamed)`` and without the fused timing row. Both keep the one-device
+iteration structure, the early exit included (in the graph, the
+iterations' WHILE node); the JAX package's streamed mode runs every
+iteration instead, only because its early exit lives inside its fused
+one-device program (a deviation there). The calls the JAX package sends
+through its host loop (the fixed window of the final BA, self-calibration)
+and the PCG solver run on ``device`` with the whole map, as without a
+mesh; ``sync_stage_profiling`` runs its stages over the mesh on the
+surfel bucket.
 
 With ``config.sync_stage_profiling`` each iteration runs as timed stages,
 each ended by a device synchronization, so each stage's timer holds its time
@@ -146,9 +155,25 @@ def _timer(name: Optional[str], device: torch.device):
     return contextlib.nullcontext() if name is None else Timing.time(name, device=device)
 
 
-def _ids(mask: torch.Tensor) -> List[int]:
-    """The set slots of a mask (a host read; the mesh's stages take ids)."""
-    return torch.nonzero(mask).flatten().tolist()
+def _without_active(smap):
+    """The map (every shard of a mesh's) with its active flags cleared."""
+    if isinstance(smap, parallel.ShardedMap):
+        return smap._replace(shards=tuple(_without_active(s) for s in smap.shards))
+    return smap._replace(active=torch.zeros_like(smap.active))
+
+
+def _flat(smap) -> tuple:
+    """A map's tensors (every shard's over a mesh) as a loop's state."""
+    if isinstance(smap, parallel.ShardedMap):
+        return parallel.streamed.flat(smap)
+    return tuple(smap)
+
+
+def _unflat(like, state):
+    """The map of `_flat`'s tuple, laid out as `like`."""
+    if isinstance(like, parallel.ShardedMap):
+        return parallel.streamed.unflat(like, state)
+    return sf.SurfelMap(*state)
 
 
 class Slots(NamedTuple):
@@ -168,6 +193,7 @@ class Slots(NamedTuple):
     last_active: torch.Tensor
     last_covis: torch.Tensor
     covis: torch.Tensor  # [n, n]
+    ids: Optional[torch.Tensor] = None  # the store slot of each row (None: row = slot)
 
     def stack(self, q, t, mask) -> KeyframeStack:
         return KeyframeStack(self.depth, self.nx, self.ny, self.radius2,
@@ -310,7 +336,7 @@ class DirectBA:
     def _working_map(self, new_keyframes: int) -> sf.SurfelMap:
         """The prefix [0, count + room) of the map, room being what
         `new_keyframes` keyframes can create (one surfel per cell each): a
-        read of the count, for the host paths (the mesh, PCG, export)."""
+        read of the count, for the host paths (PCG, intrinsics, export)."""
         size = self.surfel_count + new_keyframes * self._cells_per_keyframe()
         return sf.prefix(self.surfels, min(size, self.surfels.capacity))
 
@@ -447,8 +473,8 @@ class DirectBA:
         if sel is None:
             return self._store_slots(self.keyframes.capacity)
         full = self._store_slots(self.keyframes.capacity)
-        return Slots(*(x.index_select(0, sel) for x in full[:-1]),
-                     full.covis.index_select(0, sel).index_select(1, sel))
+        return Slots(*(x.index_select(0, sel) for x in full[:-2]),
+                     full.covis.index_select(0, sel).index_select(1, sel), sel)
 
     def _store_state(self, slots: Slots, state, sel: Optional[torch.Tensor]) -> None:
         """Write a call's keyframe state (poses, activation, counters) back
@@ -471,21 +497,23 @@ class DirectBA:
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
             return parallel.create_surfels_streamed(
-                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, _ids(mask),
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, mask,
                 slots.covis, slots.valid, min_obs, baseline_fx=c.baseline_fx,
-                cell_size=c.sparse_surfel_cell_size)
+                cell_size=c.sparse_surfel_cell_size, slots=slots.ids, control=control)
         return sf.create_surfels_for_keyframes(
             smap, self.cam, stack, mask, slots.covis, min_obs,
             baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
             rgb_stack=slots.rgb, loop=control)
 
-    def _merge_surfels(self, smap, stack: KeyframeStack, mask, control: Control):
+    def _merge_surfels(self, smap, slots: Slots, stack: KeyframeStack, mask,
+                       control: Control):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
             return parallel.merge_surfels_streamed(
-                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, _ids(mask),
+                self.mesh, smap, self.cam, self._planes, stack.q, stack.t, mask,
                 baseline_fx=c.baseline_fx, cell_size=c.sparse_surfel_cell_size,
-                merge_dist_factor=c.surfel_merge_dist_factor)
+                merge_dist_factor=c.surfel_merge_dist_factor, slots=slots.ids,
+                control=control)
         return sf.merge_surfels_for_keyframes(
             smap, self.cam, stack, mask, baseline_fx=c.baseline_fx,
             cell_size=c.sparse_surfel_cell_size,
@@ -496,17 +524,17 @@ class DirectBA:
             return parallel.compact_surfels_streamed(self.mesh, smap)
         return sf.compact_surfels(smap)
 
-    def _delete_surfels(self, smap, stack: KeyframeStack, min_obs):
+    def _delete_surfels(self, smap, slots: Slots, stack: KeyframeStack, min_obs):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
             return parallel.delete_surfels_streamed(
                 self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
-                stack.mask, min_obs, baseline_fx=c.baseline_fx)
+                stack.mask, min_obs, baseline_fx=c.baseline_fx, slots=slots.ids)
         return sf.delete_surfels_and_update_radii(
             smap, self.cam, stack, min_obs, baseline_fx=c.baseline_fx)
 
-    def _geometry(self, smap, stack: KeyframeStack, active_strict, participating,
-                  optimize_geometry):
+    def _geometry(self, smap, slots: Slots, stack: KeyframeStack, active_strict,
+                  participating, optimize_geometry):
         """Surfel activation and normals, then (with optimize_geometry) the
         positions and descriptors over the participating keyframes. With
         optimize_geometry activation and normals are one pass, timed with
@@ -525,7 +553,7 @@ class DirectBA:
                         active_strict, participating, baseline_fx=c.baseline_fx,
                         use_depth=c.use_geometric_residuals,
                         use_descriptor=c.use_photometric_residuals,
-                        optimize_geometry=optimize_geometry)
+                        optimize_geometry=optimize_geometry, slots=slots.ids)
             with record_function("ba/activation_normals"):
                 smap = update_activation_and_normals(
                     smap, self.cam, stack, active_strict, participating,
@@ -539,14 +567,15 @@ class DirectBA:
                         use_descriptor=c.use_photometric_residuals)
         return smap
 
-    def _poses(self, smap, stack: KeyframeStack, control: Control):
+    def _poses(self, smap, slots: Slots, stack: KeyframeStack, control: Control):
         c = self.config
         if isinstance(smap, parallel.ShardedMap):
             return parallel.optimize_poses_streamed(
                 self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
                 stack.mask, baseline_fx=c.baseline_fx,
                 use_depth=c.use_geometric_residuals,
-                use_descriptor=c.use_photometric_residuals, max_iterations=30)
+                use_descriptor=c.use_photometric_residuals, max_iterations=30,
+                slots=slots.ids, control=control)
         return optimize_keyframe_poses(
             smap, self.cam, stack, baseline_fx=c.baseline_fx,
             use_depth=c.use_geometric_residuals,
@@ -561,16 +590,21 @@ class DirectBA:
         with record_function("ba/scheme_end"):
             if do_surfel_updates:
                 recently_active = slots.valid & (last_active == ba_iter)
-                smap = self._merge_surfels(smap, stack, recently_active, control)
-            return self._compact(self._delete_surfels(smap, stack, min_obs))
+                smap = self._merge_surfels(smap, slots, stack, recently_active, control)
+            return self._compact(self._delete_surfels(smap, slots, stack, min_obs))
+
+    def _prepare_mesh(self) -> None:
+        """Before a call over the mesh (on the host, outside any graph):
+        the plane layout and the planes brought up to date."""
+        self._streaming = self._plane_streaming_wanted()
+        self.mesh_planes(self._streaming)
 
     def _split(self, view):
         """The working view over the mesh (planes brought up to date), or
         the view itself without a mesh."""
         if self.mesh is None:
             return view
-        self._streaming = self._plane_streaming_wanted()
-        self.mesh_planes(self._streaming)
+        self._prepare_mesh()
         return parallel.shard_rows(self.mesh, view)
 
     def _join(self, smap):
@@ -644,18 +678,20 @@ class DirectBA:
         active_strict = valid & (activation == ACTIVE)
         participating = valid & ((activation == ACTIVE)
                                  | (activation == COVISIBLE_ACTIVE))
-        smap = self._geometry(smap, stack, active_strict, participating, optimize_geometry)
+        smap = self._geometry(smap, slots, stack, active_strict, participating,
+                              optimize_geometry)
         if do_surfel_updates:
             with record_function("ba/merge_compact"):
                 with self._stage("BA surfel merge"):
-                    smap = self._merge_surfels(smap, stack, newly_active, control)
+                    smap = self._merge_surfels(smap, slots, stack, newly_active, control)
                 with self._stage("BA surfel compaction"):
                     smap = self._compact(smap)
 
         if optimize_poses:
             with self._stage("BA pose optimization"):
                 with record_function("ba/poses"):
-                    result = self._poses(smap, stack._replace(mask=participating), control)
+                    result = self._poses(smap, slots, stack._replace(mask=participating),
+                                         control)
                 q = torch.where(participating[:, None], result.q, q)
                 t = torch.where(participating[:, None], result.t, t)
                 activation = torch.where(
@@ -689,39 +725,44 @@ class DirectBA:
         slots = self._gathered_slots(sel)
         valid = slots.valid
         state = tuple(getattr(slots, name) for name in _SLOT_STATE)
+        if self.mesh is not None:
+            smap = parallel.shard_rows(self.mesh, smap)
         if call.end_first:
             smap = self._scheme_end_core(smap, slots, slots.q, slots.t, slots.last_active,
                                          ba_iter, min_obs, call.do_surfel_updates,
                                          control)
         # Reset the surfel active flags for this BA block
         # (direct_ba_alternating.cc:338).
-        smap = smap._replace(active=torch.zeros_like(smap.active))
+        smap = _without_active(smap)
         if call.activate_all:
             # The loop's test runs before the first iteration; with the
             # activate-all window every valid keyframe enters it active.
             state = (state[0], state[1], torch.where(valid, ACTIVE, INACTIVE), *state[3:])
-        n = len(smap)
+        # The loop's state: the map's tensors (every shard's over a mesh),
+        # then the keyframe state.
+        flat = _flat(smap)
+        n = len(flat)
 
         def any_active(st):
             return (valid & (st[n + 2] == ACTIVE)).any()
 
         def step(st):
             out = self._iteration_core(
-                sf.SurfelMap(*st[:n]), slots, *st[n:], ba_iter, min_obs,
+                _unflat(smap, st[:n]), slots, *st[n:], ba_iter, min_obs,
                 activate_all=call.activate_all, optimize_geometry=call.optimize_geometry,
                 do_surfel_updates=call.do_surfel_updates,
                 optimize_poses=call.optimize_poses, control=control)
-            return (*out[0], *out[1:])
+            return (*_flat(out[0]), *out[1:])
 
-        st, iterations = loop(control, (*smap, *state), any_active, step, most=most,
+        st, iterations = loop(control, (*flat, *state), any_active, step, most=most,
                               limit=limit, name="iterations")
-        smap, state = sf.SurfelMap(*st[:n]), st[n:]
+        smap, state = _unflat(smap, st[:n]), st[n:]
         if call.end_last:
             smap = self._scheme_end_core(smap, slots, state[0], state[1], state[3],
                                          ba_iter, min_obs, call.do_surfel_updates,
                                          control)
         self._store_state(slots, state, sel)
-        sf.write_back(self.surfels, smap)
+        sf.write_back(self.surfels, self._join(smap))
         return iterations
 
     def _fused_inputs(self, sel: Optional[List[int]], max_iterations: int):
@@ -803,8 +844,7 @@ class DirectBA:
                      and self.ba_iteration_count != self.last_ba_iteration_count)
         if end_first:
             self.last_ba_iteration_count = self.ba_iteration_count
-        if not (fixed_window or intrinsics or c.sync_stage_profiling
-                or self.mesh is not None):
+        if not (fixed_window or intrinsics or c.sync_stage_profiling):
             iterations = self._fused_bundle_adjustment(
                 max_iterations, FusedCall(end_first, increase_ba_iteration_count,
                                           activate_all, optimize_geometry,
@@ -827,10 +867,14 @@ class DirectBA:
     def _fused_bundle_adjustment(self, max_iterations: int, call: FusedCall,
                                  control: Control, graph) -> Union[int, torch.Tensor]:
         """The fused call (module docstring), timed as the JAX package's
-        fused program, with its timing row."""
-        sel = self._keyframe_bucket()
+        fused program (its streamed program over a mesh that streams the
+        planes), with its timing row (none for the streamed program)."""
+        if self.mesh is not None:
+            self._prepare_mesh()
+        sel = None if self._streaming else self._keyframe_bucket()
         bucket = self.surfel_bucket()
-        with _timer("BA iterations (fused)", self.device):
+        timer = "BA iterations (streamed)" if self._streaming else "BA iterations (fused)"
+        with _timer(timer, self.device):
             if graph is not None:
                 iterations = graph.run(self, sel, bucket, max_iterations, call)
             else:
@@ -838,7 +882,8 @@ class DirectBA:
                 iterations = self._fused_program(
                     sf.prefix(self.surfels, bucket), sel_t, limit, ba_iter, min_obs,
                     call, control, most=max_iterations)
-        self._fused_row(max_iterations)
+        if not self._streaming:
+            self._fused_row(max_iterations)
         return iterations
 
     def _fused_row(self, max_iterations: int) -> None:
@@ -858,22 +903,17 @@ class DirectBA:
                    optimize_depth_intrinsics, optimize_color_intrinsics,
                    active_keyframe_window, end_first) -> int:
         """The JAX package's host loop (fixed window, self-calibration,
-        staged profiling) and the mesh's calls, on the store's slots
-        [0, count), one iteration per host step."""
+        staged profiling) on the store's slots [0, count), one iteration per
+        host step; staged profiling runs its stages over the mesh, if any."""
         c = self.config
         ks = self.keyframes
         k = ks.count
         fixed_window = active_keyframe_window is not None
         intrinsics = optimize_depth_intrinsics or optimize_color_intrinsics
         host_loop = fixed_window or intrinsics
-        if self.mesh is not None and not host_loop:
-            # Each valid keyframe creates surfels at most once per epoch:
-            # those not yet active in this one bound what the call creates.
-            new_keyframes = int((ks.valid[:k] & (
-                ks.last_active_iter[:k] != self.ba_iteration_count)).sum())
-            smap = self._split(self._working_map(new_keyframes))
-        else:
-            smap = sf.prefix(self.surfels, self.surfel_bucket())
+        smap = sf.prefix(self.surfels, self.surfel_bucket())
+        if not host_loop:
+            smap = self._split(smap)
 
         if end_first:
             slots = self._store_slots(k)
@@ -883,50 +923,29 @@ class DirectBA:
 
         # Reset the surfel active flags for this BA block
         # (direct_ba_alternating.cc:338).
-        if isinstance(smap, parallel.ShardedMap):
-            smap = smap._replace(shards=tuple(
-                s._replace(active=torch.zeros_like(s.active)) for s in smap.shards))
-        else:
-            smap = smap._replace(active=torch.zeros_like(smap.active))
-
-        if activate_all:
-            # The early-exit test runs before the first iteration; with the
-            # activate-all window every valid keyframe enters it active.
-            ks.activation[:k] = torch.where(ks.valid[:k], ACTIVE, INACTIVE)
+        smap = _without_active(smap)
         # Staged profiling is one of the JAX package's host-loop modes too:
-        # every iteration runs there, with the stages timed one by one. The
-        # mesh's calls are its fused program, timed as one region.
-        staged = c.sync_stage_profiling
-        fused = None
-        if not (host_loop or staged):
-            fused = ("BA iterations (streamed)" if self._streaming
-                     else "BA iterations (fused)")
-        iteration_timer = "BA iteration" if host_loop and not staged else None
-        iterations = 0
-        with _timer(fused, self.device):
-            while iterations < max_iterations and (host_loop or staged or bool(
-                    (ks.valid[:k] & (ks.activation[:k] == ACTIVE)).any())):
-                if fixed_window:
-                    ks.set_activation_window(*active_keyframe_window)
-                    ks.propagate_covisible_active()
-                if staged and self.timings_stream is not None:
-                    self.timings_stream.write(
-                        f"BA_count {self.ba_iteration_count} inner_iteration "
-                        f"{iterations} keyframe_count {ks.live_count} "
-                        f"surfel_bound {self.known_surfel_bound}\n")
-                with _timer(iteration_timer, self.device):
-                    smap = self._iteration(smap, activate_all, optimize_geometry,
-                                           do_surfel_updates, optimize_poses)
-                iterations += 1
-                if intrinsics:
-                    with Timing.time("BA intrinsics optimization",
-                                     sync=self.device if staged else None,
-                                     device=self.device):
-                        self._intrinsics_step(
-                            smap, optimize_depth_intrinsics and c.use_geometric_residuals,
-                            optimize_color_intrinsics and c.use_photometric_residuals)
-        if fused == "BA iterations (fused)":
-            self._fused_row(max_iterations)
+        # every iteration runs there, with the stages timed one by one.
+        iteration_timer = "BA iteration" if host_loop and not c.sync_stage_profiling else None
+        for iterations in range(max_iterations):
+            if fixed_window:
+                ks.set_activation_window(*active_keyframe_window)
+                ks.propagate_covisible_active()
+            if c.sync_stage_profiling and self.timings_stream is not None:
+                self.timings_stream.write(
+                    f"BA_count {self.ba_iteration_count} inner_iteration "
+                    f"{iterations} keyframe_count {ks.live_count} "
+                    f"surfel_bound {self.known_surfel_bound}\n")
+            with _timer(iteration_timer, self.device):
+                smap = self._iteration(smap, activate_all, optimize_geometry,
+                                       do_surfel_updates, optimize_poses)
+            if intrinsics:
+                with Timing.time("BA intrinsics optimization",
+                                 sync=self.device if c.sync_stage_profiling else None,
+                                 device=self.device):
+                    self._intrinsics_step(
+                        smap, optimize_depth_intrinsics and c.use_geometric_residuals,
+                        optimize_color_intrinsics and c.use_photometric_residuals)
 
         if increase_ba_iteration_count:
             slots = self._store_slots(k)
@@ -934,7 +953,7 @@ class DirectBA:
                                          self.ba_iteration_count,
                                          self.min_observation_count(), do_surfel_updates)
         self.surfels = sf.write_back(self.surfels, self._join(smap))
-        return iterations
+        return max_iterations
 
     # ------------------------------------------------------------------
     # Export

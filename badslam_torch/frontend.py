@@ -68,8 +68,10 @@ a card run the eager call. With ``sync_surfel_bucket`` an epoch-ending call
 reads the surfel count once, as in the JAX package. A dataset of known
 length sizes the keyframe store and the surfel bound up front (the JAX
 package's pre-sizing). With ``n_devices > 1`` each BA call runs over a mesh
-of devices with the host loop, and the map and keyframes stay on the one
-device between calls.
+of devices, and the map and keyframes stay on the one device between
+calls: the same fused call, one graph replay per call when every shard is
+on this card (a mesh that repeats it), else eagerly under ``ba_loop`` (a
+mesh over several cards, logged once at construction).
 
 Timed regions (``utils/timing.py``, on the card's clock on a GPU) carry the
 JAX package's timer names: ``frame (fused)`` (a steady frame, its upload
@@ -219,9 +221,16 @@ class BadSlam:
             self.direct_ba.keyframes._ensure_capacity(expected)
             self.direct_ba.prebudget_epochs(expected)
         # The fused BA calls: on a CUDA device as graph replays, else eagerly
-        # under the loop control ba_loop.
+        # under the loop control ba_loop. A mesh whose shards are not all on
+        # this card runs its calls eagerly: one graph holds one card's work.
         self.ba_graph = BAGraph(self.device) if self.device.type == "cuda" else None
         self.ba_loop = HOST
+        ba_mesh = self.direct_ba.mesh
+        if self.ba_graph is not None and ba_mesh is not None and (
+                ba_mesh.distinct() != [self.ba_graph.device]):
+            _log.info("BA over %s runs eagerly under ba_loop: a CUDA graph holds the "
+                      "calls of a mesh whose shards share one card", ba_mesh)
+            self.ba_graph = None
 
         # Base keyframe state.
         self.base_kf_id: Optional[int] = None

@@ -47,20 +47,6 @@ _INITIAL_CAPACITY = 8
 KEYFRAME_BATCH = 8
 
 
-def id_batches(ids) -> List[List[int]]:
-    """Host slot ids in batches of up to KEYFRAME_BATCH."""
-    ids = list(ids)
-    return [ids[i:i + KEYFRAME_BATCH] for i in range(0, len(ids), KEYFRAME_BATCH)]
-
-
-def index_of(ids: List[int], device):
-    """A slice where the ids are consecutive (a view of the stacked
-    planes), else an index tensor on `device`."""
-    if ids[-1] - ids[0] == len(ids) - 1:
-        return slice(ids[0], ids[-1] + 1)
-    return torch.tensor(ids, device=device)
-
-
 def static_blocks(n: int) -> List[slice]:
     """The slots [0, n) in fixed blocks of up to KEYFRAME_BATCH."""
     return [slice(i, min(i + KEYFRAME_BATCH, n)) for i in range(0, n, KEYFRAME_BATCH)]
@@ -69,9 +55,14 @@ def static_blocks(n: int) -> List[slice]:
 def keyframe_batches(mask: torch.Tensor) -> list:
     """The set slots of a [K] bool keyframe mask (one device read), in
     batches of up to KEYFRAME_BATCH, each as a slice where the slots are
-    consecutive or else as an index tensor."""
-    return [index_of(b, mask.device)
-            for b in id_batches(torch.nonzero(mask).flatten().tolist())]
+    consecutive (a view of the stacked planes) or else as an index tensor."""
+    ids = torch.nonzero(mask).flatten().tolist()
+    out = []
+    for i in range(0, len(ids), KEYFRAME_BATCH):
+        b = ids[i:i + KEYFRAME_BATCH]
+        out.append(slice(b[0], b[-1] + 1) if b[-1] - b[0] == len(b) - 1
+                   else torch.tensor(b, device=mask.device))
+    return out
 
 
 class KeyframeStack(NamedTuple):

@@ -229,7 +229,8 @@ def loop(control: Control, state: Sequence[torch.Tensor],
             if limit is not None:
                 run = run & (i < limit)
             new = tuple(step(state))
-            state = tuple(torch.where(run, n, o) for n, o in zip(new, state))
+            # (The flag goes to each tensor's device: a mesh's state spans several.)
+            state = tuple(torch.where(run.to(n.device), n, o) for n, o in zip(new, state))
             i = i + run.to(torch.int64)
         return state, i
     if not isinstance(control, DeviceControl):
@@ -273,7 +274,7 @@ def for_each_slot(control: Control, mask: torch.Tensor, state: Sequence[torch.Te
     if control == MASKED:
         for i in range(k):
             new = tuple(step(state, i))
-            state = tuple(torch.where(mask[i], n, o) for n, o in zip(new, state))
+            state = tuple(torch.where(mask[i].to(n.device), n, o) for n, o in zip(new, state))
         return state
     slots = torch.arange(k, device=mask.device)
 

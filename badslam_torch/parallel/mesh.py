@@ -9,19 +9,27 @@ torch devices (axis "d"), a sharded value is a list with one tensor per
 shard, and a collective is a plain function over such a list. Each
 collective copies to the destination shard's device with ``.to()`` (a
 no-op where the devices are the same) and reduces in shard order, so a
-run is repeatable. Shards may share a device: a CPU mesh holds its shards
-on the one CPU device (the counterpart of the 8 virtual CPU devices the
-JAX tests force), and an explicit device list may repeat a card.
+run is repeatable; it takes and gives tensors only, so nothing of a
+collective reads a value back to the host. Shards may share a device: a
+CPU mesh holds its shards on the one CPU device (the counterpart of the 8
+virtual CPU devices the JAX tests force), and an explicit device list may
+repeat a card.
 
 State over the mesh:
-  * ``ShardedMap``: the surfel rows [0, rows) in D contiguous blocks of
-    ceil(rows / D) rows, block i on device i (the last block padded with
-    invalid rows); every block carries the global ``count``;
+  * ``ShardedMap``: the rows [0, rows) of a map (a BA call's surfel
+    bucket, the JAX package's ``P("d")`` over its sliced map) in D
+    contiguous blocks of ceil(rows / D) rows, block i on device i; where D
+    does not divide the rows, the last block is padded with invalid rows
+    (past `rows`, dropped by ``gather_rows``); every block carries the
+    global ``count``;
   * ``Planes``: the keyframe planes, replicated (every device holds all
     slots) or streamed (shard i holds the slots [i K/D, (i+1) K/D) of the
-    K-slot store); a stage reads a keyframe batch through ``take``, a local
-    read, or in the streamed layout the broadcast from the owning shard
-    (``bcast_chunk``, the masked psum of streamed.py:70-100).
+    K-slot store). A stage reads the planes of keyframe slots given as an
+    int64 index tensor, so no slot list is read back: ``take`` gives every
+    shard its copy, an ``index_select`` of its block where the planes are
+    replicated, and where they are streamed the masked psum of
+    streamed.py:70-100 (``bcast_rows``: each shard contributes the rows it
+    owns and zeros elsewhere); ``local`` reads slots a shard holds.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Dict, List, NamedTuple, Sequence
 import torch
 
 from badslam_torch.mapping import surfels as sf
-from badslam_torch.mapping.keyframes import KeyframeStack, index_of
+from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
 from badslam_torch.mapping.surfels import SurfelMap
 from badslam_torch.ops import kernels
 
@@ -135,32 +143,20 @@ def replicate(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
     return [out[d] for d in mesh.devices]
 
 
-def bcast_chunk(blocks: Sequence[torch.Tensor], ids: Sequence[int], kl: int,
-                dest: torch.device) -> torch.Tensor:
-    """Rows `ids` (global, ascending) of a keyframe-axis-sharded array, whose
-    shard i holds the rows [i kl, (i+1) kl), assembled on `dest` from their
-    owners (streamed.py `_bcast_chunk`; a chunk may span several owners)."""
-    parts, run = [], [ids[0]]
-    for j in ids[1:]:
-        if j // kl == run[0] // kl:
-            run.append(j)
-        else:
-            parts.append(run)
-            run = [j]
-    parts.append(run)
-    out = []
-    for run in parts:
-        owner = run[0] // kl
-        src = blocks[owner]
-        out.append(src[index_of([j - owner * kl for j in run], src.device)].to(dest))
-    return out[0] if len(out) == 1 else torch.cat(out)
-
-
-def bcast_kf(blocks: Sequence[torch.Tensor], k: int, kl: int,
-             dest: torch.device) -> torch.Tensor:
-    """Keyframe k's row of a keyframe-axis-sharded array on `dest`
-    (streamed.py `_bcast_kf`)."""
-    return bcast_chunk(blocks, [k], kl, dest)[0]
+def bcast_rows(mesh: Mesh, blocks: Sequence[torch.Tensor], ids: torch.Tensor,
+               kl: int) -> List[torch.Tensor]:
+    """Rows `ids` (global slots, an int64 tensor) of a keyframe-axis-sharded
+    array whose shard j holds the rows [j kl, (j+1) kl), on every shard
+    (streamed.py `_bcast_chunk` / `_bcast_kf`): shard j contributes the rows
+    it owns and zeros elsewhere, and a psum assembles them, so a chunk may
+    span several owners and no owner is read back. Adding zeros is exact."""
+    parts = []
+    for j, blk in enumerate(blocks):
+        local = ids.to(blk.device)
+        rows = blk.index_select(0, local % kl)
+        mine = (local // kl == j).reshape((-1,) + (1,) * (blk.ndim - 1))
+        parts.append(torch.where(mine, rows, torch.zeros_like(rows)))
+    return psum(mesh, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +189,10 @@ def split_rows(smap: SurfelMap, nl: int, i: int) -> SurfelMap:
 
 
 def shard_rows(mesh: Mesh, smap: SurfelMap) -> ShardedMap:
-    """Split a map's rows over the mesh; a block on the map's own device is
-    a view, elsewhere a copy."""
+    """Split a map's rows (a BA call's surfel bucket) over the mesh in
+    blocks of ceil(rows / D), the last padded with invalid rows; a block on
+    the map's own device that needs no padding is a view, elsewhere a
+    copy."""
     nl = -(-smap.capacity // mesh.size)
     return ShardedMap(tuple(SurfelMap(*(x.to(dev) for x in split_rows(smap, nl, i)))
                             for i, dev in enumerate(mesh.devices)), smap.capacity)
@@ -224,12 +222,11 @@ def gathered_maps(mesh: Mesh, smap: ShardedMap) -> List[SurfelMap]:
 
 class Planes:
     """The keyframe planes of a K-slot store over a mesh, replicated or
-    streamed (K % D == 0). Slots belong to shard slot // kl either way, kl
-    being ceil(K / D): in the streamed layout that is where they live; in
-    both it is the shard that counts a slot where a stage splits keyframes
-    (creation's observation filter, pose optimization). Blocks on the
-    store's device are views of its tensors; others are copies, brought up
-    to date by `refresh`."""
+    streamed (K % D == 0). Where a stage splits a call's keyframes over the
+    shards (creation's observation filter, pose optimization), shard i
+    counts the rows ``owned(i, k)``. Blocks on the store's
+    device are views of its tensors; others are copies, brought up to date
+    by `refresh` (on the host, before a BA call)."""
 
     def __init__(self, mesh: Mesh, store: Dict[str, torch.Tensor], streamed: bool):
         self.mesh = mesh
@@ -259,10 +256,15 @@ class Planes:
         return (self.streamed == streamed
                 and all(self._store[n] is getattr(ks, n) for n in self._store))
 
-    def owned(self, shard: int):
-        """The slots [lo, hi) shard `shard` counts."""
-        lo = min(shard * self.kl, self.capacity)
-        return lo, min(lo + self.kl, self.capacity)
+    def owned(self, shard: int, k: int = None):
+        """The rows [lo, hi) of a call's k keyframes (default: the store's
+        slots) that shard `shard` counts: where the planes are streamed the
+        slots it holds (a streamed call's rows are the store's slots),
+        where they are replicated blocks of ceil(k / D)."""
+        k = self.capacity if k is None else k
+        kl = self.kl if self.streamed else -(-k // self.mesh.size)
+        lo = min(shard * kl, k)
+        return lo, min(lo + kl, k)
 
     def refresh(self, slots: Sequence[int]) -> None:
         """Copy the store's rows `slots` into the blocks that are copies."""
@@ -281,41 +283,55 @@ class Planes:
                     idx = torch.tensor(mine, device=src.device)
                     blk[idx.to(blk.device) - lo] = src[idx].to(blk.device)
 
-    def take(self, shard: int, name: str, ids: Sequence[int]) -> torch.Tensor:
-        """Plane `name` of the slots `ids` (ascending) on shard `shard`'s
-        device: a local read, or the broadcast from their owners."""
-        dev = self.mesh.devices[shard]
+    def take(self, name: str, ids: torch.Tensor) -> List[torch.Tensor]:
+        """Plane `name` of the slots `ids` (an int64 tensor) on every shard:
+        an index_select of the shard's block (one per device), or the
+        broadcast from their owners."""
         blocks = self.blocks[name]
         if self.streamed:
-            return bcast_chunk(blocks, ids, self.kl, dev)
-        return blocks[shard][index_of(list(ids), dev)]
+            return bcast_rows(self.mesh, blocks, ids, self.kl)
+        out = {}
+        for blk in blocks:
+            if id(blk) not in out:
+                out[id(blk)] = blk.index_select(0, ids.to(blk.device))
+        return [out[id(blk)] for blk in blocks]
 
-    def take_kf(self, shard: int, name: str, k: int) -> torch.Tensor:
-        """Plane `name` of keyframe k on shard `shard`'s device."""
-        dev = self.mesh.devices[shard]
-        if self.streamed:
-            return bcast_kf(self.blocks[name], k, self.kl, dev)
-        return self.blocks[name][shard][k]
+    def take_kf(self, name: str, k: torch.Tensor) -> List[torch.Tensor]:
+        """Plane `name` of the slot `k` (an int64 scalar tensor) on every
+        shard."""
+        return [x[0] for x in self.take(name, k.reshape(1))]
 
-    def batch(self, shard: int, ids: Sequence[int], q, t, names=PLANE_NAMES[:5],
-              mask=None) -> KeyframeStack:
-        """A KeyframeStack of the slots `ids` on shard `shard` (planes not in
-        `names` are None; q and t are the shard's [K] replicas)."""
-        dev = self.mesh.devices[shard]
-        idx = index_of(list(ids), dev)
-        planes = [self.take(shard, n, ids) if n in names else None
-                  for n in PLANE_NAMES[:5]]
-        return KeyframeStack(*planes, q[idx], t[idx],
-                             None if mask is None else mask[idx])
+    def batch(self, ids: torch.Tensor, q, t, mask,
+              names=PLANE_NAMES[:5]) -> List[KeyframeStack]:
+        """A KeyframeStack of the slots `ids` (an int64 tensor) on every
+        shard, with the shards' replicas of the rows of q, t and mask that
+        go with them (planes not in `names` are None)."""
+        planes = {n: self.take(n, ids) for n in names}
+        return [KeyframeStack(*(planes[n][i] if n in planes else None
+                                for n in PLANE_NAMES[:5]), q[i], t[i], mask[i])
+                for i in range(self.mesh.size)]
 
-    def local_stack(self, shard: int, q, t, mask, k: int) -> KeyframeStack:
-        """The slots [lo, min(hi, k)) that shard `shard` owns, as a stack of
-        its own planes (a local read in both layouts)."""
-        lo, hi = self.owned(shard)
-        hi = min(hi, k)
-        off = lo if self.streamed else 0
-        planes = [self.blocks[n][shard][lo - off:hi - off] for n in PLANE_NAMES[:5]]
-        return KeyframeStack(*planes, q[lo:hi], t[lo:hi], mask[lo:hi])
+    def blocks_of(self, ids: torch.Tensor, q, t, mask, names=PLANE_NAMES[:5]):
+        """For each fixed block of KEYFRAME_BATCH rows of a call (`ids` the
+        rows' slots; q, t, mask the shards' replicas of the rows): (block,
+        every shard's KeyframeStack of its rows with the mask carried)."""
+        for s in static_blocks(ids.shape[0]):
+            yield s, self.batch(ids[s], [x[s] for x in q], [x[s] for x in t],
+                                [x[s] for x in mask], names)
+
+    def local(self, shard: int, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Plane `name` of the slots `ids` that shard `shard` holds, read
+        from its own block (no collective)."""
+        blk = self.blocks[name][shard]
+        ids = ids.to(blk.device)
+        return blk.index_select(0, ids - shard * self.kl if self.streamed else ids)
+
+    def local_stack(self, shard: int, ids: torch.Tensor, q, t, mask,
+                    names=PLANE_NAMES[:5]) -> KeyframeStack:
+        """The slots `ids`, all held by shard `shard`, as a stack of its own
+        planes with the rows q, t, mask that go with them."""
+        return KeyframeStack(*(self.local(shard, n, ids) if n in names else None
+                               for n in PLANE_NAMES[:5]), q, t, mask)
 
     def nbytes(self, shard: int) -> int:
         """Bytes of the plane tensors shard `shard` holds."""

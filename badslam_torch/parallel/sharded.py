@@ -30,7 +30,7 @@ from badslam_torch.ba.pose_opt import (
 )
 from badslam_torch.geometry import se3
 from badslam_torch.geometry.linalg import solve_psd
-from badslam_torch.mapping.keyframes import KeyframeStack, id_batches
+from badslam_torch.mapping.keyframes import KeyframeStack
 from badslam_torch.mapping.surfels import SurfelMap
 from badslam_torch.parallel.mesh import (
     Mesh,
@@ -98,29 +98,28 @@ def optimize_geometry_plane_streamed(mesh: Mesh, smap: SurfelMap, cam,
     """`geo.optimize_geometry_iteration` with the surfel axis split and the
     planes split over the keyframe axis (K % D == 0): nothing big is
     replicated. Each batch of the masked keyframes is broadcast from its
-    owners, in the one-device stage's batch order."""
+    owners, in the one-device stage's fixed blocks with the mask carried."""
     planes = Planes(mesh, {"depth": kstack.depth, "nx": kstack.nx, "ny": kstack.ny,
                            "intensity": kstack.intensity}, streamed=True)
-    batches = id_batches(torch.nonzero(kstack.mask).flatten().tolist())
+    ids = torch.arange(kstack.q.shape[0], device=kstack.q.device)
     pos_names = ("depth", "nx", "ny") + (("intensity",) if use_descriptor else ())
     sm = shard_rows(mesh, smap)
-    q_r, t_r = replicate(mesh, kstack.q), replicate(mesh, kstack.t)
-    out = []
-    for i in range(mesh.size):
-        with on_shard(i):
-            s = sm.shards[i]
-            _, nsum, cnt = geo._act_normals_init(s)
-            carry = (nsum, cnt)
-            for b in batches:
-                carry = geo._normals_chunk(
-                    carry, planes.batch(i, b, q_r[i], t_r[i], ("depth", "nx", "ny")),
-                    s, cam, baseline_fx)
-            s = geo._normals_finish(s, carry)
-            carry = geo._pos_init(s, use_descriptor)
-            for b in batches:
-                carry = geo._pos_chunk(carry, planes.batch(i, b, q_r[i], t_r[i], pos_names),
-                                       s, cam, baseline_fx, use_depth, use_descriptor)
-            out.append(geo._pos_finish(s, carry, use_descriptor))
+    q_r, t_r, m_r = (replicate(mesh, x) for x in (kstack.q, kstack.t, kstack.mask))
+    shards = list(sm.shards)
+    carry = [geo._act_normals_init(s)[1:] for s in shards]
+    for _, stacks in planes.blocks_of(ids, q_r, t_r, m_r, ("depth", "nx", "ny")):
+        for i in range(mesh.size):
+            with on_shard(i):
+                carry[i] = geo._normals_chunk(carry[i], stacks[i], shards[i], cam,
+                                              baseline_fx)
+    shards = [geo._normals_finish(s, c) for s, c in zip(shards, carry)]
+    carry = [geo._pos_init(s, use_descriptor) for s in shards]
+    for _, stacks in planes.blocks_of(ids, q_r, t_r, m_r, pos_names):
+        for i in range(mesh.size):
+            with on_shard(i):
+                carry[i] = geo._pos_chunk(carry[i], stacks[i], shards[i], cam, baseline_fx,
+                                          use_depth, use_descriptor)
+    out = [geo._pos_finish(s, c, use_descriptor) for s, c in zip(shards, carry)]
     return gather_rows(mesh, sm._replace(shards=tuple(out)), smap.pos.device)
 
 

@@ -182,10 +182,21 @@ failure, so any failure exits non-zero before the last line is printed):
    which), once with the planes replicated (integrated) and once streamed
    (`--plane_replication_budget_mb 0`). Each is held to the single-device
    slice of this call: poses to 1e-4, equal surfel counts, K1 once per
-   frame and K2 launched by both shards' work; prints the ATE, per-frame
-   medians, BA ms per call (and the slice's), K2 launches per shard, the
-   plane bytes each shard holds, peak memory per card. Then
+   frame and K2 launched by both shards' work; with both shards on cuda:0
+   every BA call is a replay of its CUDA graph over the mesh
+   (badslam_torch/ba/graph.py; with two cards the calls run eagerly, the
+   logged route); prints the ATE, per-frame medians, BA ms per call (and
+   the slice's), K2 launches per shard, the plane bytes each shard holds,
+   peak memory per card and each graph's capture and instantiate seconds,
+   nodes, WHILE nodes, pool memory and replays. Then
    `parallel.dryrun.dryrun_multichip(4)` on four shards of cuda:0.
+   Phase mesh_graph, after it: on each layout's finished state, drain calls
+   of 2 iterations over the mesh as replays of their graph against the
+   eager call of the same function (host loops), alternating from one
+   restored state for 3 rounds: poses max |dq|, |dt| <= 1e-6, the same
+   iterations, surfels and K2 launches per shard; then a replayed drain
+   under set_sync_debug_mode("error"); prints device ms per replay and per
+   eager call (CUDA events).
 23. The card against the CPU on the mesh (cpu_multi): phase 7's 160x120,
    13-frame sequence with a 2-shard mesh on the card and a 2-shard mesh on
    the CPU, integrated and streamed (poses to 1e-4, surfel counts within
@@ -2183,17 +2194,30 @@ def _ms_median(values) -> str:
     return f"{statistics.median(values):.2f}" if values else "n/a"
 
 
-def phase_multi(workdir: str, data: str, q_slice, t_slice, slice_summary) -> dict:
+def _capture_lines(bag) -> list:
+    """One line per capture record of a BAGraph."""
+    return [f"  BA graph (shards {c['shards']}, streamed {c['streamed']}, scheme-end first "
+            f"{c['end_first']}, last {c['end_last']}, keyframe bucket {c['keyframe_bucket']}, "
+            f"surfel bucket {c['surfel_bucket']}): capture {c['capture_s']:.3f} s, "
+            f"instantiate {c['instantiate_s']:.3f} s, {c['nodes']} nodes ("
+            f"{c['kernel_nodes']} kernel nodes: {c['top_kernel_nodes']} outside the bodies "
+            f"of its {c['while_nodes']} WHILE nodes), {c['replays']} replays, pools "
+            f"{c['reserved_mib']:.1f} MiB" for c in bag.captures]
+
+
+def phase_multi(workdir: str, data: str, q_slice, t_slice, slice_summary) -> tuple:
     """The slice through `cli.run` with BA over a 2-shard mesh, planes
-    replicated and streamed, held to the single-device slice; then the
-    dry run of every mode on four shards of cuda:0."""
+    replicated and streamed, held to the single-device slice: with both
+    shards on the one card, every BA call a replay of its CUDA graph. Then
+    the dry run of every mode on four shards of cuda:0. Returns the launch
+    counts and the finished front ends (for phase mesh_graph)."""
     mesh, cards = _multi_mesh()
     print(f"multi: mesh {mesh} ({cards} card(s) visible"
           f"{'' if cards >= MULTI_SHARDS else ': both shards on cuda:0'}); the slice's "
           f"BA ms per call {_ms_median(slice_summary['ba_call_ms'])} (median of "
           f"{len(slice_summary['ba_call_ms'])}), surfels {slice_summary['surfels']} ({SMI})")
     gt = synthetic.smooth_trajectory(FRAMES)
-    out = {}
+    out, slams = {}, {}
     for mode, extra in (("integrated", []),
                         ("streamed", ["--plane_replication_budget_mb", "0"])):
         held = {}
@@ -2225,8 +2249,19 @@ def phase_multi(workdir: str, data: str, q_slice, t_slice, slice_summary) -> dic
               f"shard {plane_bytes} ({[planes.keyframes_held(i) for i in range(mesh.size)]}"
               f" keyframe slots of {ba.keyframes.capacity}); peak memory {peak}; launches "
               f"{launches} ({SMI})")
+        bag = slam.ba_graph
+        if bag is None:
+            print(f"multi {mode}: the shards are on several cards, so the BA calls ran "
+                  f"eagerly (the logged route) ({SMI})")
+        else:
+            print(f"multi {mode}: {bag.replays} BA calls as graph replays, "
+                  f"{len(bag.captures)} captures ({SMI})")
+            print("\n".join(_capture_lines(bag)))
+        replayed = bag is None or (bag.replays == len(ba.iterations_run) > 0
+                                   and all(c["shards"] == MULTI_SHARDS for c in bag.captures))
         checks = {
             "streaming as asked": ba._streaming == (mode == "streamed"),
+            "every BA call replayed over the mesh": replayed,
             "poses within atol of the slice": dq <= POSE_ATOL and dt <= POSE_ATOL,
             "surfels equal to the slice's": summary["surfels"] == slice_summary["surfels"],
             "K1 once per frame": launches[kernels.BILATERAL] == FRAMES,
@@ -2238,13 +2273,113 @@ def phase_multi(workdir: str, data: str, q_slice, t_slice, slice_summary) -> dic
             raise AssertionError(f"multi {mode} checks failed: {failed}")
         out[mode] = {"K1": launches[kernels.BILATERAL], "K2": launches[kernels.GATHER],
                      "K2 per shard": k2}
-        del slam, ba, planes  # the next run's peak counts none of this run's state
+        slams[mode] = slam
+        del slam, ba, planes, bag
     t0 = time.perf_counter()
     result = dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)
     torch.cuda.synchronize()
     print(f"multi dryrun_multichip(4) on 4 shards of cuda:0 in "
           f"{time.perf_counter() - t0:.2f} s: {result} ({SMI})")
-    return out
+    return out, slams
+
+
+# The state a BA call writes: the keyframes' and the map's tensors.
+_BA_STATE = ("q", "t", "activation", "last_active_iter", "last_covis_iter")
+MESH_GRAPH_ROUNDS = 3
+
+
+def _saved_ba_state(ba) -> tuple:
+    return ([getattr(ba.keyframes, n).clone() for n in _BA_STATE],
+            [x.clone() for x in ba.surfels], ba.last_ba_iteration_count)
+
+
+def _restore_ba_state(ba, saved) -> None:
+    """Back to a saved state, in place (the graphs' storage stays)."""
+    kf, smap, last = saved
+    for n, x in zip(_BA_STATE, kf):
+        getattr(ba.keyframes, n).copy_(x)
+    for dst, x in zip(ba.surfels, smap):
+        dst.copy_(x)
+    ba.last_ba_iteration_count = last
+
+
+def _mesh_drain(slam, graph: bool) -> dict:
+    """One drain call of 2 iterations over the mesh: a replay of its graph
+    or the eager call of the same function (host loops). Device ms between
+    CUDA events, iterations, K2 launches per shard, poses."""
+    ba = slam.direct_ba
+    kernels.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    iterations = ba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False,
+                                      loop=slam.ba_loop,
+                                      graph=slam.ba_graph if graph else None)
+    end.record()
+    end.synchronize()
+    kernels.flush_launch_counts()
+    return dict(ms=start.elapsed_time(end), iterations=int(iterations),
+                k2={tag: n for tag, n in kernels.launch_tags[kernels.GATHER].items()
+                    if tag is not None},
+                q=ba.keyframes.q.clone(), t=ba.keyframes.t.clone(),
+                surfels=ba.surfel_count)
+
+
+def phase_mesh_graph(slams: dict) -> None:
+    """On the finished state of each layout of phase multi: drain calls over
+    the 2-shard mesh as replays of their graph against the eager call of
+    the same function, alternating from one restored state, for
+    MESH_GRAPH_ROUNDS rounds; then a replayed drain under
+    set_sync_debug_mode("error")."""
+    for mode, slam in slams.items():
+        bag, ba = slam.ba_graph, slam.direct_ba
+        if bag is None:
+            print(f"mesh_graph {mode}: the shards are on several cards; their BA calls run "
+                  f"eagerly (the logged route), nothing to compare ({SMI})")
+            continue
+        for _ in range(2):  # both drain kinds captured (a new epoch's, then the next)
+            _mesh_drain(slam, True)
+        captures = len(bag.captures)
+        rounds = []
+        for _ in range(MESH_GRAPH_ROUNDS):
+            saved = _saved_ba_state(ba)
+            g = _mesh_drain(slam, True)
+            _restore_ba_state(ba, saved)
+            e = _mesh_drain(slam, False)
+            rounds.append((g, e))
+        dq = max(float((g["q"] - e["q"]).abs().max()) for g, e in rounds)
+        dt = max(float((g["t"] - e["t"]).abs().max()) for g, e in rounds)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False,
+                                 loop=slam.ba_loop, graph=bag)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        replay_ms = ", ".join(f"{g['ms']:.3f}" for g, _ in rounds)
+        eager_ms = ", ".join(f"{e['ms']:.3f}" for _, e in rounds)
+        print(f"mesh_graph {mode} ({SMI}): {MESH_GRAPH_ROUNDS} rounds of a drain of 2 "
+              f"iterations over the 2-shard mesh, replay / eager from one state: device ms "
+              f"per call {replay_ms} / {eager_ms}; max |dq| {dq:.3e}, "
+              f"|dt| {dt:.3e} (atol {BA_GRAPH_ATOL}); iterations "
+              f"{[g['iterations'] for g, _ in rounds]} / "
+              f"{[e['iterations'] for _, e in rounds]}; "
+              f"K2 launches per shard {[g['k2'] for g, _ in rounds]} / "
+              f"{[e['k2'] for _, e in rounds]}; surfels {rounds[-1][0]['surfels']} / "
+              f"{rounds[-1][1]['surfels']}; captures {len(bag.captures) - captures} new; then "
+              f"a replayed drain under set_sync_debug_mode('error'): no sync")
+        checks = {
+            "replays equal the eager calls": dq <= BA_GRAPH_ATOL and dt <= BA_GRAPH_ATOL,
+            "iterations equal": all(g["iterations"] == e["iterations"] for g, e in rounds),
+            "K2 launches per shard equal, on both shards": all(
+                g["k2"] == e["k2"] and all(g["k2"].get(i, 0) > 0 for i in range(MULTI_SHARDS))
+                for g, e in rounds),
+            "surfel counts equal": all(g["surfels"] == e["surfels"] for g, e in rounds),
+            "the rounds replayed": len(bag.captures) == captures,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"mesh_graph {mode} checks failed: {failed}")
 
 
 def phase_cpu_multi(workdir: str) -> None:
@@ -2658,8 +2793,10 @@ def main(argv=None) -> int:
             _phase("viewer_controls", phase_viewer_controls, workdir, live_slam)
             _phase("cpu_live", phase_cpu_live, workdir)
             _phase("sdk", phase_sdk)
-            multi_launches = _phase("multi", phase_multi, workdir, data, q_slice, t_slice,
-                                    slice_summary)
+            multi_launches, multi_slams = _phase("multi", phase_multi, workdir, data,
+                                                 q_slice, t_slice, slice_summary)
+            _phase("mesh_graph", phase_mesh_graph, multi_slams)
+            del multi_slams
             _phase("cpu_multi", phase_cpu_multi, workdir)
             timings_launches = _phase("timings", phase_timings, workdir, data, q_slice,
                                       t_slice)

@@ -43,7 +43,9 @@ Tolerances:
   * the fused BA call's CUDA graph replays against the eager call of the
     same function with the host loops on the card: poses atol 1e-6, the
     same iterations, surfel counts and K2 launches; replays make no sync
-    with sync_surfel_bucket false; a bucket change captures anew.
+    with sync_surfel_bucket false; a bucket change captures anew. The same
+    over a 2-shard mesh of the card, planes replicated and streamed, with
+    the K2 launches equal per shard.
   * a loop-closure attempt's CUDA graph replay against the eager call of
     the same function with the host loop on the card: poses and trajectory
     atol 1e-6, the same gates and K2 launches, a rejection bit-identical;
@@ -613,16 +615,17 @@ def _parallel_stages(mesh, device):
     out["pose_gn"] = par.estimate_pose_sharded(mesh, smap, cam, ks.q[1], ks.t[1], ks.depth[1],
                                                ks.nx[1], ks.ny[1], ks.intensity[1])
     sm = par.shard_rows(mesh, smap)
-    sm, _ = par.create_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], [1, 2],
-                                        ks.covis, ks.valid, 2, baseline_fx=40.0, cell_size=4)
+    sm, _ = par.create_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k],
+                                        ks.mask_for_ids([1, 2]), ks.covis, ks.valid, 2,
+                                        baseline_fx=40.0, cell_size=4)
     out["create"] = par.gather_rows(mesh, sm)
     part = ks.valid[:k]
     sm = par.activation_geometry_streamed(
         mesh, sm, cam, planes, ks.q[:k], ks.t[:k], part, part, baseline_fx=40.0,
         use_depth=True, use_descriptor=True, optimize_geometry=True)
     out["activation_geometry"] = par.gather_rows(mesh, sm)
-    sm = par.merge_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], [0, 1, 2],
-                                    baseline_fx=40.0, cell_size=4)
+    sm = par.merge_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k],
+                                    ks.mask_for_ids([0, 1, 2]), baseline_fx=40.0, cell_size=4)
     out["merge"] = par.gather_rows(mesh, sm)
     sm = par.delete_surfels_streamed(mesh, sm, cam, planes, ks.q[:k], ks.t[:k], part, 2,
                                      baseline_fx=40.0)
@@ -923,6 +926,80 @@ def test_ba_graph_replays_make_no_host_sync(cuda, tmp_path):
     torch.cuda.set_sync_debug_mode("error") with sync_surfel_bucket false."""
     slam = _steady_slam(_steady_sequence(tmp_path), cuda,
                         max_num_ba_iterations_per_keyframe=4, sync_surfel_bucket=False)
+    slam.run(0, 13)  # keyframe calls at 6 and 12, a chunk's drain at 11
+    bag, ba = slam.ba_graph, slam.direct_ba
+    captures, replays = len(bag.captures), bag.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam._drain_queued_ba(2, 12)
+        old = slam._remember_keyframe_poses()
+        ba.bundle_adjustment(max_iterations=2, loop=slam.ba_loop, graph=bag)
+        slam._apply_ba_pose_updates(*old)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(bag.captures) == captures and bag.replays == replays + 2
+    assert np.isfinite(slam.traj_t.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [2048.0, 0.0], ids=["integrated", "streamed"])
+def test_mesh_ba_graph_replays_equal_the_eager_call(cuda, tmp_path, budget):
+    """BA over a 2-shard mesh of the card: every call (keyframe calls and
+    drains) as a replay of its captured graph, against the eager call of
+    the same mesh function with the host loops: the same poses (1e-6),
+    iterations, surfels, and K2 launches per shard."""
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch.frontend import BadSlam
+    from badslam_torch.io.dataset import load_tum_dataset
+    from badslam_torch.parallel import make_mesh
+
+    path = _steady_sequence(tmp_path)
+    runs = []
+    for graph in (True, False):
+        config = BadSlamConfig(num_scales=4, keyframe_interval=6, max_surfel_count=1 << 14,
+                               enable_loop_detection=False, fps_restriction=0,
+                               max_num_ba_iterations_per_keyframe=4, n_devices=2,
+                               plane_replication_budget_mb=budget)
+        slam = BadSlam(config, load_tum_dataset(path), cuda,
+                       mesh=make_mesh(devices=[cuda, cuda]))
+        if not graph:
+            slam.ba_graph = None
+        kernels.reset_launch_counts()
+        slam.run()
+        torch.cuda.synchronize()
+        runs.append((slam, dict(kernels.launch_tags[kernels.GATHER])))
+    (g, kg), (e, ke) = runs
+    assert g.direct_ba._streaming == e.direct_ba._streaming == (budget == 0.0)
+    torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
+    iterations = g.direct_ba.iterations_run
+    assert iterations == e.direct_ba.iterations_run and sum(iterations) > 0
+    assert g.direct_ba.surfel_count == e.direct_ba.surfel_count > 0
+    assert kg == ke and kg.get(0, 0) > 0 and kg.get(1, 0) > 0
+    assert g.ba_graph.replays == len(iterations)
+    assert all(c["shards"] == 2 and c["streamed"] == (budget == 0.0)
+               and c["while_nodes"] >= 4 for c in g.ba_graph.captures)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [2048.0, 0.0], ids=["integrated", "streamed"])
+def test_mesh_ba_graph_replays_make_no_host_sync(cuda, tmp_path, budget):
+    """With both call kinds captured over the 2-shard mesh, a replayed
+    drain and keyframe call run under torch.cuda.set_sync_debug_mode
+    ("error") with sync_surfel_bucket false."""
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch.frontend import BadSlam
+    from badslam_torch.io.dataset import load_tum_dataset
+    from badslam_torch.parallel import make_mesh
+
+    config = BadSlamConfig(num_scales=4, keyframe_interval=6, max_surfel_count=1 << 14,
+                           enable_loop_detection=False, fps_restriction=0,
+                           max_num_ba_iterations_per_keyframe=4, n_devices=2,
+                           plane_replication_budget_mb=budget, sync_surfel_bucket=False)
+    slam = BadSlam(config, load_tum_dataset(_steady_sequence(tmp_path)), cuda,
+                   mesh=make_mesh(devices=[cuda, cuda]))
     slam.run(0, 13)  # keyframe calls at 6 and 12, a chunk's drain at 11
     bag, ba = slam.ba_graph, slam.direct_ba
     captures, replays = len(bag.captures), bag.replays

@@ -154,6 +154,27 @@ def test_import_badslam_torch_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "badslam_torch.parallel.mesh", "badslam_torch.parallel.streamed",
+    "badslam_torch.parallel.sharded", "badslam_torch.ba.scheme", "badslam_torch.ba.graph"])
+def test_mesh_modules_alone_leave_jax_out(module):
+    """Each module of BA over a mesh, imported alone in a fresh interpreter,
+    imports neither jax, nor the JAX package, nor OpenCV."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'badslam_tpu', 'cv2', 'triton'))\n"
+        "assert not bad, bad\n"
+    )
+    import os
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_config_matches_jax_config():
     """badslam_torch.config is a copy of badslam_tpu.config: the same field
     names, in the same order, with the same types and defaults, and the

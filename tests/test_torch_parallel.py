@@ -6,8 +6,9 @@ the port on an 8-shard mesh on the one CPU device, from the same numpy
 inputs. The scene is tests/test_parallel.py's (128x96, 8 keyframes,
 capacity 1 << 13). Each function of badslam_torch/parallel/sharded.py and
 streamed.py is held to its JAX twin and to the port's own one-device
-stage, then DirectBA's integrated and streamed modes, the CLI with
---n_devices 8 and the dry run.
+stage, then DirectBA's integrated and streamed modes (a keyframe call and
+a drain that starts a new epoch), the CLI with --n_devices 8 and the dry
+run.
 
 Tolerances (those of tests/test_torch_ba.py against the JAX package):
   * poses: atol 1e-4; normals and positions: atol 1e-4; descriptors:
@@ -241,8 +242,8 @@ def test_create_surfels_streamed(scene, streamed):
         baseline_fx=40.0, cell_size=4)
     sm, created = tpar.create_surfels_streamed(
         scene.mesh, tpar.shard_rows(scene.mesh, scene.port_map(scene.jmap)), scene.tcam,
-        _planes(scene, streamed), tks.q[:D], tks.t[:D], ids, tks.covis, tks.valid, 2,
-        baseline_fx=40.0, cell_size=4)
+        _planes(scene, streamed), tks.q[:D], tks.t[:D], tks.mask_for_ids(ids), tks.covis,
+        tks.valid, 2, baseline_fx=40.0, cell_size=4)
     out = tpar.gather_rows(scene.mesh, sm)
     own, own_created = tsf.create_surfels_for_keyframes(
         scene.port_map(scene.jmap), scene.tcam, tks.stack(), tks.mask_for_ids(ids),
@@ -290,7 +291,8 @@ def test_merge_and_compact_streamed(scene, streamed):
         jks.q, jks.t, jnp.array(mask), baseline_fx=40.0, cell_size=4)
     sm = tpar.merge_surfels_streamed(
         scene.mesh, tpar.shard_rows(scene.mesh, scene.port_map(m)), scene.tcam,
-        _planes(scene, streamed), tks.q[:D], tks.t[:D], ids, baseline_fx=40.0, cell_size=4)
+        _planes(scene, streamed), tks.q[:D], tks.t[:D], tks.mask_for_ids(ids),
+        baseline_fx=40.0, cell_size=4)
     merged = tpar.gather_rows(scene.mesh, sm)
     own = tsf.merge_surfels_for_keyframes(scene.port_map(m), scene.tcam, tks.stack(),
                                           tks.mask_for_ids(ids), 40.0, 4)
@@ -371,8 +373,8 @@ def test_planes_layouts(scene):
     assert scene.streamed.nbytes(3) == per_slot
     assert scene.replicated.nbytes(3) == per_slot * ks.capacity
     for ids in ([2], [0, 1, 2], [1, 4, 7]):
-        got = scene.streamed.take(5, "intensity", ids)
-        assert torch.equal(got, ks.intensity[ids])
+        got = scene.streamed.take("intensity", torch.tensor(ids))
+        assert len(got) == D and all(torch.equal(g, ks.intensity[ids]) for g in got)
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +418,8 @@ def _integrated_run(package, n_devices, budget):
 def test_integrated_ba_matches_jax_and_single_device(budget):
     """config.n_devices=8: the port's BA call over an 8-shard CPU mesh
     against the JAX package's over its 8 CPU devices (and, with a budget of
-    0 MB, both streaming the planes), and against the port on one device."""
+    0 MB, both streaming the planes), and against the port on one device;
+    a keyframe call, then a drain that starts a new epoch."""
     jba, _ = _integrated_run("jax", D, budget)
     tba, iters = _integrated_run("torch", D, budget)
     one, one_iters = _integrated_run("torch", 0, 2048.0)
@@ -426,6 +429,20 @@ def test_integrated_ba_matches_jax_and_single_device(budget):
         assert [tba._planes.keyframes_held(i) for i in range(D)] == [kl] * D
     assert iters == one_iters == 2
     k = 2
+    _assert_poses(tba.keyframes.q[:k], tba.keyframes.t[:k], np.asarray(jba.keyframes.q)[:k],
+                  np.asarray(jba.keyframes.t)[:k], POSE_ATOL)
+    _assert_poses(tba.keyframes.q[:k], tba.keyframes.t[:k], one.keyframes.q[:k],
+                  one.keyframes.t[:k], OWN_POSE_ATOL)
+    assert tba.surfel_count == int(jba.surfels.count) == one.surfel_count > 100
+    assert torch.equal(tba.surfels.valid, one.surfels.valid)
+
+    # A drain of 2 iterations (the parallel-BA queue's call): it starts a
+    # new epoch, so both packages first run the scheme-end tasks, then
+    # their fused or streamed iterations.
+    jba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False)
+    drained = tba.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False)
+    one_drained = one.bundle_adjustment(max_iterations=2, increase_ba_iteration_count=False)
+    assert drained == one_drained >= 1
     _assert_poses(tba.keyframes.q[:k], tba.keyframes.t[:k], np.asarray(jba.keyframes.q)[:k],
                   np.asarray(jba.keyframes.t)[:k], POSE_ATOL)
     _assert_poses(tba.keyframes.q[:k], tba.keyframes.t[:k], one.keyframes.q[:k],
