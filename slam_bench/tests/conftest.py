@@ -1,0 +1,14 @@
+"""The benchmark's own tests (run them with ``python -m pytest slam_bench/tests``
+from the repo root). Tests that need a CUDA card carry the ``cuda`` marker
+and skip where there is none, deciding inside the test."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (skips where CUDA is absent)")
