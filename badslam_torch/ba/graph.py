@@ -58,7 +58,16 @@ on the card and read with ``DirectBA.iterations_run`` (a report).
 ``captures`` holds one record per capture: its key's kind and buckets,
 capture and instantiate seconds, node counts (all; kernel nodes; kernel
 nodes outside the bodies and per body), WHILE nodes, the memory its pools
-reserved and its replays.
+reserved, its replays and why it was captured (``capture_reason``).
+
+Timers (``utils.timing``): each replay is stamped on the card from its
+first node to its last ("BA call [graph]", with a ring entry), each WHILE
+node ("BA call: <body> [graph]"), each iteration's body ("BA iteration
+[graph]"), its stages ("BA pose optimization", "BA geometry optimization",
+"BA surfel upkeep", "BA scheme end", each "[graph]") and, per pass over
+the surfel bucket, its rows and live surfels ("BA surfel rows [graph]",
+"BA live surfels [graph]", counters). The capture is the profiler range
+"capture/ba_graph"; inside it the stages open no range.
 """
 
 from __future__ import annotations
@@ -68,12 +77,14 @@ from collections import Counter
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from badslam_torch.ba.scheme import DirectBA, FusedCall
 from badslam_torch.mapping import surfels as sf
 from badslam_torch.mapping.keyframes import KEYFRAME_BATCH
 from badslam_torch.ops import kernels
 from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
+from badslam_torch.utils.timing import Timing, stamped
 
 
 def _bodies(keyframes: int, shards: int) -> int:
@@ -98,6 +109,26 @@ class BAKey(NamedTuple):
     cam: object
     storage: tuple  # the store's generation, the map's and the planes' data pointers
     mesh: tuple     # over a mesh: its devices and whether the planes stream; else ()
+
+
+# The parts of a BAKey that a capture's reason names, by their fields.
+_KEY_PARTS = (("call kind", ("call",)),
+              ("keyframe bucket", ("keyframe_bucket", "whole_capacity")),
+              ("surfel bucket", ("surfel_bucket",)),
+              ("config", ("use_depth", "use_descriptor", "baseline_fx", "cell_size",
+                          "merge_dist_factor")),
+              ("camera", ("cam",)), ("storage", ("storage",)), ("mesh", ("mesh",)))
+
+
+def capture_reason(key: BAKey, replaced: Optional[BAKey]) -> str:
+    """Why `key` is captured: "first" when no graph was held, else the parts
+    of the key that differ from the graph it replaced (the last one it
+    evicted, or else the last one held)."""
+    if replaced is None:
+        return "first"
+    parts = [part for part, fields in _KEY_PARTS
+             if any(getattr(key, f) != getattr(replaced, f) for f in fields)]
+    return "+".join(parts) or "same key"
 
 
 class _Captured(NamedTuple):
@@ -129,6 +160,7 @@ class BAGraph:
         self._sel: Dict[int, tuple] = {}
         self.captures: List[dict] = []
         self.replays = 0
+        Timing.stamp_table(device)
 
     def _slots(self, sel: List[int]) -> torch.Tensor:
         """The static slot list of a bucket of len(sel) slots, holding sel
@@ -174,13 +206,17 @@ class BAGraph:
         key = self._key(ba, sel, bucket, call)
         captured = self._graphs.get(key)
         if captured is None:
-            for old in [k for k in self._graphs
-                        if (k.keyframe_bucket, k.whole_capacity, k.surfel_bucket,
-                            k.storage, k.cam, k.mesh)
-                        != (key.keyframe_bucket, key.whole_capacity, key.surfel_bucket,
-                            key.storage, key.cam, key.mesh)]:
+            held = list(self._graphs)
+            evicted = [k for k in held
+                       if (k.keyframe_bucket, k.whole_capacity, k.surfel_bucket,
+                           k.storage, k.cam, k.mesh)
+                       != (key.keyframe_bucket, key.whole_capacity, key.surfel_bucket,
+                           key.storage, key.cam, key.mesh)]
+            for old in evicted:
                 del self._graphs[old]
-            captured = self._graphs[key] = self._capture(ba, sel_t, bucket, call, key)
+            reason = capture_reason(key, (evicted or held or [None])[-1])
+            captured = self._graphs[key] = self._capture(ba, sel_t, bucket, call, key,
+                                                         reason)
         kernels.add_launches(captured.launches)
         captured.graph.replay()
         captured.record["replays"] += 1
@@ -188,7 +224,7 @@ class BAGraph:
         return captured.iterations.clone()
 
     def _capture(self, ba: DirectBA, sel_t, bucket: int, call: FusedCall,
-                 key: BAKey) -> _Captured:
+                 key: BAKey, reason: str) -> _Captured:
         device = self.device
         current = torch.cuda.current_stream(device)
         stream = torch.cuda.Stream(device)
@@ -204,19 +240,21 @@ class BAGraph:
         units = torch.zeros(_bodies(key.keyframe_bucket,
                                     1 if ba.mesh is None else ba.mesh.size),
                             dtype=torch.int64, device=device)
-        control = DeviceControl(nodes, units)
+        control = DeviceControl(nodes, units, scope="BA call")
         launches: Counter = Counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         reserved = torch.cuda.memory_reserved(device)
         stream.wait_stream(current)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.stream(stream), kernels.count_into(launches):
+            with record_function("capture/ba_graph"), torch.cuda.stream(stream), \
+                    kernels.count_into(launches):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    iterations = ba._fused_program(
-                        sf.prefix(ba.surfels, bucket), sel_t, self.limit, self.ba_iter,
-                        self.min_obs, call, control)
+                    with stamped("BA call", device, ring=True):
+                        iterations = ba._fused_program(
+                            sf.prefix(ba.surfels, bucket), sel_t, self.limit,
+                            self.ba_iter, self.min_obs, call, control)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -237,7 +275,7 @@ class BAGraph:
         for name, (_, k) in zip(control.body_names, bodies):
             body_kernels.setdefault(name, []).append(k)
         record = dict(
-            end_first=call.end_first, end_last=call.end_last,
+            reason=reason, end_first=call.end_first, end_last=call.end_last,
             shards=1 if ba.mesh is None else ba.mesh.size, streamed=ba._streaming,
             keyframe_bucket=key.keyframe_bucket, surfel_bucket=bucket,
             capture_s=t1 - t0, instantiate_s=t2 - t1,

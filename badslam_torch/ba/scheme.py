@@ -143,7 +143,7 @@ from badslam_torch.mapping import surfels as sf
 from badslam_torch.mapping.keyframes import KeyframeStack, KeyframeStore
 from badslam_torch.ops.conditional import HOST, Control, loop
 from badslam_torch.ops.preprocess import ProcessedFrame
-from badslam_torch.utils.timing import Spans, Timing
+from badslam_torch.utils.timing import Spans, Timing, capturing, count, stamped, trace_range
 
 ACTIVE = kfs.ACTIVE
 INACTIVE = kfs.INACTIVE
@@ -302,18 +302,37 @@ class DirectBA:
                 torch.cuda.synchronize(d)
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
-        """One BA stage: under sync_stage_profiling its timer, ended by a
-        device synchronization (of every device of the mesh), and its
-        timing row; else untimed."""
-        if not self.config.sync_stage_profiling:
-            yield
+    def _stage(self, name: Optional[str], span: Optional[str], stamp: Optional[str] = None):
+        """One BA stage: its profiler range `span` (None: none) and, under
+        sync_stage_profiling, its timer `name` (the JAX package's; None:
+        untimed), ended by a device synchronization (of every device of the
+        mesh), and its timing row. Inside a CUDA-graph capture no range: the
+        stage's device time is stamped as "<stamp or name> [graph]". Else
+        untimed."""
+        if capturing():
+            with stamped(stamp or name, self.device):
+                yield
             return
-        with Timing.time(name, sync=self.device) as span:
-            yield
-            self._synchronize()
+        with trace_range(span):
+            if name is None or not self.config.sync_stage_profiling:
+                yield
+                return
+            with Timing.time(name, sync=self.device) as timed_span:
+                yield
+                self._synchronize()
         if self.timings_stream is not None:
-            self.timings_stream.write(f"{name.replace(' ', '_')} {span.ms:.3f}\n")
+            self.timings_stream.write(f"{name.replace(' ', '_')} {timed_span.ms:.3f}\n")
+
+    def _count_rows(self, smap) -> None:
+        """Inside a capture: the rows of the surfel bucket that a pass runs
+        over and the valid surfels among them, as the counters "BA surfel
+        rows" and "BA live surfels"."""
+        if not (Timing.stamping and capturing()):
+            return
+        maps = smap.shards if isinstance(smap, parallel.ShardedMap) else (smap,)
+        count("BA surfel rows", sum(m.valid.numel() for m in maps), self.device)
+        count("BA live surfels", sum(m.valid.sum().to(self.device) for m in maps),
+              self.device)
 
     # ------------------------------------------------------------------
 
@@ -541,25 +560,26 @@ class DirectBA:
         the positions as geometry optimization, beside an empty activation
         stage (the module docstring)."""
         c = self.config
-        if optimize_geometry:
-            with self._stage("BA surfel activation"):
+        if optimize_geometry and c.sync_stage_profiling:
+            with self._stage("BA surfel activation", None):
                 pass  # fused into the geometry stage's pass
+        self._count_rows(smap)
         with self._stage("BA geometry optimization" if optimize_geometry
-                         else "BA surfel activation"):
+                         else "BA surfel activation", None, "BA geometry optimization"):
             if isinstance(smap, parallel.ShardedMap):
-                with record_function("ba/activation_geometry"):
+                with trace_range("ba/activation_geometry"):
                     return parallel.activation_geometry_streamed(
                         self.mesh, smap, self.cam, self._planes, stack.q, stack.t,
                         active_strict, participating, baseline_fx=c.baseline_fx,
                         use_depth=c.use_geometric_residuals,
                         use_descriptor=c.use_photometric_residuals,
                         optimize_geometry=optimize_geometry, slots=slots.ids)
-            with record_function("ba/activation_normals"):
+            with trace_range("ba/activation_normals"):
                 smap = update_activation_and_normals(
                     smap, self.cam, stack, active_strict, participating,
                     baseline_fx=c.baseline_fx, update_normals=optimize_geometry)
             if optimize_geometry:
-                with record_function("ba/position"):
+                with trace_range("ba/position"):
                     smap = _position_step(
                         smap, self.cam, stack._replace(mask=participating),
                         baseline_fx=c.baseline_fx,
@@ -587,7 +607,7 @@ class DirectBA:
         """PerformBASchemeEndTasks (direct_ba.cc:566-653): a final merge
         over this epoch's active keyframes, then delete and compact."""
         stack = slots.stack(q, t, slots.valid)
-        with record_function("ba/scheme_end"):
+        with self._stage(None, "ba/scheme_end", "BA scheme end"):
             if do_surfel_updates:
                 recently_active = slots.valid & (last_active == ba_iter)
                 smap = self._merge_surfels(smap, slots, stack, recently_active, control)
@@ -671,7 +691,7 @@ class DirectBA:
         stack = slots.stack(q, t, valid)
 
         if optimize_geometry and do_surfel_updates:
-            with self._stage("BA surfel creation"), record_function("ba/create"):
+            with self._stage("BA surfel creation", "ba/create", "BA surfel upkeep"):
                 smap, _ = self._create_surfels(smap, slots, stack, newly_active,
                                                min_obs, control)
 
@@ -681,17 +701,16 @@ class DirectBA:
         smap = self._geometry(smap, slots, stack, active_strict, participating,
                               optimize_geometry)
         if do_surfel_updates:
-            with record_function("ba/merge_compact"):
-                with self._stage("BA surfel merge"):
-                    smap = self._merge_surfels(smap, slots, stack, newly_active, control)
-                with self._stage("BA surfel compaction"):
-                    smap = self._compact(smap)
+            with self._stage("BA surfel merge", "ba/merge", "BA surfel upkeep"):
+                smap = self._merge_surfels(smap, slots, stack, newly_active, control)
+            with self._stage("BA surfel compaction", "ba/compact", "BA surfel upkeep"):
+                smap = self._compact(smap)
 
         if optimize_poses:
-            with self._stage("BA pose optimization"):
-                with record_function("ba/poses"):
-                    result = self._poses(smap, slots, stack._replace(mask=participating),
-                                         control)
+            self._count_rows(smap)
+            with self._stage("BA pose optimization", "ba/poses"):
+                result = self._poses(smap, slots, stack._replace(mask=participating),
+                                     control)
                 q = torch.where(participating[:, None], result.q, q)
                 t = torch.where(participating[:, None], result.t, t)
                 activation = torch.where(
@@ -747,11 +766,13 @@ class DirectBA:
             return (valid & (st[n + 2] == ACTIVE)).any()
 
         def step(st):
-            out = self._iteration_core(
-                _unflat(smap, st[:n]), slots, *st[n:], ba_iter, min_obs,
-                activate_all=call.activate_all, optimize_geometry=call.optimize_geometry,
-                do_surfel_updates=call.do_surfel_updates,
-                optimize_poses=call.optimize_poses, control=control)
+            with self._stage(None, None, "BA iteration"):
+                out = self._iteration_core(
+                    _unflat(smap, st[:n]), slots, *st[n:], ba_iter, min_obs,
+                    activate_all=call.activate_all,
+                    optimize_geometry=call.optimize_geometry,
+                    do_surfel_updates=call.do_surfel_updates,
+                    optimize_poses=call.optimize_poses, control=control)
             return (*_flat(out[0]), *out[1:])
 
         st, iterations = loop(control, (*flat, *state), any_active, step, most=most,

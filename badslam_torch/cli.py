@@ -120,7 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="profile the run with torch.profiler and write "
                         "key_averages.txt and profile_summary.json (spans, "
                         "kernels run on the device, graph replays included, "
-                        "host launches, device time) into this directory")
+                        "host launches, device time) into this directory, "
+                        "and on a card graph_replays.json (each graph replay "
+                        "as a Chrome-trace event on the profiler's clock)")
     p.add_argument("--save_state", default=None,
                    help="write a full state snapshot (.npz) after the run")
     p.add_argument("--load_state", default=None,
@@ -181,22 +183,30 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
     and their device ms; the kernel launches made from the host
     (``host_kernel_launches``) and the graph replays (``graph_replays``);
     the host-side synchronizations; and each capture of the steady frame
-    (``steady_graph_captures``: seconds, nodes, memory)."""
+    (``steady_graph_captures``: seconds, nodes, memory). On a card,
+    ``graph_replays.json`` holds the replays of the run's graphs
+    (``BadSlam.device_timeline``) as a Chrome trace, a track per graph, with
+    "ts" in microseconds since the epoch on the profiler's host clock (the
+    profiler's own trace counts from its "baseTimeNanoseconds")."""
     import os
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from badslam_torch.utils.timing import PROFILER_CLOCK
+
     activities = [ProfilerActivity.CPU]
     if slam.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
+    start_ns = time.clock_gettime_ns(PROFILER_CLOCK)
     with profile(activities=activities) as prof:
         run_frames()
         if slam.device.type == "cuda":
             torch.cuda.synchronize(slam.device)
     wall_ms = 1000.0 * (time.perf_counter() - t0)
+    replays = [r for r in slam.device_timeline() if r["start_ns"] >= start_ns]
 
     events = prof.key_averages()
     # A span appears twice: as a host event and as a device annotation.
@@ -207,7 +217,7 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
                             "duel",
                             "ba", "ba_drain", "trajectory_deformation",
                             "loop_drain_wait", "loop_closure_attempt")
-                  or e.key.startswith(("gn_iteration/", "ba/")))}
+                  or e.key.startswith(("gn_iteration/", "ba/", "capture/")))}
     kernels = [e for e in events
                if e.device_type.name == "CUDA" and not e.is_user_annotation]
     syncs = sum(e.count for e in events
@@ -241,6 +251,16 @@ def _profiled_run(slam, out_dir: str, run_frames) -> None:
         f.write(events.table(sort_by=sort_by, row_limit=60))
     with open(os.path.join(out_dir, "profile_summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    if replays:
+        tracks = {name: i for i, name in enumerate(dict.fromkeys(r["graph"] for r in replays))}
+        events = [{"name": "thread_name", "ph": "M", "pid": "graph replays", "tid": i,
+                   "args": {"name": name}} for name, i in tracks.items()]
+        events += [{"name": r["graph"], "cat": "graph_replay", "ph": "X",
+                    "pid": "graph replays", "tid": tracks[r["graph"]],
+                    "ts": r["start_ns"] / 1e3, "dur": (r["end_ns"] - r["start_ns"]) / 1e3,
+                    "args": {"frame": r["frame"]}} for r in replays]
+        with open(os.path.join(out_dir, "graph_replays.json"), "w") as f:
+            json.dump({"traceEvents": events, "displayTimeUnit": "ns"}, f)
 
 
 def main(argv=None) -> int:

@@ -81,7 +81,11 @@ steady frames and its batched upload), ``preprocessing`` and ``odometry``
 keyframe's BA call; the drains between frames are not timed, as there),
 ``bundle adjustment (PCG)``, ``loop detection (sync)``, ``loop closure
 attempt``, ``loop detection drain (wait)`` and ``trajectory deformation``;
-the BA stages and the detection worker add theirs.
+the BA stages and the detection worker add theirs. On a card the graphs
+add the device stamps of their replays, WHILE nodes and BA stages as
+``<name> [graph]`` timers, folded in when ``run`` flushes the launch
+counts, and ``device_timeline`` maps the last replays onto the profiler's
+clock; ``run`` logs the graphs it captured, by reason.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
+from collections import Counter
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -1058,6 +1063,7 @@ class BadSlam:
         start = c.start_frame if start is None else start
         end = min(len(self.video), c.end_frame) if end is None else end
         marks = []
+        held = {kind: len(caps) for kind, caps in self._graph_captures().items()}
         preload = PreLoadThread(self.video)
         try:
             i = start
@@ -1099,6 +1105,31 @@ class BadSlam:
         self._drain_loop_detections()
         self._collect_frame_times(marks)
         kernels.flush_launch_counts()
+        self._log_captures(held)
+
+    def _graph_captures(self) -> dict:
+        """The capture records of the steady and BA graphs, by kind."""
+        graphs = (("steady", self.steady_graph), ("BA", self.ba_graph))
+        return {kind: g.captures for kind, g in graphs if g is not None}
+
+    def _log_captures(self, held: dict) -> None:
+        """Log the graphs captured since `held` ({kind: captures then}), by
+        reason."""
+        made = {kind: Counter(c["reason"] for c in caps[held.get(kind, 0):])
+                for kind, caps in self._graph_captures().items()}
+        made = {kind: dict(n) for kind, n in made.items() if n}
+        if made:
+            _log.info("graphs captured in this run, by reason: %s", made)
+
+    def device_timeline(self) -> List[dict]:
+        """The last graph replays on this front end's card (StampTable.RING
+        of them, whole steady frames, BA calls and closure attempts of every
+        front end on the card): dicts of graph, frame index, start_ns and
+        end_ns on the host clock of torch.profiler's events (a device read;
+        none on the CPU)."""
+        if self.device.type != "cuda":
+            return []
+        return Timing.device_timeline(self.device)
 
     def run_live(self, progress: bool = False) -> int:
         """Consume a live stream (io.live_inputs.LiveRGBDVideo): process

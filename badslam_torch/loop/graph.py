@@ -38,6 +38,12 @@ and refinements, capture and instantiate seconds, node counts (all; kernel
 nodes; kernel nodes outside the bodies and per body), WHILE nodes, the
 memory its pools reserved and its replays; ``replay_launches`` the launches
 of each replay (a device read, for reports).
+
+Timers (``utils.timing``): each replay is stamped on the card from its
+first node to its last ("closure attempt [graph]", with a ring entry) and
+each WHILE node ("closure attempt: gn/scale<s> [graph]"). The capture is
+the profiler range "capture/closure_graph"; inside it the tracker's ranges
+are left out.
 """
 
 from __future__ import annotations
@@ -47,12 +53,14 @@ from collections import Counter
 from typing import Dict, List, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from badslam_torch.loop import closure
 from badslam_torch.loop.closure import ClosureInputs, ClosureKey, ClosureResult
 from badslam_torch.ops import kernels
 from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
 from badslam_torch.tracking.pairwise import device_constants
+from badslam_torch.utils.timing import Timing, stamped
 
 
 class _Captured(NamedTuple):
@@ -83,6 +91,7 @@ class ClosureGraph:
         # Per replay: its graph's recorded launches and the device count of
         # its body runs before and after it.
         self._log: List[tuple] = []
+        Timing.stamp_table(device)
 
     @staticmethod
     def _storage(ks, traj_q, traj_t, count) -> tuple:
@@ -125,7 +134,7 @@ class ClosureGraph:
         nodes = WhileNodes(device)
         units = torch.zeros(key.refinements * key.num_scales, dtype=torch.int64,
                             device=device)
-        control = DeviceControl(nodes, units)
+        control = DeviceControl(nodes, units, scope="closure attempt")
         launches: Counter = Counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         reserved = torch.cuda.memory_reserved(device)
@@ -144,11 +153,14 @@ class ClosureGraph:
                 current.wait_stream(s)
             stream.wait_stream(current)
             t0 = time.perf_counter()
-            with torch.cuda.stream(stream), kernels.count_into(launches):
+            with record_function("capture/closure_graph"), torch.cuda.stream(stream), \
+                    kernels.count_into(launches):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    result = closure.attempt_closure(key, cams, cam, ks, traj_q, traj_t,
-                                                     count, inputs, loop=control)
+                    with stamped("closure attempt", device, ring=True):
+                        result = closure.attempt_closure(key, cams, cam, ks, traj_q,
+                                                         traj_t, count, inputs,
+                                                         loop=control)
                 except BaseException:
                     try:
                         graph.capture_end()

@@ -37,6 +37,10 @@ with the step's result kept where the mask is set; or one WHILE node whose
 body takes the next set slot from a device cursor, so it runs once per set
 slot and not at all for an empty mask. It is the counterpart of the JAX
 package's scan over the slots with a ``lax.cond`` on each slot's mask.
+
+The same source holds the device stamps' kernels (``stamp``,
+``clock_pair``; ``utils.timing`` captures them): a
+``DeviceControl`` stamps each WHILE node it adds.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import torch
 
 from badslam_torch.ops import kernels
+from badslam_torch.utils.timing import Timing, stamped
 
 SOURCE = "conditional.cu"
 
@@ -60,7 +65,15 @@ def _lib():
     lib.badslam_set_condition.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong,
                                           ctypes.c_void_p]
     lib.badslam_while_end.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
-    for fn in (lib.badslam_while_begin, lib.badslam_set_condition, lib.badslam_while_end):
+    lib.badslam_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_longlong]
+    lib.badslam_clock_pair.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_longlong),
+                                       ctypes.POINTER(ctypes.c_longlong),
+                                       ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.badslam_while_begin, lib.badslam_set_condition, lib.badslam_while_end,
+               lib.badslam_stamp, lib.badslam_clock_pair):
         fn.restype = ctypes.c_int
     return lib
 
@@ -70,6 +83,44 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: the current stream is not capturing a CUDA graph")
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+# The stamp kernel's forms (csrc/conditional.cu badslam_stamp); a region
+# with a ring entry begins with STAMP_BEGIN_RING and ends with STAMP_END_RING
+# (kernels named stamp_replay_begin and stamp_replay_end in a trace).
+STAMP_BEGIN, STAMP_END, STAMP_END_RING, STAMP_BEGIN_RING = 0, 1, 2, 3
+
+
+def stamp(row: torch.Tensor, mode: int, ctl: torch.Tensor, ring: torch.Tensor,
+          frame: Optional[torch.Tensor] = None, graph: int = 0) -> None:
+    """Launch the one-thread stamp kernel on the current stream of `row`'s
+    device: the begin forms write the card's globaltimer into row[0]; the
+    end forms add the time since row[0] to row[1] and one to row[2], and
+    STAMP_END_RING also writes (graph, frame, start, end) at the ring's
+    cursor ctl[0] (`frame`: a device int64 scalar holding the frame index,
+    kept in ctl[1]; None repeats ctl[1]). All int64 on one CUDA device."""
+    stream = torch.cuda.current_stream(row.device).cuda_stream
+    _check(_lib().badslam_stamp(stream, row.data_ptr(), mode, ctl.data_ptr(),
+                                ring.data_ptr(), ring.shape[0],
+                                None if frame is None else frame.data_ptr(), graph),
+           "launching a device stamp")
+
+
+def clock_pair(device: torch.device, clock_id: int) -> Tuple[int, int, int]:
+    """(host ns on the clock `clock_id` of time.clock_gettime, the card's
+    globaltimer ns, the round trip's ns) read together on `device`'s current
+    stream, which should be idle: the host waits for the work queued
+    before. The host time is the middle of a round trip through mapped
+    memory, so the launch's cost does not enter it."""
+    host, dev, round_trip = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().badslam_clock_pair(stream, clock_id, ctypes.byref(host), ctypes.byref(dev),
+                                    ctypes.byref(round_trip))
+    if err == -2:
+        raise RuntimeError("reading the globaltimer beside the host clock: the kernel did "
+                           "not answer within a second")
+    _check(err, "reading the globaltimer beside the host clock")
+    return host.value, dev.value, round_trip.value
 
 
 # libcuda's node type of a kernel (CU_GRAPH_NODE_TYPE_KERNEL).
@@ -108,6 +159,8 @@ class WhileNodes:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        # Made before the capture, so that its regions can be stamped.
+        Timing.stamp_table(device)
         self.streams = [torch.cuda.Stream(self.device) for _ in range(max(1, depth))]
         self.pool = torch.cuda.MemPool()
         self.count = 0
@@ -174,11 +227,14 @@ class DeviceControl:
     to ``units[j]``. ``body_launches[j]`` holds the kernel launches captured
     in body j (``kernels.count_into``; one run's, a nested body's apart),
     ``body_names[j]`` its name and ``body_graphs[j]`` its body graph (for
-    ``node_counts``)."""
+    ``node_counts``). Each WHILE node is stamped in its parent graph
+    (``utils.timing.stamped``) as "<scope>: <body name>": its device time
+    per replay that reaches it, the bodies' runs included."""
 
-    def __init__(self, nodes: WhileNodes, units: torch.Tensor):
+    def __init__(self, nodes: WhileNodes, units: torch.Tensor, scope: str):
         self.nodes = nodes
         self.units = units
+        self.scope = scope
         self.body_launches: List[Counter] = []
         self.body_names: List[str] = []
         self.body_graphs: List[int] = []
@@ -193,7 +249,8 @@ class DeviceControl:
         self.body_launches.append(launches)
         self.body_names.append(name)
         self.body_graphs.append(0)
-        with self.nodes.while_(flag), kernels.count_into(launches):
+        with stamped(f"{self.scope}: {name}", self.nodes.device), \
+                self.nodes.while_(flag), kernels.count_into(launches):
             yield
             self.units[j:j + 1].add_(1)
         self.body_graphs[j] = self.nodes.bodies[-1]

@@ -41,8 +41,9 @@
   one body are added per body that ran, from a device counter the bodies
   bump (``count_on_device``), read once by ``flush_launch_counts`` after a
   run (``frontend.BadSlam.run`` and ``run_live`` call it;
-  ``reset_launch_counts`` calls it first). So the counts stay exact with no
-  host read per frame.
+  ``reset_launch_counts`` calls it first), together with the device stamps'
+  tables (``utils.timing``). So the counts stay exact with no host read per
+  frame.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import weakref
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from badslam_torch.ops import autotune as tuner
@@ -172,20 +174,43 @@ def count_on_device(owner, counter: torch.Tensor, per_unit: List[Counter]) -> No
     _on_device.append([weakref.ref(owner), counter, per_unit, [0] * len(per_unit)])
 
 
+def _read_together(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """The values of integer tensors on the host, as int64 arrays: those on
+    one device copied in one read (one device sync per device)."""
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    for idx in by_device.values():
+        flat = torch.cat([tensors[i].reshape(-1).to(torch.int64) for i in idx]).cpu().numpy()
+        for i, part in zip(idx, np.split(flat, np.cumsum([tensors[i].numel() for i in idx])[:-1])):
+            out[i] = part
+    return out
+
+
 def flush_launch_counts() -> None:
-    """Add the launches counted on the device since the last flush: one
-    read of each registered counter (a device sync). Entries whose owner is
-    gone are dropped once flushed."""
+    """Add the launches counted on the device since the last flush and fold
+    the device stamps into their timers (``utils.timing``): the registered
+    counters and the stamp tables of a device read together (one device
+    sync per device). Entries whose owner is gone are dropped once flushed.
+    Then each stamp table reads its clock again where the card is idle."""
+    from badslam_torch.utils.timing import Timing
+
+    tables = Timing.stamp_tables()
+    values = _read_together([entry[1] for entry in _on_device] + [t.tensor for t in tables])
     keep = []
-    for entry in _on_device:
+    for entry, units in zip(_on_device, values):
         owner, counter, per_unit, added = entry
-        units = counter.tolist()
+        units = units.tolist()
         for i, recorded in enumerate(per_unit):
             add_launches(recorded, units[i] - added[i])
             added[i] = units[i]
         if owner() is not None:
             keep.append(entry)
     _on_device[:] = keep
+    Timing.fold_tables(dict(zip(tables, values[len(values) - len(tables):])))
+    for table in tables:
+        table.recalibrate()
 
 
 def _nvcc() -> str:
@@ -401,8 +426,6 @@ def autotune_bilateral_tile(h: int, w: int, max_depth: float = 20.0,
     if device.type != "cuda":
         raise ValueError(f"autotune_bilateral_tile tunes a CUDA kernel; got "
                          f"device {device}")
-    import numpy as np
-
     depth = torch.from_numpy(
         np.random.default_rng(0).uniform(0.5, 3.0, (h, w)).astype(np.float32)
     ).to(device)

@@ -35,6 +35,14 @@ input before the next replay). A chunk of steady frames (``upload_chunk``,
 ``set_frame``) uploads its frames in one batched copy and queues one replay
 per frame, with no host read in between, as the JAX scan chunk's two
 batched uploads and one program.
+
+Timers (``utils.timing``): each replay is stamped on the card from its
+first node to its last ("steady frame [graph]", with an entry per replay in
+the stamp table's ring holding the frame index) and each scale's WHILE node
+("steady frame: gn/scale<s> [graph]"); the host's time inside
+``graph.replay()`` is "steady frame launch [host]". Inside the capture the
+profiler ranges of the frame's stages are left out, and the capture itself
+is the range "capture/steady_graph".
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from badslam_torch.ops.conditional import (
 from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
 from badslam_torch.ops.pyramid import FramePyramidLevel, build_pyramid
 from badslam_torch.tracking.pairwise import device_constants, track_frame_pairwise
+from badslam_torch.utils.timing import Timing, stamped, trace_range
 
 
 class SteadyKey(NamedTuple):
@@ -114,7 +123,7 @@ def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_
     one element. `test_two` duels the two motion-model estimates at the
     coarsest scale (the history holds 3 poses). `loop`: the Gauss-Newton
     loop control (tracking.pairwise)."""
-    with record_function("preprocess"):
+    with trace_range("preprocess"):
         frame = preprocess_frame(
             cam, depth_raw, rgb,
             max_depth=key.max_depth, sigma_xy=key.sigma_xy,
@@ -122,7 +131,7 @@ def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_
             a=a, cfactor=cfactor, cell_size=key.cell_size,
             raw_to_float_depth=key.raw_to_float, undistort_map=undistort_map,
             median_iterations=key.median_iterations)
-    with record_function("pyramid"):
+    with trace_range("pyramid"):
         pyramid = build_pyramid(frame.depth, frame.nx, frame.ny, frame.intensity,
                                 key.num_scales, gradmag=key.use_gradmag)
     # Constant-motion model (PredictFramePose, bad_slam.cc:767-829). The
@@ -140,7 +149,7 @@ def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_
             e2 = se3.mul(prev, se3.mul(pm, pm))
         else:
             e2 = e1
-    with record_function("track"):
+    with trace_range("track"):
         res = track_frame_pairwise(
             cams, base_pyr, pyramid, e1.q, e1.t, e2.q, e2.t,
             baseline_fx=key.baseline_fx, use_depth=key.use_depth,
@@ -157,6 +166,32 @@ def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_
                          res.iterations)
 
 
+class _GraphKey(NamedTuple):
+    steady: SteadyKey
+    cam: object
+    cams: tuple
+    undistorted: bool
+    test_two: bool
+    tile: tuple
+    shape: tuple  # the raw depth's
+
+
+def capture_reason(key: _GraphKey, last: Optional[_GraphKey]) -> str:
+    """Why `key` is captured: "first", or the fields in which it differs
+    from the last key captured (the SteadyKey's own fields by name)."""
+    if last is None:
+        return "first"
+    parts = []
+    for field, a, b in zip(key._fields, key, last):
+        if a == b:
+            continue
+        if field == "steady":
+            parts += [f for f, x, y in zip(a._fields, a, b) if x != y]
+        else:
+            parts.append(field)
+    return "+".join(parts) or "same key"
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     nodes: WhileNodes    # its WHILE nodes (keeps the bodies' memory pool alive)
@@ -170,8 +205,8 @@ class SteadyFrameGraph:
     one front end (module docstring). ``captures`` holds one record per
     capture: its key's test_two, capture and instantiate seconds, node
     counts (all; kernel nodes; kernel nodes outside the WHILE bodies and in
-    the body of each scale), the WHILE nodes, the memory its pools reserved
-    and its replays."""
+    the body of each scale), the WHILE nodes, the memory its pools reserved,
+    its replays and why it was captured (``capture_reason``)."""
 
     def __init__(self, device: torch.device):
         device = torch.device(device)
@@ -186,9 +221,11 @@ class SteadyFrameGraph:
         self.idx = torch.zeros(1, dtype=torch.int64, device=device)
         self.captures: List[dict] = []
         self.replays = 0
+        self._last_key: Optional[_GraphKey] = None
         # Each capture's device count of Gauss-Newton bodies run per scale,
         # coarsest first.
         self._iterations: List[torch.Tensor] = []
+        Timing.stamp_table(device)
 
     # -- static inputs ---------------------------------------------------
 
@@ -255,19 +292,23 @@ class SteadyFrameGraph:
         self.idx.fill_(frame_index)
         h, w = cams[0].height, cams[0].width
         tile = kernels._tile_index(None, self.device, h, w)[1]
-        gkey = (key, cam, tuple(cams), undistort_map is not None, test_two, tile,
-                tuple(self._static["depth_raw"].shape))
+        gkey = _GraphKey(key, cam, tuple(cams), undistort_map is not None, test_two, tile,
+                         tuple(self._static["depth_raw"].shape))
         captured = self._graphs.get(gkey)
         if captured is None:
+            reason = capture_reason(gkey, self._last_key)
+            self._last_key = gkey
             captured = self._graphs[gkey] = self._capture(key, cam, cams, undistort_map,
-                                                          test_two)
+                                                          test_two, reason)
         kernels.add_launches(captured.launches)
-        captured.graph.replay()
+        with Timing.time("steady frame launch [host]"):
+            captured.graph.replay()
         captured.record["replays"] += 1
         self.replays += 1
         return captured.outputs
 
-    def _capture(self, key: SteadyKey, cam, cams, undistort_map, test_two: bool) -> _Captured:
+    def _capture(self, key: SteadyKey, cam, cams, undistort_map, test_two: bool,
+                 reason: str) -> _Captured:
         st = self._static
         device_constants(self.device)
         current = torch.cuda.current_stream(self.device)
@@ -286,21 +327,23 @@ class SteadyFrameGraph:
         # One WHILE body per scale, captured coarsest first; each run of
         # body j adds one to units[j].
         units = torch.zeros(key.num_scales, dtype=torch.int64, device=self.device)
-        control = DeviceControl(nodes, units)
+        control = DeviceControl(nodes, units, scope="steady frame")
         launches: Counter = Counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         reserved = torch.cuda.memory_reserved(self.device)
         stream.wait_stream(current)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.stream(stream), kernels.count_into(launches):
+            with record_function("capture/steady_graph"), torch.cuda.stream(stream), \
+                    kernels.count_into(launches):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    outputs = steady_frame(
-                        key, cam, cams, self.base_pyr, st["depth_raw"], st["rgb"],
-                        undistort_map, st["a"], st["cfactor"], st["base_q"], st["base_t"],
-                        st["traj_q"], st["traj_t"], st["hist_q"], st["hist_t"], self.idx,
-                        test_two=test_two, loop=control)
+                    with stamped("steady frame", self.device, ring=True, frame=self.idx):
+                        outputs = steady_frame(
+                            key, cam, cams, self.base_pyr, st["depth_raw"], st["rgb"],
+                            undistort_map, st["a"], st["cfactor"], st["base_q"],
+                            st["base_t"], st["traj_q"], st["traj_t"], st["hist_q"],
+                            st["hist_t"], self.idx, test_two=test_two, loop=control)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -319,7 +362,7 @@ class SteadyFrameGraph:
         # Per scale, finest first.
         bodies = [node_counts(b) for b in reversed(control.body_graphs)]
         record = dict(
-            test_two=test_two, capture_s=t1 - t0, instantiate_s=t2 - t1,
+            test_two=test_two, reason=reason, capture_s=t1 - t0, instantiate_s=t2 - t1,
             nodes=top + sum(b[0] for b in bodies),
             kernel_nodes=top_kernels + sum(b[1] for b in bodies),
             top_kernel_nodes=top_kernels, body_kernel_nodes=[b[1] for b in bodies],

@@ -32,7 +32,6 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Tuple, Union
 
 import torch
-from torch.profiler import record_function
 
 from badslam_torch.geometry import se3
 from badslam_torch.geometry.camera import PinholeCamera
@@ -43,6 +42,7 @@ from badslam_torch.ops.conditional import loop as run_loop
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 from badslam_torch.ops.preprocess import normal_z, shift2d
 from badslam_torch.ops.pyramid import FramePyramidLevel
+from badslam_torch.utils.timing import trace_range
 
 # Convergence thresholds (scale-N pose estimation test).
 _SCALE_N_TRANS_THR = 1e-8
@@ -447,7 +447,7 @@ def _gn_level(
     span = f"gn_iteration/width{cam.width}"
 
     def step(state):
-        with record_function(span):
+        with trace_range(span):
             return _gn_step(cam, base, tracked, state[0], state[1], scaling_factor,
                             damping, baseline_fx, use_depth, use_descriptor, use_gradmag)
 
@@ -465,7 +465,7 @@ def _gn_level(
 def _duel(cam, base, tracked, qa, ta, qb, tb, threshold_factor, baseline_fx,
           use_depth, use_descriptor, use_gradmag=False):
     """Pick the better of two pose hypotheses (on the device, no sync)."""
-    with record_function("duel"):
+    with trace_range("duel"):
         cost_a, count_a = compute_cost_and_count(
             cam, base, tracked, qa, ta, threshold_factor, baseline_fx,
             use_depth, use_descriptor, use_gradmag)

@@ -50,6 +50,12 @@ Tolerances:
     the same function with the host loop on the card: poses and trajectory
     atol 1e-6, the same gates and K2 launches, a rejection bit-identical;
     replays make no sync.
+  * device stamps: a stamped WHILE body's runs exact, its device time and
+    the replay's within 5% of CUDA events around the replays; a run with
+    the stamps and without: trajectory, keyframe poses and map bit for bit,
+    the same stream syncs and copies; the steady replays' first stamp
+    kernel within 20 us of its globaltimer mapped onto the profiler's
+    clock; no stage range inside a capture's range.
 """
 
 import json
@@ -1150,3 +1156,235 @@ def test_closure_graph_replays_make_no_host_sync(cuda, tmp_path):
     assert slam.loop_closure_count == 2
     assert [(a["consistent"], a["needed"]) for a in slam.closure_attempts] == [
         (True, True), (True, True), (True, False)]
+
+
+@pytest.mark.cuda
+def test_stamps_time_a_while_node_and_its_replay(cuda):
+    """Device stamps captured in a toy graph (a whole-replay region with a
+    ring entry around a Timing region and a WHILE node whose body is
+    stamped too): the body's row runs n times a replay, the region's, the
+    WHILE node's and the replay's once (the region as "<name> [graph]", with
+    no CUDA events), the device timers agree within 5% with CUDA events
+    around the replays, and the ring holds each replay with its frame index,
+    in order on the host clock."""
+    from badslam_torch.ops.conditional import DeviceControl, WhileNodes
+    from badslam_torch.utils.timing import Timing, stamped
+
+    Timing.reset()
+    a = torch.randn(4096, 4096, device=cuda) / 64.0
+    x = torch.randn(4096, 4096, device=cuda)
+    limit = torch.zeros((), dtype=torch.int64, device=cuda)
+    frame = torch.full((1,), 7, dtype=torch.int64, device=cuda)
+    nodes = WhileNodes(cuda)
+    control = DeviceControl(nodes, torch.zeros(1, dtype=torch.int64, device=cuda),
+                            scope="toy")
+    stream = torch.cuda.Stream(cuda)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        a @ x  # the cuBLAS handle and workspace, before the capture
+        graph.capture_begin(capture_error_mode="thread_local")
+        with stamped("toy replay", cuda, ring=True, frame=frame):
+            with Timing.time("toy region", device=cuda) as span:  # stamped, not events
+                i = torch.zeros((), dtype=torch.int64, device=cuda)
+                flag = i < limit
+            with control.body(flag, "work"), stamped("toy body", cuda):
+                x.copy_(torch.tanh(a @ x))
+                i.add_(1)
+                flag.copy_(i < limit)
+        graph.capture_end()
+    graph.instantiate()
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    event_ms = []
+    for n in (5, 20):
+        limit.fill_(n)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    kernels.flush_launch_counts()
+    body, node = Timing.stats("toy body [graph]"), Timing.stats("toy: work [graph]")
+    whole = Timing.stats("toy replay [graph]")
+    assert body.count == 25 and node.count == whole.count == 2
+    assert span.stamped and Timing.stats("toy region [graph]").count == 2
+    assert Timing.stats("toy region") is None
+    assert int(control.units[0]) == 25
+    assert whole.total >= node.total >= body.total > 0
+    assert abs(1e3 * whole.total - sum(event_ms)) <= 0.05 * sum(event_ms)
+    assert abs(1e3 * body.total - sum(event_ms)) <= 0.05 * sum(event_ms)
+    replays = Timing.device_timeline(cuda)
+    assert [(r["graph"], r["frame"]) for r in replays] == [("toy replay", 7)] * 2
+    assert replays[0]["end_ns"] <= replays[1]["start_ns"]
+    for r, ms in zip(replays, event_ms):
+        assert abs((r["end_ns"] - r["start_ns"]) * 1e-6 - ms) <= 0.05 * ms
+    Timing.reset()
+
+
+def _stamped_run(path, cuda, stamping: bool):
+    """The 16-frame steady sequence with keyframe BA (4 iterations) on the
+    card, its graphs captured with the device stamps or without."""
+    from badslam_torch.utils.timing import Timing
+
+    Timing.reset()
+    Timing.stamping = stamping
+    try:
+        slam = _steady_slam(path, cuda, max_num_ba_iterations_per_keyframe=4)
+        slam.run()
+        torch.cuda.synchronize()
+        return slam, Timing.snapshot()
+    finally:
+        Timing.stamping = True
+        Timing.reset()
+
+
+@pytest.mark.cuda
+def test_stamps_leave_poses_and_map_bit_identical(cuda, tmp_path):
+    """The same run with its graphs captured with the device stamps and
+    without: bit-identical trajectory, keyframe poses and map, the same BA
+    iterations; with the stamps, the [graph] timers count the replays, the
+    iterations and the passes over the surfel bucket."""
+    path = _steady_sequence(tmp_path)
+    (s, timers), (u, plain) = (_stamped_run(path, cuda, True),
+                               _stamped_run(path, cuda, False))
+    assert torch.equal(s.traj_q, u.traj_q) and torch.equal(s.traj_t, u.traj_t)
+    ks, ku = s.direct_ba.keyframes, u.direct_ba.keyframes
+    assert torch.equal(ks.q, ku.q) and torch.equal(ks.t, ku.t)
+    for a, b in zip(s.direct_ba.surfels, u.direct_ba.surfels):
+        assert torch.equal(a, b)
+    iterations = s.direct_ba.iterations_run
+    assert iterations == u.direct_ba.iterations_run and sum(iterations) > 0
+    assert not any(name.endswith("[graph]") for name in plain)
+    assert timers["steady frame [graph]"][0] == s.steady_graph.replays
+    assert timers["BA call [graph]"][0] == s.ba_graph.replays
+    assert timers["BA iteration [graph]"][0] == sum(iterations)
+    assert timers["steady frame launch [host]"][0] == s.steady_graph.replays
+    for stage in ("BA pose optimization", "BA geometry optimization", "BA surfel upkeep",
+                  "BA scheme end"):
+        assert timers[f"{stage} [graph]"][1] > 0
+    stages = sum(timers[f"{stage} [graph]"][1] for stage in (
+        "BA pose optimization", "BA geometry optimization", "BA surfel upkeep",
+        "BA scheme end"))
+    assert stages <= timers["BA call [graph]"][1]
+    rows, live = timers["BA surfel rows [graph]"][0], timers["BA live surfels [graph]"][0]
+    assert rows >= live > 0
+    assert {c["reason"] for c in s.ba_graph.captures} and \
+        s.steady_graph.captures[0]["reason"] == "first"
+
+
+@pytest.mark.cuda
+def test_stamps_add_no_synchronization(cuda, tmp_path):
+    """A run's stream and device synchronizations and device copies,
+    counted as cli.py's --profile summary counts them, are the same with
+    the device stamps captured and without. (Event synchronizations are
+    left out: reading a frame's span waits only where its end has not
+    completed yet, which timing decides.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from badslam_torch.utils.timing import Timing
+
+    path = _steady_sequence(tmp_path)
+    counts = []
+    for stamping in (True, False):
+        Timing.stamping = stamping
+        try:
+            slam = _steady_slam(path, cuda, max_num_ba_iterations_per_keyframe=4)
+            slam.run(0, 7)  # captures
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                slam.run(7, 13)
+                slam.run(13, 16)
+            counts.append({e.key: e.count for e in prof.key_averages()
+                           if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                        "cudaMemcpyAsync")})
+        finally:
+            Timing.stamping = True
+            Timing.reset()
+    assert counts[0] == counts[1], counts
+
+
+@pytest.mark.cuda
+def test_device_timeline_lines_up_with_the_profiler(cuda, tmp_path):
+    """Under torch.profiler, the steady graph's first stamp kernel of the
+    first profiled replay (stamp_replay_begin, which CUPTI records under the
+    replay's graph launch) starts within 20 us of its own globaltimer
+    reading mapped onto the profiler's clock, and each idle gap between two
+    replays (stamp_replay_end to the next stamp_replay_begin) is the same
+    within 20 us on both clocks; the timeline holds every steady replay of
+    the profiled frames, in order, with its frame index, and one replay for
+    each graph launch. (CUPTI does not record every kernel of a graph: a
+    gap whose stamps it left out is not compared.)"""
+    import time
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from badslam_torch.utils.timing import PROFILER_CLOCK, Timing
+
+    Timing.reset()
+    slam = _steady_slam(_steady_sequence(tmp_path), cuda,
+                        max_num_ba_iterations_per_keyframe=0)
+    slam.run(0, 7)
+    torch.cuda.synchronize()
+    t0 = time.clock_gettime_ns(PROFILER_CLOCK)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slam.run(7, 13)
+        torch.cuda.synchronize()
+    replays = [r for r in slam.device_timeline() if r["start_ns"] >= t0]
+    steady = [r for r in replays if r["graph"] == "steady frame"]
+    assert [r["frame"] for r in steady] == list(range(7, 13))  # the keyframe's too
+    events = list(prof.profiler.kineto_results.events())
+    recorded = defaultdict(list)
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation():
+            recorded[ev.correlation_id()].append((ev.start_ns(), ev.name()))
+    launches = sorted((ev.start_ns(), ev.correlation_id()) for ev in events
+                      if ev.device_type() == DeviceType.CPU
+                      and ev.name().startswith("cudaGraphLaunch"))
+    assert len(launches) == len(replays), (len(launches), [r["graph"] for r in replays])
+    gaps = {}
+    for r, (_, correlation) in zip(replays, launches):
+        if r["graph"] != "steady frame":
+            continue
+        for start, name in recorded.get(correlation, []):
+            if "stamp_replay_begin" in name:
+                gaps[(r["frame"], "begin")] = start - r["start_ns"]
+            elif "stamp_replay_end" in name:
+                gaps[(r["frame"], "end")] = start - r["end_ns"]
+    # Inside a replay CUPTI's kernel times part from the globaltimer (by up to
+    # hundreds of microseconds a replay, PERF.md §6), so the first replay's
+    # start is held, and each idle gap between two replays.
+    begins = {f: gap for (f, side), gap in gaps.items() if side == "begin"}
+    ends = {f: gap for (f, side), gap in gaps.items() if side == "end"}
+    assert abs(begins[7]) <= 20_000, str(sorted(gaps.items()))
+    across = [begins[f + 1] - ends[f] for f in ends if f + 1 in begins]
+    assert len(across) >= len(steady) // 2, str(sorted(gaps.items()))
+    assert all(abs(gap) <= 20_000 for gap in across), str(sorted(gaps.items()))
+    Timing.reset()
+
+
+@pytest.mark.cuda
+def test_capture_ranges_replace_stage_ranges(cuda, tmp_path):
+    """Under torch.profiler, a run that captures its steady and BA graphs
+    opens capture/steady_graph and capture/ba_graph, and no stage range
+    (the BA stages', the steady frame's, the tracker's) inside either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    slam = _steady_slam(_steady_sequence(tmp_path), cuda,
+                        max_num_ba_iterations_per_keyframe=4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        slam.run(0, 13)
+        torch.cuda.synchronize()
+    ranges = [(ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CPU and ev.is_user_annotation()]
+    captures = [r for r in ranges if r[2].startswith("capture/")]
+    assert {r[2] for r in captures} == {"capture/steady_graph", "capture/ba_graph"}
+    stages = [r for r in ranges if r[2].startswith(("ba/", "gn_iteration/"))
+              or r[2] in ("preprocess", "pyramid", "track", "duel")]
+    for lo, hi, name in captures:
+        inside = [s[2] for s in stages if lo <= s[0] <= hi]
+        assert not inside, (name, inside[:5])

@@ -16,9 +16,14 @@ Tolerances:
     float orders); the port's unflagged run with and without --save_timings:
     bit for bit;
   * timer names: the JAX package's, less the three that time its fused
-    steady-frame program and scan chunks (not ported).
+    steady-frame program and scan chunks (not ported);
+  * the device stamps' table (a CPU tensor standing in for the card's):
+    counts and seconds folded exactly; the globaltimer-to-host mapping
+    exact in integers; BA stages timed outside a capture only under
+    sync_stage_profiling, and inside one stamped with no profiler range.
 """
 
+import contextlib
 import io
 
 import numpy as np
@@ -33,7 +38,7 @@ from badslam_torch import convert
 from badslam_torch import synthetic as tsyn
 from badslam_torch.cli import main as torch_main
 from badslam_torch.utils import memory
-from badslam_torch.utils.timing import Spans, Timing, timed
+from badslam_torch.utils.timing import Spans, StampTable, Timing, timed
 
 from test_torch_mapping import DEV, Pair
 
@@ -143,6 +148,164 @@ def test_timing_registry_is_thread_safe(registries):
     assert snap["shared"][0] == 16 * 500
     assert snap["shared"][1] == pytest.approx(16 * 500 * 1e-3)
     assert sum(snap[f"own {j}"][0] for j in range(4)) == 16 * 500
+
+
+def test_stamp_table_folds_into_graph_timers(registries):
+    """A stand-in device table (a CPU tensor) folds each time row into the
+    timer "<name> [graph]" with count = runs and seconds = nanoseconds, a
+    counter row with its summed value as the count, only what was added
+    since the last fold, and its ring's new entries (the last RING of
+    them) into the replays."""
+    table = StampTable("cpu", calibrate=False)
+    call, iteration = table.row("BA call"), table.row("BA iteration")
+    rows = table.row("BA surfel rows", StampTable.COUNT)
+    table.row("closure attempt")  # registered, never run
+    assert table.row("BA call") == call
+    with pytest.raises(ValueError):
+        table.row("BA surfel rows")
+    table.rows[call, 1:3] = torch.tensor([3_000_000, 2])
+    table.rows[iteration, 1:3] = torch.tensor([2_500_000, 7])
+    table.rows[rows, 1] = 4096
+    Timing.fold_tables({table: table.tensor.numpy().copy()})
+    snap = Timing.snapshot()
+    assert set(snap) == {"BA call [graph]", "BA iteration [graph]", "BA surfel rows [graph]"}
+    assert snap["BA call [graph]"] == (2, pytest.approx(3e-3))
+    assert snap["BA iteration [graph]"] == (7, pytest.approx(2.5e-3))
+    assert snap["BA surfel rows [graph]"] == (4096, 0.0)
+    table.rows[call, 1:3] += torch.tensor([5_000_000, 1])
+    table.rows[rows, 1] += 1000
+    table.ctl[0] = 2
+    table.ring[0] = torch.tensor([call, 5, 100, 200])
+    table.ring[1] = torch.tensor([call, 6, 300, 450])
+    Timing.fold_tables({table: table.tensor.numpy().copy()})
+    st = Timing.stats("BA call [graph]")
+    assert (st.count, st.total) == (3, pytest.approx(8e-3))
+    assert (st.min, st.max) == (pytest.approx(1.5e-3), pytest.approx(5e-3))
+    assert Timing.stats("BA surfel rows [graph]").count == 5096
+    assert Timing.stats("BA iteration [graph]").count == 7
+    assert list(table.replays) == [(call, 5, 100, 200), (call, 6, 300, 450)]
+    # A ring that wrapped since the last fold gives its last RING entries.
+    table.ctl[0] = 2 + StampTable.RING + 3
+    table.ring[:, 0] = call
+    table.ring[:, 1] = torch.arange(StampTable.RING)
+    Timing.fold_tables({table: table.tensor.numpy().copy()})
+    assert len(table.replays) == StampTable.RING
+    assert [r[1] for r in list(table.replays)[:2]] == [5, 6]
+    table.clear()
+    assert not table.tensor.any() and not table.replays
+
+
+def test_globaltimer_mapping_is_exact_on_known_offsets():
+    """globaltimer ns onto the host clock: the calibration's offset at each
+    end, interpolated linearly between two, beyond the ends the nearest
+    offset, or the drift from the first to the last where they lie a second
+    or more apart, in exact integers at the clocks' real magnitudes."""
+    table = StampTable("cpu", calibrate=False)
+    d0 = 1_792_296_198_250_365_176
+    table.calibrations = [(d0, -3_000_000_000), (d0 + 10_000_000, -2_999_999_000)]
+    assert table.to_host_ns(d0) == d0 - 3_000_000_000
+    assert table.to_host_ns(d0 - 7) == d0 - 7 - 3_000_000_000
+    assert table.to_host_ns(d0 + 5_000_000) == d0 + 5_000_000 - 2_999_999_500
+    assert table.to_host_ns(d0 + 10_000_000) == d0 + 10_000_000 - 2_999_999_000
+    assert table.to_host_ns(d0 + 99_000_000) == d0 + 99_000_000 - 2_999_999_000
+    # Calibrations a second or more apart: their drift (3 ppm here) carries
+    # the offset on beyond either end.
+    table.calibrations.append((d0 + 2_000_000_000, -2_999_994_000))
+    assert table.to_host_ns(d0 + 1_005_000_000) == d0 + 1_005_000_000 - 2_999_996_500
+    assert table.to_host_ns(d0 + 12_000_000_000) == d0 + 12_000_000_000 - 2_999_964_000
+    assert table.to_host_ns(d0 - 1_000_000_000) == d0 - 1_000_000_000 - 3_000_003_000
+    table.calibrations = table.calibrations[:2]
+    call = table.row("steady frame")
+    table.replays.append((call, 12, d0 + 1_000, d0 + 2_000))
+    assert table.timeline() == [{"graph": "steady frame", "frame": 12,
+                                 "start_ns": d0 + 1_000 - 3_000_000_000 + 0,
+                                 "end_ns": d0 + 2_000 - 3_000_000_000 + 0}]
+
+
+def _cpu_ba(**config):
+    from badslam_torch.ba.scheme import DirectBA
+    from badslam_torch.config import BadSlamConfig
+
+    return DirectBA(tsyn.default_camera(32, 24), BadSlamConfig(max_surfel_count=1 << 8,
+                                                               **config), device="cpu")
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["unflagged", "staged"])
+def test_ba_stage_outside_a_capture_times_only_when_staged(registries, staged):
+    """Outside a capture, DirectBA._stage opens its profiler range and adds
+    its timer (and timing row) only under sync_stage_profiling."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ba = _cpu_ba(sync_stage_profiling=staged)
+    rows = io.StringIO()
+    ba.set_save_timings(rows)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ba._stage("BA pose optimization", "ba/poses", "ignored"):
+            torch.ones(8).sum()
+        with ba._stage(None, "ba/scheme_end", "BA scheme end"):
+            pass
+    keys = {e.key for e in prof.key_averages()}
+    assert {"ba/poses", "ba/scheme_end"} <= keys
+    assert set(Timing.snapshot()) == ({"BA pose optimization"} if staged else set())
+    assert rows.getvalue().startswith("BA_pose_optimization ") == staged
+
+
+def test_ba_stage_inside_a_capture_stamps_and_opens_no_range(registries, monkeypatch):
+    """While the stream captures (here pretended), a stage is stamped under
+    its graph name and opens no profiler range, sync_stage_profiling or
+    not, and trace_range opens none either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from badslam_torch.ba import scheme
+    from badslam_torch.utils import timing
+
+    stamps = []
+
+    @contextlib.contextmanager
+    def stamp(name, device, **_):
+        stamps.append((name, str(device)))
+        yield
+
+    monkeypatch.setattr(scheme, "capturing", lambda: True)
+    monkeypatch.setattr(scheme, "stamped", stamp)
+    monkeypatch.setattr(timing, "capturing", lambda: True)
+    ba = _cpu_ba(sync_stage_profiling=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ba._stage("BA surfel merge", "ba/merge", "BA surfel upkeep"):
+            with timing.trace_range("ba/position"):
+                torch.ones(8).sum()
+        with ba._stage("BA pose optimization", "ba/poses"):
+            pass
+    keys = {e.key for e in prof.key_averages()}
+    assert not keys & {"ba/merge", "ba/position", "ba/poses"}
+    assert stamps == [("BA surfel upkeep", "cpu"), ("BA pose optimization", "cpu")]
+    assert Timing.snapshot() == {}
+
+
+def test_capture_reasons_name_what_changed():
+    """A BA graph's capture names the parts of its key that differ from the
+    graph it replaced; a steady graph's the key fields that changed."""
+    from badslam_torch.ba import graph as bag
+    from badslam_torch.ba.scheme import FusedCall
+    from badslam_torch.config import BadSlamConfig
+    from badslam_torch import steady
+
+    call = FusedCall(False, True, True, True, True, True)
+    key = bag.BAKey(call, 8, False, 1024, True, True, 40.0, 4, 2.0, "cam", (1, 2), ())
+    assert bag.capture_reason(key, None) == "first"
+    assert bag.capture_reason(key._replace(surfel_bucket=2048), key) == "surfel bucket"
+    assert bag.capture_reason(key._replace(keyframe_bucket=16, storage=(2, 2)),
+                              key) == "keyframe bucket+storage"
+    assert bag.capture_reason(key._replace(call=call._replace(end_first=True)),
+                              key) == "call kind"
+    assert bag.capture_reason(key._replace(cam="other", mesh=(("cpu",), False)),
+                              key) == "camera+mesh"
+    sk = steady.steady_key(BadSlamConfig())
+    g = steady._GraphKey(sk, "cam", ("cam",), False, False, (8, 2), (48, 64))
+    assert steady.capture_reason(g, None) == "first"
+    assert steady.capture_reason(g._replace(test_two=True), g) == "test_two"
+    assert steady.capture_reason(g._replace(steady=sk._replace(max_depth=2.0),
+                                            shape=(96, 128)), g) == "max_depth+shape"
 
 
 def test_memory_line_without_a_device():
