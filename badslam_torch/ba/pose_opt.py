@@ -6,17 +6,22 @@ kernel_opt_pose.cu:251-420): Gauss-Newton on each keyframe's 6-DoF pose
 with depth (point-to-plane, Tukey) and descriptor (tangent-point intensity,
 Huber) residuals over all surfels.
 
+``surfel_pose_coeffs`` is the step's accumulation: on a CUDA tensor it
+launches H2 (``csrc/pose_coeffs.cu``, one kernel over the live surfel rows
+and the running keyframes, no per-surfel field in memory), on a CPU
+tensor it runs the plain version, ``surfel_pose_coeffs_plain``.
+
 The keyframes run in fixed blocks of ``KEYFRAME_BATCH`` slots
 (``static_blocks``, the JAX package's chunks), each block in lockstep:
-every Gauss-Newton step associates all surfels with all the block's
-keyframes at once ([C, N] fields) and solves C 6x6 systems. Only the
-keyframes of the mask run; one whose own loop has ended (converged, or 30
-steps) keeps its pose while the others go on, exactly as the JAX
-package's vmapped while_loop. The block's loop runs while any of its
-keyframes runs, under a loop control (``ops.conditional``): the host loop
-(one flag read back per step, as the CUDA original did), the masked plain
-version (every step, no read) or, inside a captured CUDA graph, one WHILE
-node per block, so the card decides each block's exit.
+every Gauss-Newton step associates all surfels with the block's running
+keyframes at once and solves C 6x6 systems. Only the keyframes of the mask
+run; one whose own loop has ended (converged, or 30 steps) keeps its pose
+while the others go on, exactly as the JAX package's vmapped while_loop,
+and is left out of the accumulation (zeros). The block's loop runs while
+any of its keyframes runs, under a loop control (``ops.conditional``): the
+host loop (one flag read back per step, as the CUDA original did), the
+masked plain version (every step, no read) or, inside a captured CUDA
+graph, one WHILE node per block, so the card decides each block's exit.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from badslam_torch.mapping.association import (
     tangent_projections,
 )
 from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
-from badslam_torch.ops import robust
+from badslam_torch.ops import kernels, robust
 from badslam_torch.ops.conditional import HOST, Control, loop
 from badslam_torch.ops.interp import bilinear_and_gradient
 
@@ -50,10 +55,33 @@ def is_scale1_converged(x: torch.Tensor) -> torch.Tensor:
 
 def surfel_pose_coeffs(smap, cam, kf_q, kf_t, depth, f_nx, f_ny, intensity,
                        baseline_fx: float, use_depth: bool,
-                       use_descriptor: bool):
+                       use_descriptor: bool, running=None):
     """One Gauss-Newton accumulation over all surfels for keyframe pose(s)
     global_T_frame (kf_q [4] or [C, 4]) with their planes ([H, W] or
-    [C, H, W]). Returns (H [..., 6, 6], b [..., 6], count [...])."""
+    [C, H, W]). Returns (H [..., 6, 6], b [..., 6], count [...]); a
+    keyframe outside `running` ([...] bool, None for all) gets zeros.
+    H2 on a CUDA tensor, the plain version on a CPU tensor."""
+    if smap.pos.is_cuda:
+        ftg = se3.inverse(se3.SE3(kf_q, kf_t))
+        return kernels.pose_coeffs_cuda(
+            *(x.contiguous() for x in (smap.pos, smap.normal, smap.radius2,
+                                       smap.desc, smap.valid)),
+            se3.quat_to_matrix(ftg.q).contiguous(), ftg.t.contiguous(),
+            *(x.contiguous() for x in (depth, f_nx, f_ny, intensity)),
+            cam, baseline_fx, use_depth, use_descriptor,
+            None if running is None else running.contiguous())
+    if smap.pos.device.type != "cpu":
+        raise ValueError(f"no surfel pose coefficients for device {smap.pos.device}")
+    return surfel_pose_coeffs_plain(smap, cam, kf_q, kf_t, depth, f_nx, f_ny,
+                                    intensity, baseline_fx, use_depth,
+                                    use_descriptor, running)
+
+
+def surfel_pose_coeffs_plain(smap, cam, kf_q, kf_t, depth, f_nx, f_ny,
+                             intensity, baseline_fx: float, use_depth: bool,
+                             use_descriptor: bool, running=None):
+    """Plain PyTorch version of surfel_pose_coeffs (and of H2), on any
+    device."""
     ftg = se3.inverse(se3.SE3(kf_q, kf_t))
     a = associate_surfels_with_frame(
         cam, smap.pos, smap.normal, smap.valid, ftg.q, ftg.t,
@@ -125,7 +153,11 @@ def surfel_pose_coeffs(smap, cam, kf_q, kf_t, depth, f_nx, f_ny, intensity,
         M = torch.matmul((A * wt[..., None]).transpose(-1, -2), A)
         H = H + M[..., :6, :6]
         b = b + M[..., :6, 6]
-    return H, b, valid.sum(dim=-1)
+    count = valid.sum(dim=-1)
+    if running is None:
+        return H, b, count
+    return (torch.where(running[..., None, None], H, 0.0),
+            torch.where(running[..., None], b, 0.0), torch.where(running, count, 0))
 
 
 class PoseOptResult(NamedTuple):
@@ -148,7 +180,7 @@ def _estimate_poses(smap, cam, b: KeyframeStack, baseline_fx, use_depth,
         q, t, running = state
         H, rhs, count = surfel_pose_coeffs(
             smap, cam, q, t, b.depth, b.nx, b.ny, b.intensity, baseline_fx,
-            use_depth, use_descriptor)
+            use_depth, use_descriptor, running)
         ok = count > 6
         x = solve_psd(torch.where(ok[:, None, None], H, eye), rhs)
         x = torch.where((ok & torch.all(torch.isfinite(x), dim=-1))[:, None],

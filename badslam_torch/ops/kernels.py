@@ -9,6 +9,9 @@
 * K3, the same gather as a windowed one-hot (``csrc/gather.cu``), replaces
   ``tools/probe_pallas_gather.py:120 pallas_gather_onehot``; only the probe
   (``badslam_torch.probe_gather``) runs it.
+* H2, keyframe BA's pose Gauss-Newton accumulation (``csrc/pose_coeffs.cu``),
+  replaces no TPU kernel: it is ``ba.pose_opt.surfel_pose_coeffs`` on a
+  CUDA tensor, in place of the plain chain (``surfel_pose_coeffs_plain``).
 
 * Build: at first use, ``nvcc`` compiles the source in this checkout into a
   shared library with a plain C interface under ``badslam_torch/_build/``
@@ -66,6 +69,7 @@ import numpy as np
 import torch
 
 from badslam_torch.ops import autotune as tuner
+from badslam_torch.ops import robust
 
 _log = logging.getLogger(__name__)
 
@@ -75,14 +79,19 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source on top of NVCC_FLAGS: H2 rounds every operation as
+# the plain version's PyTorch operations do (no contraction into fused
+# multiply-adds), so its association gates are the plain version's.
+SOURCE_FLAGS = {"pose_coeffs.cu": ("-fmad=false",)}
 
 BILATERAL = "bilateral_filter_and_cutoff"
 GATHER = "gather"
 GATHER_ONEHOT = "gather_onehot"
+POSE_COEFFS = "pose_coeffs"
 
 # The CUDA source of each kernel, under csrc/.
 SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
-           GATHER_ONEHOT: "gather.cu"}
+           GATHER_ONEHOT: "gather.cu", POSE_COEFFS: "pose_coeffs.cu"}
 # Every source built into a library: the kernels' and the CUDA-graph IF
 # nodes' (ops/conditional.py).
 LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
@@ -90,7 +99,7 @@ LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 # The same launches, per image shape ((H, W, tile) for K1, (B, H, W) for
-# K2, (H, W) for K3).
+# K2, (H, W) for K3, (C, H, W) for H2).
 launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 # The same launches, per tag (the launching thread's launch_tag).
 launch_tags: Dict[str, Counter] = {name: Counter() for name in SOURCES}
@@ -231,9 +240,10 @@ def _library(source: str) -> ctypes.CDLL:
         if source in _libs:
             return _libs[source]
         src_path = os.path.join(_CSRC_DIR, source)
+        flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
         with open(src_path, "rb") as f:
             digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                f.read() + " ".join(flags).encode()).hexdigest()[:16]
         stem = os.path.splitext(source)[0]
         lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
         if not os.path.exists(lib_path):
@@ -243,7 +253,7 @@ def _library(source: str) -> ctypes.CDLL:
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, src_path],
+                    [_nvcc(), *flags, "-o", tmp_path, src_path],
                     capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
@@ -573,3 +583,96 @@ def gather_onehot_cuda(img: torch.Tensor, px: torch.Tensor,
             f"one-hot gather kernel launch failed: CUDA error {err}")
     _count(GATHER_ONEHOT, (h, w))
     return out
+
+
+def _pose_coeffs_fns():
+    lib = _library("pose_coeffs.cu")
+    tiles = lib.badslam_pose_coeffs_tiles
+    tiles.argtypes = [ctypes.c_int64]
+    tiles.restype = ctypes.c_int
+    fn = lib.badslam_pose_coeffs
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return tiles, fn
+
+
+def _pose_coeffs_constants(cam, baseline_fx: float):
+    """H2's scalar table (csrc/pose_coeffs.cu's Constants): each the float32
+    that the plain version's PyTorch operation takes, a division by a
+    Python scalar on the card being a product with its float32 inverse."""
+    f32 = np.float32
+    values = (cam.fx, cam.fy, cam.cx, cam.cy, cam.fx_inv, cam.fy_inv, cam.cx_inv,
+              cam.cy_inv, f32(1.0) / f32(baseline_fx),
+              robust.DEPTH_UNCERTAINTY_EMPIRICAL_FACTOR, robust.DEPTH_TUKEY_PARAM,
+              f32(1.0) / f32(robust.DEPTH_TUKEY_PARAM),
+              robust.COS_NORMAL_COMPATIBILITY_THRESHOLD,
+              robust.DESCRIPTOR_RESIDUAL_WEIGHT, robust.DESCRIPTOR_HUBER_PARAM)
+    return (ctypes.c_float * len(values))(*(float(f32(v)) for v in values))
+
+
+def pose_coeffs_cuda(pos, normal, radius2, desc, valid, rot, trans, depth, f_nx,
+                     f_ny, intensity, cam, baseline_fx: float, use_depth: bool,
+                     use_descriptor: bool, running: Optional[torch.Tensor] = None):
+    """Launch H2: keyframe BA's pose Gauss-Newton sums of the surfel rows
+    (pos, normal [N, 3], radius2 [N], desc [N, 2] float32, valid [N] bool)
+    against C keyframes (frame_T_global rotations rot [C, 3, 3] and
+    translations trans [C, 3]; planes depth, f_nx, f_ny, intensity [C, H,
+    W] float32), or one keyframe without the batch axis ([3, 3], [3], [H,
+    W]). `running` ([C] bool, or None for all): a keyframe outside it gets
+    zeros. All contiguous on one CUDA device. Returns (H [C, 6, 6], b [C,
+    6], count [C] int64), without the batch axis for one keyframe: the
+    values of ba.pose_opt.surfel_pose_coeffs_plain, summed in another
+    order, the same bits on every launch. Raises on any other input."""
+    what = "pose_coeffs_cuda"
+    single = rot.ndim == 2
+    c = 1 if single else rot.shape[0]
+    batch = () if single else (c,)
+    n = pos.shape[0]
+    floats = {"pos": (pos, (n, 3)), "normal": (normal, (n, 3)),
+              "radius2": (radius2, (n,)), "desc": (desc, (n, 2)),
+              "rot": (rot, batch + (3, 3)), "trans": (trans, batch + (3,))}
+    h, w = depth.shape[-2:]
+    for name, plane in (("depth", depth), ("f_nx", f_nx), ("f_ny", f_ny),
+                        ("intensity", intensity)):
+        floats[name] = (plane, batch + (h, w))
+    bools = {"valid": (valid, (n,))}
+    if running is not None:
+        bools["running"] = (running, batch)
+    device = pos.device
+    if not pos.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors")
+    for group, dtype in ((floats, torch.float32), (bools, torch.bool)):
+        for name, (x, shape) in group.items():
+            if x.device != device:
+                raise ValueError(f"{what}: {name} is on {x.device}, pos on {device}")
+            if x.dtype != dtype or tuple(x.shape) != shape:
+                raise ValueError(f"{what}: {name} must be {dtype} {list(shape)}, got "
+                                 f"{x.dtype} {list(x.shape)}")
+            if not x.is_contiguous():
+                raise ValueError(f"{what}: {name} must be contiguous")
+    if not 0 < c <= 65535:
+        raise ValueError(f"{what}: {c} keyframes; the kernel takes 1 to 65535")
+    tiles_fn, fn = _pose_coeffs_fns()
+    tiles = tiles_fn(n)
+    partial = torch.empty((c, tiles, 28), dtype=torch.float32, device=device)
+    H = torch.empty((c, 6, 6), dtype=torch.float32, device=device)
+    b = torch.empty((c, 6), dtype=torch.float32, device=device)
+    count = torch.empty((c,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(pos.data_ptr(), normal.data_ptr(), radius2.data_ptr(), desc.data_ptr(),
+                 valid.data_ptr(), n, rot.data_ptr(), trans.data_ptr(),
+                 None if running is None else running.data_ptr(), c, depth.data_ptr(),
+                 f_nx.data_ptr(), f_ny.data_ptr(), intensity.data_ptr(), h, w,
+                 _pose_coeffs_constants(cam, baseline_fx), int(use_depth),
+                 int(use_descriptor), partial.data_ptr(), H.data_ptr(), b.data_ptr(),
+                 count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pose coefficients kernel launch failed: CUDA error {err}")
+    _count(POSE_COEFFS, (c, h, w))
+    if single:
+        return H[0], b[0], count[0]
+    return H, b, count

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from badslam_torch.geometry import se3_np as s3
 from badslam_torch.geometry.camera import PinholeCamera, RadTanCamera
 from badslam_torch.geometry.se3 import SE3
 from badslam_torch.io.png import write_png
@@ -506,3 +507,116 @@ def ate_rmse_device(traj_t: torch.Tensor, gt_t) -> torch.Tensor:
     r1 = ((E @ R.T - G) ** 2).sum()
     r2 = ((E @ R - G) ** 2).sum()
     return torch.sqrt(torch.minimum(r1, r2) / n)
+
+
+class PosePassState(NamedTuple):
+    """The inputs of one step of keyframe BA's pose pass (numpy float32;
+    pose_pass_state)."""
+
+    cam: PinholeCamera
+    pos: np.ndarray        # [N, 3] surfel rows
+    normal: np.ndarray     # [N, 3]
+    radius2: np.ndarray    # [N]
+    desc: np.ndarray       # [N, 2]
+    valid: np.ndarray      # [N] bool
+    q: np.ndarray          # [C, 4] keyframe global_T_frame (perturbed)
+    t: np.ndarray          # [C, 3]
+    depth: np.ndarray      # [C, H, W]
+    nx: np.ndarray         # [C, H, W] camera-frame normal components
+    ny: np.ndarray
+    intensity: np.ndarray  # [C, H, W]
+
+
+def pose_pass_state(seed: int, keyframes: int, rows: int, live_share: float = 0.1,
+                    width: int = 640, height: int = 480) -> PosePassState:
+    """A surfel bucket of `rows` rows, about `live_share` of them live, and
+    `keyframes` keyframes on a four-plane scene, for the pose pass
+    (surfel_pose_coeffs, H2). The live rows sit mostly at the front, with
+    dead rows scattered among them and a few live rows beyond; they are
+    points of keyframe 0's view with the planes' normals, some pushed off
+    their plane (failing the depth gate) or turned away (failing the facing
+    test). Dead rows hold arbitrary finite values. Each keyframe's pose is
+    its rendering pose times a small perturbation."""
+    rng = np.random.default_rng(seed)
+    cam = default_camera(width, height)
+    scene = random_plane_scene(rng, 4)
+    gt = [pose(tx=0.012 * c, ty=-0.006 * c, tz=0.004 * c, rx=0.003 * c, rz=0.004 * c)
+          for c in range(keyframes)]
+    ys, xs = np.mgrid[0:height, 0:width]
+    dx = cam.fx_inv * xs + cam.cx_inv
+    dy = cam.fy_inv * ys + cam.cy_inv
+    planes = {k: [] for k in ("depth", "nx", "ny", "intensity")}
+    for p in gt:
+        depth, inten = _render_from_dirs(dx, dy, scene, p)
+        R_fw = _quat_to_matrix(p.q).T
+        n_c = scene.normals @ R_fw.T
+        p_c = (scene.points - p.t) @ R_fw.T
+        # The plane each pixel sees: the one whose z-depth is the pixel's.
+        hit = np.stack([(n_c[i] @ p_c[i]) / (n_c[i, 0] * dx + n_c[i, 1] * dy + n_c[i, 2])
+                        for i in range(len(n_c))])
+        idx = np.argmin(np.abs(hit - depth), axis=0)
+        planes["depth"].append(depth)
+        planes["nx"].append(np.where(depth > 0, n_c[idx, 0], 0.0))
+        planes["ny"].append(np.where(depth > 0, n_c[idx, 1], 0.0))
+        planes["intensity"].append(inten)
+    planes = {k: np.stack(v).astype(np.float32) for k, v in planes.items()}
+    # Holes of invalid depth: a tenth of the 8x8 cells.
+    cells = rng.uniform(size=(keyframes, (height + 7) // 8, (width + 7) // 8)) < 0.1
+    holes = np.repeat(np.repeat(cells, 8, 1), 8, 2)[:, :height, :width]
+    planes["depth"][holes] = 0.0
+
+    # Live surfels: keyframe 0's valid pixels, back-projected.
+    n_live = max(1, int(rows * live_share))
+    d0 = planes["depth"][0]
+    pix = np.flatnonzero(d0 > 0)
+    pick = rng.choice(pix, n_live, replace=len(pix) < n_live)
+    z = d0.reshape(-1)[pick]
+    cam_pts = np.stack([z * dx.reshape(-1)[pick], z * dy.reshape(-1)[pick], z], -1)
+    live_pos = s3.transform_points(gt[0], cam_pts)
+    n_cam = np.stack([planes["nx"][0].reshape(-1)[pick], planes["ny"][0].reshape(-1)[pick]], -1)
+    n_cam = np.concatenate([n_cam, -np.sqrt(np.clip(1.0 - (n_cam ** 2).sum(-1), 0, 1))[:, None]], -1)
+    live_normal = n_cam @ _quat_to_matrix(gt[0].q).T
+    live_pos = live_pos + live_normal * rng.normal(0.0, 0.002, (n_live, 1))
+    off = rng.uniform(size=n_live) < 0.08
+    live_pos[off] += live_normal[off] * 0.3
+    away = rng.uniform(size=n_live) < 0.05
+    live_normal[away] *= -1.0
+    live_r2 = (1.5 * z / cam.fx) ** 2
+
+    # Row layout: a front block 10% dead, the rest of the live rows beyond.
+    front = min(rows, int(0.97 * n_live / 0.9))
+    slots = np.flatnonzero(rng.uniform(size=front) >= 0.1)
+    rest = np.setdiff1d(np.arange(rows), slots)
+    at = np.concatenate([slots, rng.choice(rest, max(0, n_live - len(slots)), replace=False)])
+    at = at[:n_live]
+    valid = np.zeros(rows, bool)
+    valid[at] = True
+    pos = rng.uniform(-3.0, 3.0, (rows, 3))
+    normal = rng.normal(size=(rows, 3))
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    radius2 = rng.uniform(0.0, 1e-4, rows)
+    desc = rng.normal(0.0, 8.0, (rows, 2))
+    pos[at], normal[at], radius2[at] = live_pos, live_normal, live_r2
+
+    start = [s3.mul(p, pose(*rng.uniform(-0.003, 0.003, 3), *rng.uniform(-0.002, 0.002, 3)))
+             for p in gt]
+    f32 = np.float32
+    return PosePassState(cam, pos.astype(f32), normal.astype(f32), radius2.astype(f32),
+                         desc.astype(f32), valid, np.stack([p.q for p in start]).astype(f32),
+                         np.stack([p.t for p in start]).astype(f32), planes["depth"],
+                         planes["nx"], planes["ny"], planes["intensity"])
+
+
+def pose_pass_inputs(state: PosePassState, device):
+    """The state's tensors on `device`: (SurfelMap, q, t, depth, nx, ny,
+    intensity), in the order surfel_pose_coeffs takes them after the
+    camera."""
+    from badslam_torch.mapping.surfels import SurfelMap
+
+    on = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    valid = on(state.valid)
+    smap = SurfelMap(pos=on(state.pos), normal=on(state.normal), radius2=on(state.radius2),
+                     color=torch.zeros_like(on(state.pos)), desc=on(state.desc), valid=valid,
+                     active=valid.clone(), count=valid.sum())
+    return (smap, on(state.q), on(state.t), on(state.depth), on(state.nx), on(state.ny),
+            on(state.intensity))

@@ -22,7 +22,12 @@ failure, so any failure exits non-zero before the last line is printed):
    version gives NaN), and at the undistortion's shapes on that frame
    (nearest depth [1, 480, 640] x [1, 336340], the four bilinear color
    taps [3, 480, 640] x [3, 336340]), exact; K3 (one-hot gather) at
-   480x640, exact. For each: max abs error,
+   480x640, exact; H2 (BA's pose accumulation) at the benchmark's
+   scale, 8 keyframes of 640x480 planes against 1,048,576 surfel rows 10%
+   live: counts exact, H and b to 1e-4 of each keyframe's largest entry,
+   two launches bit for bit, and the device time of the whole step
+   (`surfel_pose_coeffs`, with the pose inverse and rotation in PyTorch)
+   beside the kernel's. For each: max abs error,
    device time per call (a CUDA graph of 50 calls), eager call latency,
    the plain version's device time, the least time the card could take
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
@@ -259,6 +264,7 @@ import numpy as np
 import torch
 
 from badslam_torch import cli, probe_gather, synthetic
+from badslam_torch.ba import pose_opt
 from badslam_torch.ba.pcg import PCGSystem
 from badslam_torch.config import BadSlamConfig
 from badslam_torch.cuda_timing import call_ms, device_ms
@@ -679,10 +685,61 @@ def _k3() -> dict:
     return {"max_abs_err": err, **t, **b}
 
 
+# H2 at the benchmark's scale: a block of 8 keyframe slots of 640x480
+# planes against a surfel bucket of 1,048,576 rows, 10% live (the cells'
+# ba_live_row_pct reads 10-12%).
+H2_KEYFRAMES, H2_ROWS = 8, 1 << 20
+# Surfel bytes a live row reads (position, normal, squared radius,
+# descriptor), beside its valid byte.
+H2_ROW_BYTES = 36.0
+# Float operations per associated (surfel, keyframe) pair with both terms,
+# counted from csrc/pose_coeffs.cu: association ~60, the depth row and its
+# sums ~100, tangents, three bilinear samples and the two descriptor rows
+# with their sums ~340.
+H2_OPS_PER_PAIR = 500.0
+
+
+def _h2() -> dict:
+    state = synthetic.pose_pass_state(11, H2_KEYFRAMES, H2_ROWS, 0.1, WIDTH, HEIGHT)
+    smap, q, t, depth, nx, ny, inten = synthetic.pose_pass_inputs(state, "cuda")
+    args = (smap, state.cam, q, t, depth, nx, ny, inten, 40.0, True, True)
+    ftg = se3.inverse(se3.SE3(q, t))
+    rot = se3.quat_to_matrix(ftg.q).contiguous()
+    launch = (smap.pos, smap.normal, smap.radius2, smap.desc, smap.valid, rot, ftg.t,
+              depth, nx, ny, inten, state.cam, 40.0, True, True)
+    out = kernels.pose_coeffs_cuda(*launch)
+    ref = pose_opt.surfel_pose_coeffs_plain(*args)
+    if not torch.equal(out[2], ref[2]):
+        raise AssertionError(f"H2 counts {out[2].tolist()} against {ref[2].tolist()}")
+    rel = max(float(((x - y).abs().flatten(1).amax(1) / y.abs().flatten(1).amax(1)).max())
+              for x, y in zip(out[:2], ref[:2]))
+    err = max(float((x - y).abs().max()) for x, y in zip(out[:2], ref[:2]))
+    # The repo's tolerance for H and b summed in another order
+    # (tests/test_torch_ba.py), over ~80,000 terms a keyframe here.
+    if rel > 1e-4:
+        raise AssertionError(f"H2 against the plain version: {rel} of the largest entry")
+    if not all(torch.equal(x, y) for x, y in zip(out, kernels.pose_coeffs_cuda(*launch))):
+        raise AssertionError("H2: two launches differ")
+    t_ = _timings(lambda: kernels.pose_coeffs_cuda(*launch),
+                  lambda: pose_opt.surfel_pose_coeffs_plain(*args))
+    step_ms = device_ms(lambda: pose_opt.surfel_pose_coeffs(*args))
+    live = int(smap.valid.sum())
+    nbytes = smap.valid.numel() + H2_ROW_BYTES * live + 4.0 * 4.0 * depth.numel()
+    b = _bound(nbytes, H2_OPS_PER_PAIR * float(out[2].sum()))
+    print(f"H2 pose_coeffs {H2_KEYFRAMES} x 480x640 against {H2_ROWS} rows ({live} live, "
+          f"{out[2].tolist()} associated): counts exact, max abs err {err:.3e} "
+          f"({rel:.3e} of the largest entry), two launches bit for bit; device ms "
+          f"kernel {t_['ms']:.4f}, whole step {step_ms:.4f}, plain {t_['plain_ms']:.4f}; "
+          f"eager kernel {t_['call_ms']:.4f}, plain {t_['plain_call_ms']:.4f}; bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']}); {SMI}")
+    return {"max_abs_err": err, "max_rel_err": rel, "step_ms": step_ms, **t_, **b}
+
+
 def phase_kernels(input_data: str) -> dict:
     _, umap, depth, rgb = _input_frame(input_data)
     return {kernels.BILATERAL: _k1(_undistorted_frame(input_data)),
-            kernels.GATHER: _k2(umap, depth, rgb), kernels.GATHER_ONEHOT: _k3()}
+            kernels.GATHER: _k2(umap, depth, rgb), kernels.GATHER_ONEHOT: _k3(),
+            kernels.POSE_COEFFS: _h2()}
 
 
 def phase_probe() -> dict:
@@ -2746,6 +2803,8 @@ _KERNEL_ROWS = (
      "tools/probe_pallas_gather.py:82"),
     (kernels.GATHER_ONEHOT, "badslam_torch/csrc/gather.cu",
      "tools/probe_pallas_gather.py:120"),
+    (kernels.POSE_COEFFS, "badslam_torch/csrc/pose_coeffs.cu",
+     "none (the plain chain of badslam_torch/ba/pose_opt.py surfel_pose_coeffs_plain)"),
 )
 
 
@@ -2814,9 +2873,9 @@ def main(argv=None) -> int:
           f"{timings_launches}")
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
-        # K1 and K2 are on the SLAM path: their launches are those of the
-        # default main path's run (the loop phase, loop closure on). K3 is
-        # only on the probe path: its launches are the probe's.
+        # K1, K2 and H2 are on the SLAM path: their launches are those of
+        # the default main path's run (the loop phase, loop closure on). K3
+        # is only on the probe path: its launches are the probe's.
         launches = (probe_launches if kname == kernels.GATHER_ONEHOT
                     else loop_launches)[kname]
         m = measured[kname]

@@ -32,9 +32,11 @@ from badslam_tpu.ba import scheme as jscheme
 from badslam_tpu.geometry import se3 as jse3
 from badslam_tpu import synthetic as jsyn
 from badslam_torch import convert
+from badslam_torch import synthetic as tsyn
 from badslam_torch.ba import geometry_opt as tgeo
 from badslam_torch.ba import pose_opt as tpose
 from badslam_torch.geometry import se3 as tse3
+from badslam_torch.ops import kernels
 
 import fixtures
 from test_torch_mapping import DEV, Pair, assert_maps_equal
@@ -87,6 +89,34 @@ def test_surfel_pose_coeffs_matches_jax(use_desc):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("use_depth,use_desc", [(True, True), (True, False), (False, True)],
+                         ids=["both", "depth", "descriptor"])
+def test_surfel_pose_coeffs_running_mask(use_depth, use_desc):
+    """The running mask on the plain path: keyframes outside it get zeros,
+    the others the unmasked call's values bit for bit."""
+    state = tsyn.pose_pass_state(4, 3, 2048, 0.1, 96, 72)
+    smap, *planes = tsyn.pose_pass_inputs(state, DEV)
+    args = (smap, state.cam, *planes, 40.0, use_depth, use_desc)
+    running = torch.tensor([True, False, True])
+    full = tpose.surfel_pose_coeffs(*args)
+    masked = tpose.surfel_pose_coeffs(*args, running)
+    assert int(full[2].min()) > 100
+    for f, m in zip(full, masked):
+        assert torch.equal(m[running], f[running])
+        assert not bool(m[~running].any())
+
+
+def test_pose_coeffs_kernel_refuses_cpu_tensors():
+    """H2's launcher takes CUDA tensors only; the CPU path is the plain
+    version (surfel_pose_coeffs dispatches on the device)."""
+    state = tsyn.pose_pass_state(4, 1, 256, 0.1, 32, 24)
+    smap, q, t, depth, nx, ny, inten = tsyn.pose_pass_inputs(state, DEV)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.pose_coeffs_cuda(smap.pos, smap.normal, smap.radius2, smap.desc, smap.valid,
+                                 tse3.quat_to_matrix(q[0]), t[0], depth[0], nx[0], ny[0],
+                                 inten[0], state.cam, 40.0, True, True)
 
 
 @pytest.mark.parametrize("use_desc", [False, True], ids=["geometric", "geo+photometric"])

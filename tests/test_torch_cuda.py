@@ -1,6 +1,7 @@
 """badslam_torch on the card: the CUDA kernels (K1 bilateral filter, K2
-image gather, K3 one-hot gather) against their plain PyTorch versions, and
-the CUDA path against the CPU path of the same modules.
+image gather, K3 one-hot gather, H2 BA's pose accumulation) against their
+plain PyTorch versions, and the CUDA path against the CPU path of the same
+modules.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on a GPU machine without JAX it runs on its own:
@@ -21,6 +22,17 @@ Tolerances:
   * bundle adjustment on CUDA vs CPU: keyframe poses atol 1e-4, the same
     number of iterations, surfel counts within 1% (creation and deletion
     are threshold tests on float values).
+  * H2 (BA's pose accumulation) vs its plain version on the card, 640x480
+    planes, 131,072 surfel rows 10% live: H and b rtol 1e-5 with atol 1e-5
+    x the keyframe's largest entry (float32 both; the per-surfel terms are
+    the same operations, the sums run in another order), counts exact,
+    keyframes outside the running mask exactly 0, two launches bit for
+    bit; the pose Gauss-Newton loops with H2 and with the plain version
+    from one state: the same steps per keyframe, poses atol 1e-6 after one
+    step and 5e-5 after the loop (later steps associate at the moved
+    poses, where a pixel edge makes a rounding-sized difference one
+    surfel's share; the plain version's rows summed in another order on
+    the CPU move this state's poses by up to 1.2e-5 m).
   * a loop closure's gates, pose graph and deformation on CUDA vs CPU:
     poses and trajectory atol 1e-5, the same decisions.
   * a live directory stream through run_live on CUDA vs CPU: poses atol
@@ -65,6 +77,7 @@ import pytest
 import torch
 
 from badslam_torch import synthetic
+from badslam_torch.ba import pose_opt
 from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import kernels
 from badslam_torch.ops.preprocess import bilateral_filter_and_cutoff, preprocess_frame
@@ -316,11 +329,19 @@ def _bundle_adjustment(device, window=None, timings=None, **config):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, (1, 1)], ids=["all", "window"])
-def test_bundle_adjustment_cuda_matches_cpu(cuda, window):
+def test_bundle_adjustment_cuda_matches_cpu(cuda, window, monkeypatch):
+    plain = pose_opt.surfel_pose_coeffs_plain
+
+    def cpu_only(smap, *args):  # the card's pose pass is H2, never the plain chain
+        assert not smap.pos.is_cuda
+        return plain(smap, *args)
+    monkeypatch.setattr(pose_opt, "surfel_pose_coeffs_plain", cpu_only)
     before = kernels.launch_counts[kernels.GATHER]
+    before_h2 = kernels.launch_counts[kernels.POSE_COEFFS]
     on_card, iters_card = _bundle_adjustment(cuda, window)
     torch.cuda.synchronize()
     assert kernels.launch_counts[kernels.GATHER] > before
+    assert kernels.launch_counts[kernels.POSE_COEFFS] > before_h2
     on_cpu, iters_cpu = _bundle_adjustment("cpu", window)
     assert iters_card == iters_cpu >= 1
     assert torch.equal(on_card.keyframes.activation[:2].cpu(), on_cpu.keyframes.activation[:2])
@@ -329,6 +350,102 @@ def test_bundle_adjustment_cuda_matches_cpu(cuda, window):
                                    getattr(on_cpu.keyframes, name)[:2], atol=1e-4, rtol=0)
     n_card, n_cpu = on_card.surfel_count, on_cpu.surfel_count
     assert n_cpu > 500 and abs(n_card - n_cpu) <= 0.01 * n_cpu
+
+
+def _pose_pass(device, keyframes: int, rows: int = 131_072):
+    """synthetic.pose_pass_state at 640x480, 10% of the rows live, on the
+    device: (state, SurfelMap, q, t, depth, nx, ny, intensity)."""
+    state = synthetic.pose_pass_state(7, keyframes, rows, 0.1, 640, 480)
+    return (state, *synthetic.pose_pass_inputs(state, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keyframes", [1, 8])
+@pytest.mark.parametrize("use_depth,use_descriptor",
+                         [(True, True), (True, False), (False, True)],
+                         ids=["both", "depth", "descriptor"])
+def test_pose_coeffs_kernel_matches_plain(cuda, keyframes, use_depth, use_descriptor):
+    state, smap, q, t, depth, nx, ny, inten = _pose_pass(cuda, keyframes)
+    args = (smap, state.cam, q, t, depth, nx, ny, inten, 40.0, use_depth, use_descriptor)
+    before = kernels.launch_counts[kernels.POSE_COEFFS]
+    H, b, count = pose_opt.surfel_pose_coeffs(*args)
+    assert kernels.launch_counts[kernels.POSE_COEFFS] == before + 1
+    H_p, b_p, count_p = pose_opt.surfel_pose_coeffs_plain(*args)
+    assert torch.equal(count, count_p) and int(count.min()) > 5000
+    for got, want in ((H, H_p), (b, b_p)):
+        for c in range(keyframes):
+            torch.testing.assert_close(got[c], want[c], rtol=1e-5,
+                                       atol=1e-5 * float(want[c].abs().max()))
+    assert torch.equal(H, H.transpose(-1, -2))
+    # The same bits on every launch.
+    for x, y in zip((H, b, count), pose_opt.surfel_pose_coeffs(*args)):
+        assert torch.equal(x, y)
+    # Keyframes outside the running mask: exact zeros; the others as above.
+    running = (torch.arange(keyframes, device=cuda) % 3 != 1) if keyframes > 1 \
+        else torch.zeros(1, dtype=torch.bool, device=cuda)
+    masked = pose_opt.surfel_pose_coeffs(*args, running)
+    for x, y in zip((H, b, count), masked):
+        assert torch.equal(y[running], x[running])
+        assert not bool(y[~running].any())
+    if keyframes == 1:  # one keyframe without the batch axis
+        one = pose_opt.surfel_pose_coeffs(smap, state.cam, q[0], t[0], depth[0], nx[0],
+                                          ny[0], inten[0], 40.0, use_depth, use_descriptor)
+        for x, y in zip((H, b, count), one):
+            assert torch.equal(x[0], y)
+
+
+@pytest.mark.cuda
+def test_pose_coeffs_kernel_rejects_what_it_does_not_take(cuda):
+    state, smap, q, t, depth, nx, ny, inten = _pose_pass(cuda, 2, rows=4096)
+    R = torch.eye(3, device=cuda).expand(2, 3, 3).contiguous()
+    args = [smap.pos, smap.normal, smap.radius2, smap.desc, smap.valid, R, t, depth, nx,
+            ny, inten, state.cam, 40.0, True, True]
+    for i, bad in ((3, smap.desc.t().contiguous().t()), (4, smap.valid.to(torch.uint8)),
+                   (7, depth[:, :, :-1]), (0, smap.pos.cpu()), (6, t.double())):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            kernels.pose_coeffs_cuda(*wrong)
+    with pytest.raises(ValueError):
+        kernels.pose_coeffs_cuda(*args, running=torch.ones(3, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iterations", [1, 30], ids=["one_step", "loop"])
+def test_optimize_keyframe_poses_kernel_matches_plain(cuda, monkeypatch, max_iterations):
+    """A block of 8 slots, 6 of them set: the Gauss-Newton loops with H2
+    and with the plain accumulation on the card, from one state. One step
+    moves the poses alike to 1e-6. After it the association follows the
+    pose: a surfel whose projection crosses a pixel edge reads another
+    depth and normal, so a rounding-sized pose difference can change a
+    later step by one surfel's share. Summing the plain version's rows in
+    another order on the CPU moves this state's loop poses by up to
+    1.2e-5 m in the same number of steps, hence 5e-5 for the loop."""
+    from badslam_torch.mapping.keyframes import KeyframeStack
+
+    state, smap, q, t, depth, nx, ny, inten = _pose_pass(cuda, 8)
+    mask = torch.arange(8, device=cuda) < 6
+    stack = KeyframeStack(depth, nx, ny, None, inten, q, t, mask)
+    steps, out = {}, {}
+    for name, fn in (("kernel", pose_opt.surfel_pose_coeffs),
+                     ("plain", pose_opt.surfel_pose_coeffs_plain)):
+        steps[name] = torch.zeros(8, dtype=torch.int64, device=cuda)
+
+        def counted(*a, fn=fn, runs=steps[name], **kw):
+            runs += a[-1]  # the running mask: the keyframes this step moves
+            return fn(*a, **kw)
+        monkeypatch.setattr(pose_opt, "surfel_pose_coeffs", counted)
+        out[name] = pose_opt.optimize_keyframe_poses(smap, state.cam, stack,
+                                                     max_iterations=max_iterations)
+    kernel, plain = out["kernel"], out["plain"]
+    assert torch.equal(steps["kernel"], steps["plain"])
+    assert int(steps["kernel"][:6].min()) >= min(2, max_iterations)
+    assert not bool(steps["kernel"][6:].any())
+    atol = 1e-6 if max_iterations == 1 else 5e-5
+    torch.testing.assert_close(kernel.q, plain.q, atol=atol, rtol=0)
+    torch.testing.assert_close(kernel.t, plain.t, atol=atol, rtol=0)
+    assert torch.equal(kernel.moved, plain.moved) and bool(kernel.moved[:6].all())
+    assert torch.equal(kernel.q[6:], q[6:]) and torch.equal(kernel.t[6:], t[6:])
 
 
 @pytest.mark.cuda
