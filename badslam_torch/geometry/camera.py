@@ -44,6 +44,15 @@ class PinholeCamera:
             height=int(round(self.height * factor)),
         )
 
+    def resized(self, width: int, height: int) -> "PinholeCamera":
+        """Camera for the image resized to `width` x `height`, each axis by
+        its own factor: fx and cx by width / self.width, fy and cy by
+        height / self.height (pixel-corner coordinates scale with the
+        image)."""
+        sx, sy = width / self.width, height / self.height
+        return PinholeCamera(fx=self.fx * sx, fy=self.fy * sy, cx=self.cx * sx,
+                             cy=self.cy * sy, width=width, height=height)
+
     def pyramid_level(self, level: int) -> "PinholeCamera":
         cam = self
         for _ in range(level):

@@ -122,12 +122,16 @@ class LoopDetector:
     def _detection_inputs(self, gray_u8, depth):
         """Resized to loop_detection_images_width/height when they differ
         from the camera (the reference's LoopDetector scales the images and
-        the intrinsics): area averaging for gray, nearest for depth."""
+        the intrinsics): area averaging for gray, nearest for depth. Each
+        axis is resized by its own factor, and so is the camera that
+        describes the result (the JAX package scales all four intrinsics
+        by the width's factor, which misplaces every feature's point in y
+        where the aspect ratio changes)."""
         if self.images_size is None:
             return gray_u8, depth, self.cam
         w, h = self.images_size
         return (resize_area_u8(gray_u8, w, h), resize_nearest(depth, w, h),
-                self.cam.scaled(w / self.cam.width))
+                self.cam.resized(w, h))
 
     def _train_vocabulary(self) -> None:
         """On-the-fly vocabulary from the keyframes seen so far, then (re)index

@@ -38,8 +38,10 @@ batched uploads and one program.
 
 Timers (``utils.timing``): each replay is stamped on the card from its
 first node to its last ("steady frame [graph]", with an entry per replay in
-the stamp table's ring holding the frame index) and each scale's WHILE node
-("steady frame: gn/scale<s> [graph]"); the host's time inside
+the stamp table's ring holding the frame index), its preprocessing and
+pyramid from the first node of ``preprocess_frame`` to the last of
+``build_pyramid`` ("steady frame: preprocess [graph]") and each scale's
+WHILE node ("steady frame: gn/scale<s> [graph]"); the host's time inside
 ``graph.replay()`` is "steady frame launch [host]". Inside the capture the
 profiler ranges of the frame's stages are left out, and the capture itself
 is the range "capture/steady_graph".
@@ -123,17 +125,18 @@ def steady_frame(key: SteadyKey, cam, cams, base_pyr, depth_raw, rgb, undistort_
     one element. `test_two` duels the two motion-model estimates at the
     coarsest scale (the history holds 3 poses). `loop`: the Gauss-Newton
     loop control (tracking.pairwise)."""
-    with trace_range("preprocess"):
-        frame = preprocess_frame(
-            cam, depth_raw, rgb,
-            max_depth=key.max_depth, sigma_xy=key.sigma_xy,
-            radius_factor=key.radius_factor, sigma_inv_depth=key.sigma_inv_depth,
-            a=a, cfactor=cfactor, cell_size=key.cell_size,
-            raw_to_float_depth=key.raw_to_float, undistort_map=undistort_map,
-            median_iterations=key.median_iterations)
-    with trace_range("pyramid"):
-        pyramid = build_pyramid(frame.depth, frame.nx, frame.ny, frame.intensity,
-                                key.num_scales, gradmag=key.use_gradmag)
+    with stamped("steady frame: preprocess", depth_raw.device):
+        with trace_range("preprocess"):
+            frame = preprocess_frame(
+                cam, depth_raw, rgb,
+                max_depth=key.max_depth, sigma_xy=key.sigma_xy,
+                radius_factor=key.radius_factor, sigma_inv_depth=key.sigma_inv_depth,
+                a=a, cfactor=cfactor, cell_size=key.cell_size,
+                raw_to_float_depth=key.raw_to_float, undistort_map=undistort_map,
+                median_iterations=key.median_iterations)
+        with trace_range("pyramid"):
+            pyramid = build_pyramid(frame.depth, frame.nx, frame.ny, frame.intensity,
+                                    key.num_scales, gradmag=key.use_gradmag)
     # Constant-motion model (PredictFramePose, bad_slam.cc:767-829). The
     # history is identity-padded at a keyframe, so the full formula gives
     # the short-history cases exactly, as in the JAX program.

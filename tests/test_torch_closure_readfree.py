@@ -55,8 +55,10 @@ torch.set_num_threads(1)
 
 N_LIVE, BUCKET, SLOTS, FRAMES = 11, 16, 14, 110
 # The drift injected into the last keyframe of the 13-frame run: its
-# keypoints then move by more than a pixel, so the necessity gate passes.
-DRIFT = tsyn.pose(tx=0.04, ty=-0.02, rz=0.01)
+# keypoints then move by about 2 pixels on average, so the necessity gate
+# (over 1 pixel) passes with room. Half of it moves them by 0.98 pixels,
+# through a detection camera that matches its 640x480 images on both axes.
+DRIFT = tsyn.pose(tx=0.08, ty=-0.04, rz=0.02)
 JCAM = JCamera(fx=100.0, fy=100.0, cx=64.0, cy=48.0, width=128, height=96)
 
 

@@ -51,7 +51,8 @@ Tolerances:
   * the steady frame's CUDA graph replays against the eager call of the
     same function with the host-read loop on the card: poses atol 1e-6
     (the same kernels on the same inputs; measured 0), the same
-    Gauss-Newton iterations and the same launches.
+    Gauss-Newton iterations and the same launches; the same at the ETH3D
+    SLAM camera's 739x458, with the preprocessing stamp run once a replay.
   * the fused BA call's CUDA graph replays against the eager call of the
     same function with the host loops on the card: poses atol 1e-6, the
     same iterations, surfel counts and K2 launches; replays make no sync
@@ -78,6 +79,7 @@ import torch
 
 from badslam_torch import synthetic
 from badslam_torch.ba import pose_opt
+from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import kernels
 from badslam_torch.ops.preprocess import bilateral_filter_and_cutoff, preprocess_frame
@@ -107,7 +109,7 @@ def _depth(seed, shape, max_depth=2.5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(480, 640), (67, 160), (5, 3), (1, 1), (33, 70)])
+@pytest.mark.parametrize("shape", [(480, 640), (67, 160), (5, 3), (1, 1), (33, 70), (458, 739)])
 def test_bilateral_kernel_matches_plain(cuda, shape):
     d = torch.from_numpy(_depth(sum(shape), shape)).to(cuda)
     before = kernels.launch_counts[kernels.BILATERAL]
@@ -912,10 +914,20 @@ def test_while_node_runs_its_body_while_the_flag_holds(cuda):
         assert int(count) == runs and float(total[0]) == 2.0 * runs
 
 
-def _steady_sequence(tmp_path, frames=16):
+# The steady frame's cameras: the tests' 160x120 and the ETH3D SLAM camera's
+# 739x458 (K1 stages every row unaligned, the pyramid drops a column or a
+# row at each level, the principal point 42 rows above the centre).
+STEADY_CAMERAS = {
+    "160x120": synthetic.default_camera(160, 120),
+    "eth3d_739x458": PinholeCamera(fx=726.3, fy=726.3, cx=355.1, cy=187.0, width=739,
+                                   height=458),
+}
+
+
+def _steady_sequence(tmp_path, frames=16, camera="160x120"):
     path = str(tmp_path / "steady_seq")
     synthetic.write_tum_dataset(
-        path, synthetic.default_camera(160, 120),
+        path, STEADY_CAMERAS[camera],
         synthetic.random_plane_scene(np.random.default_rng(5), 6),
         synthetic.smooth_trajectory(frames, scale=0.003))
     return path
@@ -938,29 +950,42 @@ def _steady_slam(path, device, graph=True, **kw):
 
 
 @pytest.mark.cuda
-def test_steady_graph_replay_matches_eager_call(cuda, tmp_path):
+@pytest.mark.parametrize("camera, frames", [("160x120", 13), ("eth3d_739x458", 6)])
+def test_steady_graph_replay_matches_eager_call(cuda, tmp_path, camera, frames):
     """Every frame after the first as a replay of the steady frame's CUDA
-    graphs (two chunks of 5 frames and the keyframe frames, parallel BA),
+    graphs (chunks of 5 frames and the keyframe frames, parallel BA),
     against the eager call of the same function with the host-read loop:
     equal poses, equal Gauss-Newton iterations and exact launch counts (K1
-    once per frame, K2 as often as the eager run)."""
-    path = _steady_sequence(tmp_path, frames=13)
+    once per frame, K2 as often as the eager run); the preprocessing stamp
+    runs once per replay."""
+    from badslam_torch.utils.timing import Timing
+
+    path = _steady_sequence(tmp_path, frames, camera)
     runs = []
     for graph in (True, False):
+        Timing.reset()
         slam = _steady_slam(path, cuda, graph)
         kernels.reset_launch_counts()
         slam.run()
-        runs.append((slam, dict(kernels.launch_counts)))
-    (g, lg), (e, le) = runs
-    assert g.steady_graph.replays == 12 and g.chunks_processed == e.chunks_processed == 2
+        torch.cuda.synchronize()
+        runs.append((slam, dict(kernels.launch_counts), Timing.snapshot()))
+    Timing.reset()
+    (g, lg, timers), (e, le, _) = runs
+    cam = STEADY_CAMERAS[camera]
+    assert (g.cam.width, g.cam.height) == (cam.width, cam.height)
+    assert g.steady_graph.replays == frames - 1
+    assert g.chunks_processed == e.chunks_processed == frames // 6
     torch.testing.assert_close(g.traj_q, e.traj_q, atol=1e-6, rtol=0)
     torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
-    assert lg[kernels.BILATERAL] == le[kernels.BILATERAL] == 13
+    assert lg[kernels.BILATERAL] == le[kernels.BILATERAL] == frames
     assert lg[kernels.GATHER] == le[kernels.GATHER] > 0
     assert g.steady_gn_iterations() == e.steady_gn_iterations() > 0
     caps = g.steady_graph.captures
     assert [c["test_two"] for c in caps] == [False, True]
     assert all(c["while_nodes"] == 4 and c["nodes"] > c["kernel_nodes"] > 0 for c in caps)
+    assert timers["steady frame: preprocess [graph]"][0] == g.steady_graph.replays
+    assert 0 < timers["steady frame: preprocess [graph]"][1] \
+        < timers["steady frame [graph]"][1]
 
 
 @pytest.mark.cuda
@@ -1209,7 +1234,7 @@ def _closure_attempt(slam, saved, accept, sync_check=False):
     last, feats = order[-1], slam.loop_detector.features
     own = feats[last]
     if accept:
-        drift = synthetic.pose(tx=0.04, ty=-0.02, rz=0.01)
+        drift = synthetic.pose(tx=0.08, ty=-0.04, rz=0.02)  # keypoints move ~2 px
         true = s3.SE3(ks.q[last].double().cpu().numpy(), ks.t[last].double().cpu().numpy())
         moved = s3.mul(s3.SE3(np.asarray(drift.q, float), np.asarray(drift.t, float)), true)
         ks.set_pose(last, se3.SE3(torch.tensor(moved.q, dtype=torch.float32),
@@ -1374,6 +1399,7 @@ def test_stamps_leave_poses_and_map_bit_identical(cuda, tmp_path):
     assert iterations == u.direct_ba.iterations_run and sum(iterations) > 0
     assert not any(name.endswith("[graph]") for name in plain)
     assert timers["steady frame [graph]"][0] == s.steady_graph.replays
+    assert timers["steady frame: preprocess [graph]"][0] == s.steady_graph.replays
     assert timers["BA call [graph]"][0] == s.ba_graph.replays
     assert timers["BA iteration [graph]"][0] == sum(iterations)
     assert timers["steady frame launch [host]"][0] == s.steady_graph.replays

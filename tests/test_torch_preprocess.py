@@ -3,7 +3,10 @@ dispatch of the bilateral filter (K1) between its CUDA kernel and its plain
 PyTorch version (the kernel itself is held to the plain version on the card
 by tests/test_torch_cuda.py).
 
-Inputs are made with numpy from fixed seeds and fed to both packages.
+Inputs are made with numpy from fixed seeds and fed to both packages, at
+160x120 and, for preprocessing and the pyramid, also at a ragged 73x45 (the
+ETH3D SLAM camera scaled down: ragged sparse cells, and every pyramid level
+drops a column or a row).
 Tolerances:
   * bilateral filter: atol 1e-5, the Pallas kernel's own hold against its
     XLA reference (tests/test_pallas.py); outputs are depths of 0.5-3 m,
@@ -28,8 +31,10 @@ from badslam_tpu.ops import preprocess as jpre
 from badslam_tpu.ops import pyramid as jpyr
 from badslam_tpu.ops.pallas_kernels import bilateral_filter_and_cutoff_pallas
 from badslam_tpu import synthetic as jsyn
+from badslam_tpu.geometry.camera import PinholeCamera as JaxPinholeCamera
 from badslam_torch import synthetic as tsyn
 from badslam_torch.convert import camera_from_numpy, depth_params_from_numpy
+from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.ops import interp as tinterp
 from badslam_torch.ops import kernels
 from badslam_torch.ops import preprocess as tpre
@@ -71,8 +76,19 @@ def test_bilateral_dispatch_cpu_uses_plain_version():
         kernels.bilateral_filter_and_cutoff_cuda(torch.from_numpy(d), 2.5)
 
 
-def _render(seed, width=160, height=120):
-    cam = tsyn.default_camera(width, height)
+# The cameras of the golden cases: the tests' 160x120, and the ETH3D SLAM
+# camera's intrinsics scaled by 73/739 (slam_bench/tests/data/tiny_eth3d.json):
+# 73 % 4 = 1 and 45 % 8 = 5, so the 4-pixel sparse cells are ragged and
+# every pyramid level drops a column or a row.
+CAMERAS = {
+    "160x120": tsyn.default_camera(160, 120),
+    "eth3d_73x45": PinholeCamera(fx=71.7455, fy=71.7455, cx=35.0775, cy=18.4723, width=73,
+                                 height=45),
+}
+
+
+def _render(seed, camera="160x120"):
+    cam = CAMERAS[camera]
     scene = tsyn.random_plane_scene(np.random.default_rng(seed), 4)
     depth, inten = tsyn.render_scene(cam, scene, tsyn.pose(tx=0.01, rz=0.02))
     depth_u16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
@@ -81,7 +97,8 @@ def _render(seed, width=160, height=120):
 
 
 def _frames(cam, depth_u16, rgb, max_depth=2.1):
-    jcam = jsyn.default_camera(cam.width, cam.height)
+    jcam = JaxPinholeCamera(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                            height=cam.height)
     params = empty_depth_params(cam.height, cam.width, 4)
     jf = jpre.preprocess_frame(
         jcam, jnp.array(depth_u16), jnp.array(rgb), max_depth=max_depth,
@@ -95,8 +112,10 @@ def _frames(cam, depth_u16, rgb, max_depth=2.1):
     return jf, tf
 
 
-def test_preprocess_frame_matches_jax():
-    jf, tf = _frames(*_render(3))
+@pytest.mark.parametrize("camera", list(CAMERAS))
+def test_preprocess_frame_matches_jax(camera):
+    jf, tf = _frames(*_render(3, camera))
+    assert tuple(tf.depth.shape) == (CAMERAS[camera].height, CAMERAS[camera].width)
     for name in ("depth", "nx", "ny", "radius2", "intensity", "raw_depth"):
         np.testing.assert_allclose(getattr(tf, name).numpy(),
                                    np.asarray(getattr(jf, name)),
@@ -132,13 +151,20 @@ def test_depth_deformation_matches_jax():
         np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("gradmag", [False, True], ids=["intensity", "gradmag"])
-def test_build_pyramid_matches_jax(gradmag):
-    jf, _ = _frames(*_render(5))
+@pytest.mark.parametrize("gradmag, camera", [
+    pytest.param(False, "160x120", id="intensity"),
+    pytest.param(True, "160x120", id="gradmag"),
+    pytest.param(False, "eth3d_73x45", id="eth3d_73x45-intensity"),
+    pytest.param(True, "eth3d_73x45", id="eth3d_73x45-gradmag")])
+def test_build_pyramid_matches_jax(gradmag, camera):
+    jf, _ = _frames(*_render(5, camera))
     jp = jpyr.build_pyramid(jf.depth, jf.nx, jf.ny, jf.intensity, 4, gradmag=gradmag)
     planes = [torch.from_numpy(np.array(p)) for p in (jf.depth, jf.nx, jf.ny, jf.intensity)]
     tp = tpyr.build_pyramid(*planes, 4, gradmag=gradmag)
     assert len(tp) == 4
+    if camera == "eth3d_73x45":  # each level drops the odd column or row
+        assert [tuple(level.depth.shape) for level in tp] == [
+            (45, 73), (22, 36), (11, 18), (5, 9)]
     for level, (jl, tl) in enumerate(zip(jp, tp)):
         for name in tpyr.FramePyramidLevel._fields:
             np.testing.assert_allclose(getattr(tl, name).numpy(),

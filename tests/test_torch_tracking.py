@@ -1,5 +1,7 @@
 """badslam_torch pairwise tracking against badslam_tpu on rendered
-plane-scene pairs at 160x120 (the setup of tests/test_tracking.py).
+plane-scene pairs at 160x120 (the setup of tests/test_tracking.py), and the
+tracker with its duel also at a ragged 73x45 (the ETH3D SLAM camera scaled
+down: every pyramid level drops a column or a row).
 
 Both packages get the same base and tracked pyramids (built by the JAX
 package, carried over with badslam_torch.convert) and the same poses.
@@ -19,6 +21,7 @@ import torch
 
 from badslam_tpu import synthetic as jsyn
 from badslam_tpu.geometry import se3 as jse3
+from badslam_tpu.geometry.camera import PinholeCamera
 from badslam_tpu.ops.pyramid import build_pyramid
 from badslam_tpu.tracking import pairwise as jpw
 from badslam_torch.convert import camera_from_numpy, pose_from_numpy, pyramid_from_numpy
@@ -29,9 +32,19 @@ torch.set_num_threads(1)
 NUM_SCALES = 4
 
 
-def _pair(seed, gt_motion, num_planes):
+# The cameras of the golden cases: the tests' 160x120, and the ETH3D SLAM
+# camera's intrinsics scaled by 73/739 (slam_bench/tests/data/tiny_eth3d.json),
+# where every pyramid level drops a column or a row: 73x45, 36x22, 18x11, 9x5.
+CAMERAS = {
+    "160x120": jsyn.default_camera(160, 120),
+    "eth3d_73x45": PinholeCamera(fx=71.7455, fy=71.7455, cx=35.0775, cy=18.4723, width=73,
+                                 height=45),
+}
+
+
+def _pair(seed, gt_motion, num_planes, camera="160x120"):
     rng = np.random.default_rng(seed)
-    cam = jsyn.default_camera(160, 120)
+    cam = CAMERAS[camera]
     scene = jsyn.random_plane_scene(rng, num_planes)
     d0, i0 = jsyn.render_scene(cam, scene, jse3.identity())
     d1, i1 = jsyn.render_scene(cam, scene, gt_motion)
@@ -71,10 +84,16 @@ def test_accumulate_and_cost_match_jax(use_desc):
         np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
 
 
-@pytest.mark.parametrize("use_desc", [False, True], ids=["geometric", "geo+photometric"])
-def test_track_frame_pairwise_with_duel_matches_jax(use_desc):
+@pytest.mark.parametrize("use_desc, camera", [
+    pytest.param(False, "160x120", id="geometric"),
+    pytest.param(True, "160x120", id="geo+photometric"),
+    pytest.param(False, "eth3d_73x45", id="eth3d_73x45-geometric"),
+    pytest.param(True, "eth3d_73x45", id="eth3d_73x45-geo+photometric")])
+def test_track_frame_pairwise_with_duel_matches_jax(use_desc, camera):
     gt = jsyn.pose(tx=0.02, ty=-0.01, tz=0.012, rx=0.004, rz=0.01)
-    (cams, p0, p1), (tcams, t0, t1) = _pair(33, gt, 3 if use_desc else 8)
+    (cams, p0, p1), (tcams, t0, t1) = _pair(33, gt, 3 if use_desc else 8, camera)
+    assert [(c.width, c.height) for c in tcams][-1] == (
+        (20, 15) if camera == "160x120" else (9, 5))
     bad = jsyn.pose(tx=-0.3, ty=0.2)
     jr = jpw.track_frame_pairwise(
         cams, p0, p1, bad.q, bad.t, gt.q, gt.t,
