@@ -59,7 +59,6 @@ from badslam_torch.loop import closure
 from badslam_torch.loop.closure import ClosureInputs, ClosureKey, ClosureResult
 from badslam_torch.ops import kernels
 from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
-from badslam_torch.tracking.pairwise import device_constants
 from badslam_torch.utils.timing import Timing, stamped
 
 
@@ -128,7 +127,6 @@ class ClosureGraph:
     def _capture(self, key: ClosureKey, cams, cam, ks, traj_q, traj_t, count,
                  inputs: ClosureInputs) -> _Captured:
         device = self.device
-        device_constants(device)
         current = torch.cuda.current_stream(device)
         stream = torch.cuda.Stream(device)
         nodes = WhileNodes(device)

@@ -263,14 +263,22 @@ State = Tuple[torch.Tensor, ...]
 def loop(control: Control, state: Sequence[torch.Tensor],
          cond: Callable[[State], torch.Tensor], step: Callable[[State], Sequence[torch.Tensor]],
          most: Optional[int] = None, limit: Optional[torch.Tensor] = None,
-         name: str = "loop") -> Tuple[State, Union[int, torch.Tensor]]:
+         name: str = "loop", step_in_place: Optional[Callable] = None,
+         ) -> Tuple[State, Union[int, torch.Tensor]]:
     """Run ``state = step(state)`` while ``cond(state)`` (a bool scalar
     tensor) holds, at most `most` times (a host int) and, with `limit` (an
     integer scalar tensor), fewer than `limit` times. Returns (state, steps
     run): an int under HOST, an int64 scalar tensor otherwise. `step` must
     not change the tensors it is given. HOST and MASKED need `most`; a
     DeviceControl takes the bound from `limit` when given (so one capture
-    serves any bound), else from `most`."""
+    serves any bound), else from `most`. Under a DeviceControl,
+    `step_in_place(bufs, i, flag, most)`, when given, is the whole body: it
+    updates the state buffers in place, adds one to the steps counter `i`
+    and writes the condition `flag` (cond and i < most) itself, as `step`
+    and the loop's own updates would; it takes the host bound `most`, so
+    not `limit`."""
+    if step_in_place is not None and limit is not None:
+        raise ValueError("step_in_place takes the host bound `most`, not `limit`")
     state = tuple(state)
     if control == HOST:
         i = 0
@@ -299,12 +307,15 @@ def loop(control: Control, state: Sequence[torch.Tensor],
     i = torch.zeros((), dtype=torch.int64, device=ref.device)
     flag = cond(bufs) & (i < bound)
     with control.body(flag, name):
-        new = tuple(step(bufs))
-        for b, n in zip(bufs, new):
-            if n is not b:
-                b.copy_(n)
-        i.add_(1)
-        flag.copy_(cond(bufs) & (i < bound))
+        if step_in_place is not None:
+            step_in_place(bufs, i, flag, bound)
+        else:
+            new = tuple(step(bufs))
+            for b, n in zip(bufs, new):
+                if n is not b:
+                    b.copy_(n)
+            i.add_(1)
+            flag.copy_(cond(bufs) & (i < bound))
     return bufs, i
 
 

@@ -12,6 +12,10 @@
 * H2, keyframe BA's pose Gauss-Newton accumulation (``csrc/pose_coeffs.cu``),
   replaces no TPU kernel: it is ``ba.pose_opt.surfel_pose_coeffs`` on a
   CUDA tensor, in place of the plain chain (``surfel_pose_coeffs_plain``).
+* H1, the tracker's Gauss-Newton step (``csrc/track_coeffs.cu``), replaces
+  no TPU kernel: on a CUDA tensor it is ``tracking.pairwise``'s
+  ``accumulate_pose_coeffs``, ``compute_cost_and_count``, one Gauss-Newton
+  step and the duel, in place of their plain chains (``*_plain``).
 
 * Build: at first use, ``nvcc`` compiles the source in this checkout into a
   shared library with a plain C interface under ``badslam_torch/_build/``
@@ -79,19 +83,21 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source on top of NVCC_FLAGS: H2 rounds every operation as
-# the plain version's PyTorch operations do (no contraction into fused
-# multiply-adds), so its association gates are the plain version's.
-SOURCE_FLAGS = {"pose_coeffs.cu": ("-fmad=false",)}
+# Flags of one source on top of NVCC_FLAGS: H1 and H2 round every operation
+# as the plain version's PyTorch operations do (no contraction into fused
+# multiply-adds), so their association gates are the plain version's.
+SOURCE_FLAGS = {"pose_coeffs.cu": ("-fmad=false",), "track_coeffs.cu": ("-fmad=false",)}
 
 BILATERAL = "bilateral_filter_and_cutoff"
 GATHER = "gather"
 GATHER_ONEHOT = "gather_onehot"
 POSE_COEFFS = "pose_coeffs"
+TRACK_COEFFS = "track_coeffs"
 
 # The CUDA source of each kernel, under csrc/.
 SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
-           GATHER_ONEHOT: "gather.cu", POSE_COEFFS: "pose_coeffs.cu"}
+           GATHER_ONEHOT: "gather.cu", POSE_COEFFS: "pose_coeffs.cu",
+           TRACK_COEFFS: "track_coeffs.cu"}
 # Every source built into a library: the kernels' and the CUDA-graph IF
 # nodes' (ops/conditional.py).
 LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
@@ -99,7 +105,7 @@ LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 # The same launches, per image shape ((H, W, tile) for K1, (B, H, W) for
-# K2, (H, W) for K3, (C, H, W) for H2).
+# K2, (H, W) for K3, (C, H, W) for H2, (H, W) of the level for H1).
 launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 # The same launches, per tag (the launching thread's launch_tag).
 launch_tags: Dict[str, Counter] = {name: Counter() for name in SOURCES}
@@ -676,3 +682,174 @@ def pose_coeffs_cuda(pos, normal, radius2, desc, valid, rot, trans, depth, f_nx,
     if single:
         return H[0], b[0], count[0]
     return H, b, count
+
+
+def _track_fns():
+    lib = _library("track_coeffs.cu")
+    tiles = lib.badslam_track_tiles
+    tiles.argtypes = [ctypes.c_int, ctypes.c_int]
+    tiles.restype = ctypes.c_int
+    head = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+            + [ctypes.POINTER(ctypes.c_float), ctypes.c_int])
+    coeffs = lib.badslam_track_coeffs
+    coeffs.argtypes = head + [ctypes.c_void_p] * 7
+    step = lib.badslam_track_step
+    step.argtypes = (head + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
+                     + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
+    cost = lib.badslam_track_cost
+    cost.argtypes = head + [ctypes.c_void_p] * 10
+    for fn in (coeffs, step, cost):
+        fn.restype = ctypes.c_int
+    return tiles, coeffs, step, cost
+
+
+def _track_constants(cam, threshold_factor: float, baseline_fx: float):
+    """H1's scalar table (csrc/track_coeffs.cu's Constants) for one pyramid
+    level: each the float32 that the plain version's PyTorch operation
+    takes, a division by a Python scalar on the card being a product with
+    its float32 inverse."""
+    f32 = np.float32
+    tukey = float(threshold_factor) * robust.DEPTH_TUKEY_PARAM
+    values = (cam.fx, cam.fy, cam.cx, cam.cy, cam.fx_inv, cam.fy_inv, cam.cx_inv,
+              cam.cy_inv, f32(1.0) / f32(baseline_fx),
+              robust.DEPTH_UNCERTAINTY_EMPIRICAL_FACTOR, tukey, f32(1.0) / f32(tukey),
+              tukey * tukey / 6.0, robust.DEPTH_RESIDUAL_WEIGHT,
+              robust.COS_NORMAL_COMPATIBILITY_THRESHOLD,
+              float(threshold_factor) * robust.DESCRIPTOR_RESIDUAL_WEIGHT,
+              robust.DESCRIPTOR_HUBER_PARAM, 0.5 * robust.DESCRIPTOR_HUBER_PARAM)
+    return (ctypes.c_float * len(values))(*(float(f32(v)) for v in values))
+
+
+def _track_inputs(base, tracked, poses, what: str):
+    """Check H1's inputs before anything is loaded: two pyramid levels
+    (depth, nx, ny, intensity [H, W] float32 each, one shape) and the poses'
+    (q [4], t [3]) float32, all contiguous on one CUDA device. Returns (H,
+    W)."""
+    depth = base[0]
+    if depth.ndim != 2:
+        raise ValueError(f"{what}: expected [H, W] planes, got {list(depth.shape)}")
+    shape = tuple(depth.shape)
+    if min(shape) < 1:
+        raise ValueError(f"{what}: empty planes {list(shape)}")
+    named = [(f"base.{f}", x, shape) for f, x in zip(base._fields, base)]
+    named += [(f"tracked.{f}", x, shape) for f, x in zip(tracked._fields, tracked)]
+    for i, (q, t) in enumerate(poses):
+        named += [(f"q{i}", q, (4,)), (f"t{i}", t, (3,))]
+    for name, x, want in named:
+        if x.dtype != torch.float32 or tuple(x.shape) != want:
+            raise ValueError(f"{what}: {name} must be float32 {list(want)}, got "
+                             f"{x.dtype} {list(x.shape)}")
+    if not depth.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors")
+    for name, x, _ in named:
+        if x.device != depth.device:
+            raise ValueError(f"{what}: {name} is on {x.device}, base.depth on "
+                             f"{depth.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return shape
+
+
+def _track_flags(use_depth: bool, use_descriptor: bool, use_gradmag: bool) -> int:
+    return int(bool(use_depth)) | int(bool(use_descriptor)) << 1 | int(bool(use_gradmag)) << 2
+
+
+def _track_launch(fn, base, tracked, h, w, cam, threshold_factor, baseline_fx, flags,
+                  *args):
+    device = base.depth.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(p.data_ptr() for p in base), *(p.data_ptr() for p in tracked), h, w,
+                 _track_constants(cam, threshold_factor, baseline_fx), flags, *args, stream)
+    if err != 0:
+        raise RuntimeError(f"tracker kernel launch failed: CUDA error {err}")
+    _count(TRACK_COEFFS, (h, w))
+
+
+def track_coeffs_cuda(cam, base, tracked, q, t, threshold_factor: float,
+                      baseline_fx: float, use_depth: bool, use_descriptor: bool,
+                      use_gradmag: bool):
+    """Launch H1's coefficient mode: the tracker's Gauss-Newton sums of the
+    base level's pixels (``base``, ``tracked``: pyramid levels of [H, W]
+    float32 planes) at base_T_frame (q [4], t [3]). Returns (H [6, 6], b
+    [6], count int64): the values of
+    tracking.pairwise.accumulate_pose_coeffs_plain, summed in another order,
+    the same bits on every launch. Raises on any other input."""
+    h, w = _track_inputs(base, tracked, [(q, t)], "track_coeffs_cuda")
+    tiles_fn, fn, _, _ = _track_fns()
+    device = q.device
+    partial = torch.empty((tiles_fn(h, w), 28), dtype=torch.float32, device=device)
+    H = torch.empty((6, 6), dtype=torch.float32, device=device)
+    b = torch.empty((6,), dtype=torch.float32, device=device)
+    count = torch.empty((), dtype=torch.int64, device=device)
+    _track_launch(fn, base, tracked, h, w, cam, threshold_factor, baseline_fx,
+                  _track_flags(use_depth, use_descriptor, use_gradmag), q.data_ptr(),
+                  t.data_ptr(), partial.data_ptr(), H.data_ptr(), b.data_ptr(),
+                  count.data_ptr())
+    return H, b, count
+
+
+def track_step_cuda(cam, base, tracked, q, t, threshold_factor: float, damping: float,
+                    converge_below: float, baseline_fx: float, use_depth: bool,
+                    use_descriptor: bool, use_gradmag: bool, q_out, t_out, converged,
+                    iterations=None, flag=None, bound: int = 0) -> None:
+    """Launch one tracker Gauss-Newton step on the card (H1's coefficient
+    mode, then its one-block step): from base_T_frame (q, t) it writes
+    (q_out, t_out), which may be q and t themselves, and the device bool
+    `converged` (sum of the guarded step's squares below `converge_below`),
+    as tracking.pairwise._gn_step_plain computes them. With `iterations`
+    (an int64 scalar) it also adds one to it and writes the bool `flag` =
+    not converged and iterations < `bound`: a WHILE body's loop state.
+    Raises on any other input."""
+    what = "track_step_cuda"
+    h, w = _track_inputs(base, tracked, [(q, t), (q_out, t_out)], what)
+    state = [("converged", converged, torch.bool)]
+    if iterations is not None:
+        state += [("iterations", iterations, torch.int64), ("flag", flag, torch.bool)]
+    for name, x, dtype in state:
+        if not isinstance(x, torch.Tensor) or x.device != q.device or x.dtype != dtype \
+                or x.numel() != 1:
+            raise ValueError(f"{what}: {name} must be a {dtype} scalar on {q.device}")
+    tiles_fn, _, fn, _ = _track_fns()
+    partial = torch.empty((tiles_fn(h, w), 28), dtype=torch.float32, device=q.device)
+    _track_launch(fn, base, tracked, h, w, cam, threshold_factor, baseline_fx,
+                  _track_flags(use_depth, use_descriptor, use_gradmag), q.data_ptr(),
+                  t.data_ptr(), partial.data_ptr(), -float(damping), float(converge_below),
+                  q_out.data_ptr(), t_out.data_ptr(), converged.data_ptr(),
+                  None if iterations is None else iterations.data_ptr(),
+                  None if iterations is None else flag.data_ptr(), int(bound))
+
+
+def track_cost_cuda(cam, base, tracked, poses, threshold_factor: float,
+                    baseline_fx: float, use_depth: bool, use_descriptor: bool,
+                    use_gradmag: bool):
+    """Launch H1's cost mode over one or two poses ([(q, t)] base_T_frame,
+    [4] and [3] float32), all in one launch. One pose: returns (cost
+    float32, count int64), the values of
+    tracking.pairwise.compute_cost_and_count_plain summed in another order.
+    Two: returns the duel's choice (q, t) between them (pairwise._duel_plain).
+    Raises on any other input."""
+    what = "track_cost_cuda"
+    if len(poses) not in (1, 2):
+        raise ValueError(f"{what}: one or two poses, got {len(poses)}")
+    h, w = _track_inputs(base, tracked, poses, what)
+    tiles_fn, _, _, fn = _track_fns()
+    device = poses[0][0].device
+    partial = torch.empty((len(poses), tiles_fn(h, w), 3), dtype=torch.float32,
+                          device=device)
+    if len(poses) == 1:
+        cost = torch.empty((), dtype=torch.float32, device=device)
+        count = torch.empty((), dtype=torch.int64, device=device)
+        out = (cost.data_ptr(), count.data_ptr(), None, None)
+        pose_ptrs = (poses[0][0].data_ptr(), poses[0][1].data_ptr(), None, None)
+        result = (cost, count)
+    else:
+        q = torch.empty((4,), dtype=torch.float32, device=device)
+        t = torch.empty((3,), dtype=torch.float32, device=device)
+        out = (None, None, q.data_ptr(), t.data_ptr())
+        pose_ptrs = tuple(x.data_ptr() for pose in poses for x in pose)
+        result = (q, t)
+    _track_launch(fn, base, tracked, h, w, cam, threshold_factor, baseline_fx,
+                  _track_flags(use_depth, use_descriptor, use_gradmag), *pose_ptrs,
+                  partial.data_ptr(), *out)
+    return result

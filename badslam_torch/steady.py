@@ -69,7 +69,7 @@ from badslam_torch.ops.conditional import (
 )
 from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
 from badslam_torch.ops.pyramid import FramePyramidLevel, build_pyramid
-from badslam_torch.tracking.pairwise import device_constants, track_frame_pairwise
+from badslam_torch.tracking.pairwise import track_frame_pairwise
 from badslam_torch.utils.timing import Timing, stamped, trace_range
 
 
@@ -313,20 +313,12 @@ class SteadyFrameGraph:
     def _capture(self, key: SteadyKey, cam, cams, undistort_map, test_two: bool,
                  reason: str) -> _Captured:
         st = self._static
-        device_constants(self.device)
         current = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         nodes = WhileNodes(self.device)
-        # Library state made before the capture: the cuBLAS handle and the
-        # workspaces of the two capture streams (one small product each).
-        # The frame's kernels are not run ahead: that would launch K1 and
-        # K2 once more per capture than the frames need.
-        ones = torch.ones((2, 2), device=self.device)
-        for s in (stream, nodes.stream):
-            s.wait_stream(current)
-            with torch.cuda.stream(s):
-                ones @ ones
-            current.wait_stream(s)
+        # The frame calls no library that keeps state (its tracker is H1),
+        # and its kernels are not run ahead: that would launch each once
+        # more per capture than the frames need.
         # One WHILE body per scale, captured coarsest first; each run of
         # body j adds one to units[j].
         units = torch.zeros(key.num_scales, dtype=torch.int64, device=self.device)

@@ -509,6 +509,37 @@ def ate_rmse_device(traj_t: torch.Tensor, gt_t) -> torch.Tensor:
     return torch.sqrt(torch.minimum(r1, r2) / n)
 
 
+def tracking_pair(cam: PinholeCamera, seed: int, device, num_scales: int = 5,
+                  gradmag: bool = False):
+    """Two views of a random six-plane scene through `cam` (the identity and
+    a small motion), each preprocessed on `device` as a frame of the
+    default configuration (u16 depth in 1/5000 m, a 3 m cutoff) and built
+    into a pyramid of `num_scales` levels (of gradient magnitudes with
+    `gradmag`), for the tracker: (cameras, base pyramid, tracked pyramid),
+    finest first, and the motion base_T_frame as (q, t) on `device`."""
+    from badslam_torch.ops.preprocess import preprocess_frame
+    from badslam_torch.ops.pyramid import build_pyramid
+
+    scene = random_plane_scene(np.random.default_rng(seed), 6)
+    motion = pose(tx=0.015, ty=-0.01, tz=0.008, rx=0.003, rz=0.008)
+    cells = ((cam.height - 1) // 4 + 1, (cam.width - 1) // 4 + 1)
+    pyramids = []
+    for p in (pose(), motion):
+        depth, inten = render_scene(cam, scene, p)
+        raw = np.clip(depth * 5000.0, 0, 65535).astype(np.int32)
+        gray = np.clip(inten * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        frame = preprocess_frame(
+            cam, torch.from_numpy(raw).to(device),
+            torch.from_numpy(np.stack([gray] * 3, axis=-1)).to(device), max_depth=3.0,
+            a=torch.zeros((), device=device), cfactor=torch.zeros(cells, device=device),
+            raw_to_float_depth=1.0 / 5000.0)
+        pyramids.append(build_pyramid(frame.depth, frame.nx, frame.ny, frame.intensity,
+                                      num_scales, gradmag=gradmag))
+    cams = tuple(cam.pyramid_level(i) for i in range(num_scales))
+    q, t = (torch.from_numpy(np.asarray(x, np.float32)).to(device) for x in motion)
+    return cams, pyramids[0], pyramids[1], (q, t)
+
+
 class PosePassState(NamedTuple):
     """The inputs of one step of keyframe BA's pose pass (numpy float32;
     pose_pass_state)."""

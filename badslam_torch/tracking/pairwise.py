@@ -25,6 +25,18 @@ it (`loop`, ``ops.conditional.loop``):
 
 All three stop at `max_iterations` or on convergence, the JAX loop's
 semantics.
+
+On a CUDA tensor the accumulation, the cost, one Gauss-Newton step and the
+duel run as H1 (``csrc/track_coeffs.cu``, ``ops.kernels``): one fused
+kernel over the level's pixels and one small kernel that sums its partials
+and solves, updates or picks, two kernel nodes where the plain chain has
+some 400 (a step) or 200 (a cost). Inside a WHILE node the step also
+writes the loop's counter and condition, so a Gauss-Newton iteration is
+those two nodes and the body's own bookkeeping. On a CPU tensor they run
+the plain chains (``accumulate_pose_coeffs_plain``,
+``compute_cost_and_count_plain``, ``_gn_step_plain``, ``_duel_plain``),
+which the CPU tests hold to the JAX package and the card's tests hold H1
+to.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import torch
 from badslam_torch.geometry import se3
 from badslam_torch.geometry.camera import PinholeCamera
 from badslam_torch.geometry.linalg import solve_psd
-from badslam_torch.ops import robust
+from badslam_torch.ops import kernels, robust
 from badslam_torch.ops.conditional import HOST, Control
 from badslam_torch.ops.conditional import loop as run_loop
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
@@ -354,6 +366,20 @@ def _cost_and_count(res, threshold_factor, use_depth: bool,
     return cost, count
 
 
+def _on_card(base: FramePyramidLevel, what: str) -> bool:
+    """Whether the level's planes are on a CUDA device (H1), else on the
+    CPU (the plain chain); raises for any other device."""
+    if base.depth.is_cuda:
+        return True
+    if base.depth.device.type != "cpu":
+        raise ValueError(f"no {what} for device {base.depth.device}")
+    return False
+
+
+def _dense(level: FramePyramidLevel) -> FramePyramidLevel:
+    return FramePyramidLevel(*(plane.contiguous() for plane in level))
+
+
 def accumulate_pose_coeffs(
     cam: PinholeCamera,
     base: FramePyramidLevel,
@@ -366,7 +392,32 @@ def accumulate_pose_coeffs(
     use_descriptor: bool = True,
     use_gradmag: bool = False,
 ):
-    """One GN accumulation: returns (H[6,6], b[6], count)."""
+    """One GN accumulation: returns (H[6,6], b[6], count). H1 on a CUDA
+    tensor, the plain chain on a CPU tensor."""
+    if _on_card(base, "tracker accumulation"):
+        return kernels.track_coeffs_cuda(
+            cam, _dense(base), _dense(tracked), base_T_frame_q.contiguous(),
+            base_T_frame_t.contiguous(), threshold_factor, baseline_fx, use_depth,
+            use_descriptor, use_gradmag)
+    return accumulate_pose_coeffs_plain(
+        cam, base, tracked, base_T_frame_q, base_T_frame_t, threshold_factor,
+        baseline_fx, use_depth, use_descriptor, use_gradmag)
+
+
+def accumulate_pose_coeffs_plain(
+    cam: PinholeCamera,
+    base: FramePyramidLevel,
+    tracked: FramePyramidLevel,
+    base_T_frame_q: torch.Tensor,
+    base_T_frame_t: torch.Tensor,
+    threshold_factor,
+    baseline_fx: float,
+    use_depth: bool = True,
+    use_descriptor: bool = True,
+    use_gradmag: bool = False,
+):
+    """Plain version of H1's coefficient mode: returns (H[6,6], b[6],
+    count)."""
     frame_T_base = se3.inverse(se3.SE3(base_T_frame_q, base_T_frame_t))
     res = _image_residuals(
         cam, base, tracked, frame_T_base.q, frame_T_base.t,
@@ -378,6 +429,23 @@ def accumulate_pose_coeffs(
 
 
 def compute_cost_and_count(
+    cam, base, tracked, base_T_frame_q, base_T_frame_t,
+    threshold_factor, baseline_fx, use_depth=True, use_descriptor=True,
+    use_gradmag=False,
+):
+    """The robust cost and residual count at base_T_frame: H1's cost mode on
+    a CUDA tensor, the plain chain on a CPU tensor."""
+    if _on_card(base, "tracker cost"):
+        return kernels.track_cost_cuda(
+            cam, _dense(base), _dense(tracked),
+            [(base_T_frame_q.contiguous(), base_T_frame_t.contiguous())],
+            threshold_factor, baseline_fx, use_depth, use_descriptor, use_gradmag)
+    return compute_cost_and_count_plain(
+        cam, base, tracked, base_T_frame_q, base_T_frame_t, threshold_factor,
+        baseline_fx, use_depth, use_descriptor, use_gradmag)
+
+
+def compute_cost_and_count_plain(
     cam, base, tracked, base_T_frame_q, base_T_frame_t,
     threshold_factor, baseline_fx, use_depth=True, use_descriptor=True,
     use_gradmag=False,
@@ -396,10 +464,9 @@ _CONSTANTS: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
 def device_constants(device: torch.device) -> Dict[str, torch.Tensor]:
-    """The tracker's constant tensors on `device`, made once: the scale
-    vector of the convergence test and the 6x6 identity. Made while no graph
-    is being captured (a capture's warm-up runs the tracker first), since
-    building a constant from host values is a copy to the device."""
+    """The plain chain's constant tensors on `device`, made once: the scale
+    vector of the convergence test and the 6x6 identity (building a constant
+    from host values is a copy to the device)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -413,18 +480,41 @@ def device_constants(device: torch.device) -> Dict[str, torch.Tensor]:
     return _CONSTANTS[device]
 
 
+def _converge_below(scaling_factor: float) -> float:
+    """The scale-N convergence test's bound on a GN step's squared norm
+    (its translation and rotation thresholds being equal, the scale vector
+    is ones)."""
+    return scaling_factor * scaling_factor * _SCALE_N_TRANS_THR
+
+
 def _is_converged(x: torch.Tensor, scaling_factor: float) -> torch.Tensor:
     """Scale-N pose-estimation convergence test on a GN step x."""
     scaled = x * device_constants(x.device)["conv_scale"]
-    return torch.sum(scaled * scaled) < (
-        scaling_factor * scaling_factor * _SCALE_N_TRANS_THR)
+    return torch.sum(scaled * scaled) < _converge_below(scaling_factor)
 
 
 def _gn_step(cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
              use_depth, use_descriptor, use_gradmag):
     """One Gauss-Newton iteration on the device: returns (q, t, converged)
-    with `converged` a device bool."""
-    H, b, count = accumulate_pose_coeffs(
+    with `converged` a device bool. H1 on a CUDA tensor, the plain chain on
+    a CPU tensor."""
+    if not _on_card(base, "tracker step"):
+        return _gn_step_plain(cam, base, tracked, q, t, scaling_factor, damping,
+                              baseline_fx, use_depth, use_descriptor, use_gradmag)
+    q, t = q.contiguous(), t.contiguous()
+    q_out, t_out = torch.empty_like(q), torch.empty_like(t)
+    converged = torch.empty((), dtype=torch.bool, device=q.device)
+    kernels.track_step_cuda(
+        cam, _dense(base), _dense(tracked), q, t, scaling_factor, damping,
+        _converge_below(scaling_factor), baseline_fx, use_depth, use_descriptor,
+        use_gradmag, q_out, t_out, converged)
+    return q_out, t_out, converged
+
+
+def _gn_step_plain(cam, base, tracked, q, t, scaling_factor, damping, baseline_fx,
+                   use_depth, use_descriptor, use_gradmag):
+    """Plain version of H1's step: returns (q, t, converged)."""
+    H, b, count = accumulate_pose_coeffs_plain(
         cam, base, tracked, q, t, scaling_factor, baseline_fx,
         use_depth, use_descriptor, use_gradmag,
     )
@@ -454,9 +544,23 @@ def _gn_level(
     def running(state):
         return ~state[2]
 
+    step_in_place = None
+    if _on_card(base, "tracker step"):
+        base, tracked = _dense(base), _dense(tracked)
+
+        def step_in_place(state, i, flag, bound):
+            # Inside a WHILE body: H1 updates the state buffers, the
+            # iteration count and the condition itself.
+            kernels.track_step_cuda(
+                cam, base, tracked, state[0], state[1], scaling_factor, damping,
+                _converge_below(scaling_factor), baseline_fx, use_depth,
+                use_descriptor, use_gradmag, state[0], state[1], state[2],
+                iterations=i, flag=flag, bound=bound)
+
     converged = torch.zeros((), dtype=torch.bool, device=q.device)
     (q, t, converged), it = run_loop(loop, (q, t, converged), running, step,
-                                     most=max_iterations, name=f"gn/scale{scale}")
+                                     most=max_iterations, name=f"gn/scale{scale}",
+                                     step_in_place=step_in_place)
     if loop == HOST:
         converged = bool(converged)
     return q, t, converged, it
@@ -464,17 +568,31 @@ def _gn_level(
 
 def _duel(cam, base, tracked, qa, ta, qb, tb, threshold_factor, baseline_fx,
           use_depth, use_descriptor, use_gradmag=False):
-    """Pick the better of two pose hypotheses (on the device, no sync)."""
+    """Pick the better of two pose hypotheses (on the device, no sync): H1's
+    cost mode over both in one launch on a CUDA tensor, the plain chain on
+    a CPU tensor."""
     with trace_range("duel"):
-        cost_a, count_a = compute_cost_and_count(
-            cam, base, tracked, qa, ta, threshold_factor, baseline_fx,
-            use_depth, use_descriptor, use_gradmag)
-        cost_b, count_b = compute_cost_and_count(
-            cam, base, tracked, qb, tb, threshold_factor, baseline_fx,
-            use_depth, use_descriptor, use_gradmag)
-        pick_a = (count_a > 2 * count_b) | (
-            ~(count_b > 2 * count_a) & (cost_a < cost_b))
-        return torch.where(pick_a, qa, qb), torch.where(pick_a, ta, tb)
+        if _on_card(base, "tracker duel"):
+            return kernels.track_cost_cuda(
+                cam, _dense(base), _dense(tracked),
+                [(qa.contiguous(), ta.contiguous()), (qb.contiguous(), tb.contiguous())],
+                threshold_factor, baseline_fx, use_depth, use_descriptor, use_gradmag)
+        return _duel_plain(cam, base, tracked, qa, ta, qb, tb, threshold_factor,
+                           baseline_fx, use_depth, use_descriptor, use_gradmag)
+
+
+def _duel_plain(cam, base, tracked, qa, ta, qb, tb, threshold_factor, baseline_fx,
+                use_depth, use_descriptor, use_gradmag=False):
+    """Plain version of H1's duel."""
+    cost_a, count_a = compute_cost_and_count_plain(
+        cam, base, tracked, qa, ta, threshold_factor, baseline_fx,
+        use_depth, use_descriptor, use_gradmag)
+    cost_b, count_b = compute_cost_and_count_plain(
+        cam, base, tracked, qb, tb, threshold_factor, baseline_fx,
+        use_depth, use_descriptor, use_gradmag)
+    pick_a = (count_a > 2 * count_b) | (
+        ~(count_b > 2 * count_a) & (cost_a < cost_b))
+    return torch.where(pick_a, qa, qb), torch.where(pick_a, ta, tb)
 
 
 def track_frame_pairwise(

@@ -27,7 +27,12 @@ failure, so any failure exits non-zero before the last line is printed):
    live: counts exact, H and b to 1e-4 of each keyframe's largest entry,
    two launches bit for bit, and the device time of the whole step
    (`surfel_pose_coeffs`, with the pose inverse and rotation in PyTorch)
-   beside the kernel's. For each: max abs error,
+   beside the kernel's; H1 (the tracker's Gauss-Newton step) on a rendered
+   pair at 480x640 and at its coarsest level, 30x40, depth and descriptor
+   residuals: counts exact, H and b to 1e-5 of the largest entry, two
+   launches bit for bit, and the device time of the whole step (both
+   kernels) beside the coefficient kernel's and the plain chain's
+   accumulation and step. For each: max abs error,
    device time per call (a CUDA graph of 50 calls), eager call latency,
    the plain version's device time, the least time the card could take
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
@@ -53,7 +58,7 @@ failure, so any failure exits non-zero before the last line is printed):
    frames through BadSlam.run once with the graphs and once with the eager
    call of the same steady-frame function and its host-read loop, in this
    process: poses equal (max |dq|, |dt| within 1e-6), K1 once per frame and
-   the same K2 launches and Gauss-Newton iterations in both, every steady
+   the same K2 and H1 launches and Gauss-Newton iterations in both, every steady
    frame replayed, chunks run; prints the steady-frame, keyframe and
    BA-drain medians of each, GN iterations per frame, launches, peak memory,
    each graph's capture and instantiate seconds, nodes and pool memory;
@@ -133,12 +138,12 @@ failure, so any failure exits non-zero before the last line is printed):
    (their times include its share of the host and the card); this phase
    waits for it and makes the run with loop detection on alone. Checks the JAX test's asserts (a closure, none applied by frame 149,
    ATE on below 0.66 x ATE off, endpoint error below 0.6 m), K1 once per
-   frame, K2 launched in the closure's refinement, every attempt that
+   frame, H1 launched in the closure's refinement, every attempt that
    reached the gates a run of its CUDA graph (loop/graph.py: a capture or
    a replay); prints the frames the closures applied at, the attempts and
    each gate's rejections, features per keyframe, the worker's ms per
    keyframe and per stage, the drain's waits, per closure attempt whether
-   it captured or replayed, its ms between CUDA events, its K2 launches
+   it captured or replayed, its ms between CUDA events, its H1 launches
    (from the graph's device counters) and its gates (read after the run),
    each closure graph's capture record, per-frame medians (keyframe frames
    with a closure attempt apart), both ATEs and peak memory; then the
@@ -155,7 +160,7 @@ failure, so any failure exits non-zero before the last line is printed):
    state, rejected and accepted in turn, each as a replay of the attempt's
    graph and as the eager call of the same function with the host loop:
    keyframe poses and trajectory max |dq|, |dt| <= 1e-6, the same gates and
-   K2 launches, a replayed rejection bit-identical; a replayed accepting
+   H1 launches, a replayed rejection bit-identical; a replayed accepting
    and rejecting attempt under set_sync_debug_mode("error"); prints the
    graph's capture and instantiate seconds, nodes, kernel nodes, WHILE
    nodes and pool memory, and device ms per replay against per eager call.
@@ -287,6 +292,7 @@ from badslam_torch.parallel import make_mesh
 from badslam_torch.parallel.dryrun import dryrun_multichip
 from badslam_torch.tools import evaluate_ate
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
+from badslam_torch.tracking import pairwise
 from badslam_torch.ops.preprocess import (
     bilateral_filter_and_cutoff,
     median_filter_and_densify,
@@ -735,11 +741,97 @@ def _h2() -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "step_ms": step_ms, **t_, **b}
 
 
+# H1 (the tracker's Gauss-Newton step) at the finest and the coarsest of
+# the five levels at VGA.
+H1_LEVELS = (0, 4)
+# Float operations per valid pixel with both residual types, counted from
+# csrc/track_coeffs.cu: association ~80, the descriptor gates, plane
+# projections and three bilinear samples ~150, the depth row and its sums
+# ~90, the two descriptor rows and their sums ~170.
+H1_OPS_PER_PIXEL = 500.0
+
+
+def _h1_paths(level, args, truth) -> str:
+    """What the SLAM paths call of H1 at one level, against the plain chain
+    on the same inputs: the whole step (pairwise._gn_step: q and t within
+    1e-6, the same flag), the cost (count exact, cost within 1e-5
+    relative) and the duel's pick, for a near and a far pair."""
+    cam, base, tracked, q, t, s, bfx, *flags = args
+    step = (*args[:6], 0.5, *args[6:])
+    q_k, t_k, done_k = pairwise._gn_step(*step)
+    q_p, t_p, done_p = pairwise._gn_step_plain(*step)
+    step_err = max(float((q_k - q_p).abs().max()), float((t_k - t_p).abs().max()))
+    if step_err > 1e-6 or bool(done_k) != bool(done_p):
+        raise AssertionError(f"H1 step at level {level}: q, t off by {step_err}, flag "
+                             f"{bool(done_k)} against {bool(done_p)}")
+    cost, n = pairwise.compute_cost_and_count(*args)
+    cost_p, n_p = pairwise.compute_cost_and_count_plain(*args)
+    cost_rel = abs(float(cost) - float(cost_p)) / abs(float(cost_p))
+    if not torch.equal(n, n_p) or cost_rel > 1e-5:
+        raise AssertionError(f"H1 cost at level {level}: count {int(n)} against {int(n_p)}, "
+                             f"cost {cost_rel} relative")
+    near = (q, t)
+    far = (truth[0], truth[1] + torch.tensor([0.2, -0.1, 0.05], device=t.device))
+    for a, b in ((truth, near), (near, truth), (truth, far), (far, near)):
+        got = pairwise._duel(cam, base, tracked, *a, *b, s, bfx, *flags)
+        want = pairwise._duel_plain(cam, base, tracked, *a, *b, s, bfx, *flags)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"H1 duel at level {level} picks another pose than plain")
+    return (f"step q, t within {step_err:.3e} of plain, flag {bool(done_k)} as plain; cost "
+            f"{cost_rel:.3e} relative, count exact; duel picks as plain (near and far pairs)")
+
+
+def _h1() -> dict:
+    """H1 against its plain chain at 480x640 and 30x40 (levels 0 and 4 of
+    the rendered pair): counts exact, H and b against the largest entry,
+    two launches bit for bit, and the step, cost and duel that the SLAM
+    paths call (_h1_paths); device ms per call in a graph of 50 of the
+    coefficient kernel, of the whole step (pairwise._gn_step: both
+    kernels) and of the plain chain's accumulation and step beside them."""
+    cams, base, tracked, truth = synthetic.tracking_pair(
+        synthetic.default_camera(WIDTH, HEIGHT), 7, "cuda")
+    q = truth[0] + torch.tensor([0.0, 0.001, -0.0015, 0.0005], device="cuda")
+    q = q / torch.linalg.vector_norm(q)
+    t = truth[1] + torch.tensor([0.004, 0.003, -0.005], device="cuda")
+    out = {}
+    for level in H1_LEVELS:
+        s = float(2 ** level)
+        args = (cams[level], base[level], tracked[level], q, t, s, 40.0, True, True, False)
+        step = (*args[:6], 1.0, *args[6:])
+        got = pairwise.accumulate_pose_coeffs(*args)
+        ref = pairwise.accumulate_pose_coeffs_plain(*args)
+        if not torch.equal(got[2], ref[2]):
+            raise AssertionError(f"H1 count {int(got[2])} against {int(ref[2])}")
+        rel = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got[:2], ref[:2]))
+        err = max(float((x - y).abs().max()) for x, y in zip(got[:2], ref[:2]))
+        if rel > 1e-5:
+            raise AssertionError(f"H1 against the plain chain: {rel} of the largest entry")
+        if not all(torch.equal(x, y) for x, y in zip(got, pairwise.accumulate_pose_coeffs(*args))):
+            raise AssertionError("H1: two launches differ")
+        paths = _h1_paths(level, args, truth)
+        t_ = _timings(lambda: pairwise.accumulate_pose_coeffs(*args),
+                      lambda: pairwise.accumulate_pose_coeffs_plain(*args))
+        step_ms = device_ms(lambda: pairwise._gn_step(*step))
+        plain_step_ms = device_ms(lambda: pairwise._gn_step_plain(*step))
+        h, w = base[level].depth.shape
+        b = _bound(4.0 * 4.0 * h * w, H1_OPS_PER_PIXEL * float(got[2]))
+        print(f"H1 track_coeffs {h}x{w} ({int(got[2])} valid pixels, depth and descriptor "
+              f"residuals): count exact, max abs err {err:.3e} ({rel:.3e} of the largest "
+              f"entry), two launches bit for bit; {paths}; device ms kernel {t_['ms']:.4f}, whole step "
+              f"{step_ms:.4f}, plain accumulation {t_['plain_ms']:.4f}, plain step "
+              f"{plain_step_ms:.4f}; eager kernel {t_['call_ms']:.4f}, plain "
+              f"{t_['plain_call_ms']:.4f}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}); "
+              f"{SMI}")
+        out[level] = {"max_abs_err": err, "max_rel_err": rel, "step_ms": step_ms,
+                      "plain_step_ms": plain_step_ms, **t_, **b}
+    return out[0]
+
+
 def phase_kernels(input_data: str) -> dict:
     _, umap, depth, rgb = _input_frame(input_data)
     return {kernels.BILATERAL: _k1(_undistorted_frame(input_data)),
             kernels.GATHER: _k2(umap, depth, rgb), kernels.GATHER_ONEHOT: _k3(),
-            kernels.POSE_COEFFS: _h2()}
+            kernels.POSE_COEFFS: _h2(), kernels.TRACK_COEFFS: _h1()}
 
 
 def phase_probe() -> dict:
@@ -990,6 +1082,8 @@ def phase_steady(data: str) -> None:
         "K1 once per frame in both": (g["launches"][kernels.BILATERAL]
                                       == e["launches"][kernels.BILATERAL] == FRAMES),
         "K2 launches equal": g["launches"][kernels.GATHER] == e["launches"][kernels.GATHER] > 0,
+        "H1 launches equal": (g["launches"][kernels.TRACK_COEFFS]
+                              == e["launches"][kernels.TRACK_COEFFS] > 0),
         "every steady frame replayed": replays == FRAMES - 1,
         "chunks ran": g["chunks"] == e["chunks"] > 0,
         "GN iterations equal": g["gn_per_frame"] == e["gn_per_frame"] > 0,
@@ -1513,7 +1607,7 @@ class _LoopProbe:
             graph = slam.closure_graph
             replays = graph.replays if graph is not None else 0
             captures = len(graph.captures) if graph is not None else 0
-            k2 = kernels.launch_counts[kernels.GATHER]
+            h1 = kernels.launch_counts[kernels.TRACK_COEFFS]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             attempt(slam, *args)
@@ -1524,7 +1618,7 @@ class _LoopProbe:
             else:
                 kind, run = ("eager" if graph is None else "none"), None
             probe.attempts.append((start, end, kind, run,
-                                   kernels.launch_counts[kernels.GATHER] - k2))
+                                   kernels.launch_counts[kernels.TRACK_COEFFS] - h1))
             probe.frames.append(slam.last_frame_index if _in_frame() else None)
             probe.args.append(args)
 
@@ -1545,9 +1639,9 @@ class _LoopProbe:
         torch.cuda.synchronize()
         return [s.elapsed_time(e) for s, e, *_ in self.attempts]
 
-    def attempt_k2(self) -> list:
-        """K2 launches per attempt: a graph run's from its device counters,
-        an eager call's as counted at launch."""
+    def attempt_h1(self) -> list:
+        """H1 launches per attempt (the refinements' tracker): a graph run's
+        from its device counters, an eager call's as counted at launch."""
         out = []
         for _, _, _, run, host in self.attempts:
             if run is None:
@@ -1556,7 +1650,7 @@ class _LoopProbe:
                 graph, index = run
                 launches = graph.replay_launches()[index]
                 out.append(sum(n for (name, _, _), n in launches.items()
-                               if name == kernels.GATHER))
+                               if name == kernels.TRACK_COEFFS))
         return out
 
 
@@ -1670,7 +1764,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
     det = slam.loop_detector
     stage = {k: _ms_summary(v) for k, v in det.timings_ms.items()}
     attempt_ms = probe.attempt_ms()
-    attempt_k2 = probe.attempt_k2()
+    attempt_h1 = probe.attempt_h1()
     attempt_kinds = [kind for _, _, kind, _, _ in probe.attempts]
     frame_ms = dict(summary["frame_ms"])
     kf_frames = set(summary["keyframe_frames"][1:])
@@ -1694,7 +1788,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
     print(f"loop: features per keyframe {det.feature_counts}; worker ms per keyframe "
           f"{_ms_summary(probe.thread.worker_ms if probe.thread else [])}; by stage {stage}; "
           f"drain waits {_ms_summary(probe.waits_ms)}; per closure attempt "
-          f"{_ms_summary(attempt_ms)} between CUDA events, K2 launches {attempt_k2}; "
+          f"{_ms_summary(attempt_ms)} between CUDA events, H1 launches {attempt_h1}; "
           f"{medians}; BA iterations per call {summary['ba_iterations']}; keyframes "
           f"{summary['keyframes']}; surfels {summary['surfels']}; loop off (its own process, "
           f"beside phases 5-14): per-frame median {statistics.median(off_ms):.2f} ms; "
@@ -1709,7 +1803,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
         for (f, _), ms in zip(calls, summary["ba_call_ms"]):
             ba_at[f] = ba_at.get(f, 0.0) + ms
     gated = iter(attempts)  # the attempts that reached the gates, in order
-    for i, (kind, ms, k2, f) in enumerate(zip(attempt_kinds, attempt_ms, attempt_k2,
+    for i, (kind, ms, h1, f) in enumerate(zip(attempt_kinds, attempt_ms, attempt_h1,
                                               probe.frames)):
         gates = None if kind == "none" else next(gated)
         ba = ba_at.get(f, float("nan"))
@@ -1718,7 +1812,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
                  f"{frame_ms[f] - ms - ba:.3f} ms of the rest; the next frame "
                  f"{frame_ms.get(f + 1, float('nan')):.3f} ms")
         print(f"loop: closure attempt {i} in frame {f}: {kind}, {ms:.3f} ms between CUDA "
-              f"events, K2 launches {k2}, gates {gates}; {where} ({SMI})")
+              f"events, H1 launches {h1}, gates {gates}; {where} ({SMI})")
     for c in cg.captures:
         print(f"loop: closure graph (order bucket {c['order_bucket']}, {c['refinements']} "
               f"refinements): capture {c['capture_s']:.3f} s, instantiate "
@@ -1744,7 +1838,7 @@ def phase_loop(workdir: str, off_job: subprocess.Popen) -> dict:
         "finite poses with loop detection off": bool(np.all(np.isfinite(
             [np.r_[p.q, p.t] for p in poses_off]))),
         "K1 once per frame": launches[kernels.BILATERAL] == LOOP_FRAMES,
-        "K2 launched in the refinement": sum(attempt_k2) > 0,
+        "H1 launched in the refinement": sum(attempt_h1) > 0,
         "every attempt that reached the gates ran its closure graph":
             cg.replays == len(attempts) == sum(k in ("capture", "replay")
                                                  for k in attempt_kinds),
@@ -1800,7 +1894,7 @@ def _injected_closure(data: str, device: str) -> dict:
                     traj_q=slam.traj_q.cpu().numpy(), traj_t=slam.traj_t.cpu().numpy(),
                     closures=slam.loop_closure_count, rejected=rejected, untouched=untouched,
                     drift=drift, after=float(np.linalg.norm(host(last).t - true.t)),
-                    k2=kernels.launch_counts[kernels.GATHER],
+                    h1=kernels.launch_counts[kernels.TRACK_COEFFS],
                     graph_runs=0 if slam.closure_graph is None else slam.closure_graph.replays)
     finally:
         slam.close()
@@ -1819,11 +1913,11 @@ def phase_cpu_loop(workdir: str) -> None:
           f"{g['closures']} cpu {c['closures']}; last keyframe drift {g['drift']:.4f} m -> "
           f"cuda {g['after']:.4f}, cpu {c['after']:.4f} m; rejected candidate cuda "
           f"{g['rejected']} (poses untouched {g['untouched']}), cpu {c['rejected']} (poses "
-          f"untouched {c['untouched']}); K2 launches in the two cuda attempts {g['k2']}, "
+          f"untouched {c['untouched']}); H1 launches in the two cuda attempts {g['h1']}, "
           f"closure graph runs {g['graph_runs']} ({SMI})")
     if not (dk <= POSE_ATOL and dtraj <= POSE_ATOL and g["closures"] == c["closures"] == 1
             and g["untouched"] and c["untouched"] and not g["rejected"]["needed"]
-            and not c["rejected"]["needed"] and g["after"] < 0.5 * g["drift"] and g["k2"] > 0
+            and not c["rejected"]["needed"] and g["after"] < 0.5 * g["drift"] and g["h1"] > 0
             and g["graph_runs"] == 2):
         raise AssertionError("CPU and CUDA disagree on the injected loop closure")
 
@@ -1891,7 +1985,8 @@ def phase_closure_graph(workdir: str) -> None:
             a = slam.closure_attempts[-1]
             return dict(ms=start.elapsed_time(end), before=before,
                         after=[x.clone() for x in state], gates=(a["consistent"], a["needed"]),
-                        count=slam.loop_closure_count, k2=kernels.launch_counts[kernels.GATHER])
+                        count=slam.loop_closure_count,
+                        h1=kernels.launch_counts[kernels.TRACK_COEFFS])
 
         capture = attempt(True, True)
         runs = {(accept, replay): [] for accept in (False, True) for replay in (True, False)}
@@ -1912,19 +2007,19 @@ def phase_closure_graph(workdir: str) -> None:
         dt = max(float((a["after"][i] - b["after"][i]).abs().max())
                  for a in g for b in e for i in (1, 3))
         gates = {r["gates"] for r in g + e}
-        k2 = {r["k2"] for r in g + e}
+        h1 = {r["h1"] for r in g + e}
         counts = {r["count"] for r in g + e}
         print(f"closure_graph ({SMI}): the {name} candidate (128x96, 3 scales), replay / "
               f"eager: device ms per attempt {_ms_summary([r['ms'] for r in g])} / "
               f"{_ms_summary([r['ms'] for r in e])}; keyframe poses and trajectory max |dq| "
               f"{dq:.3e}, |dt| {dt:.3e} (atol {CLOSURE_GRAPH_ATOL}); gates {sorted(gates)}; "
-              f"K2 launches per attempt {sorted(k2)}; closures {sorted(counts)}")
+              f"H1 launches per attempt {sorted(h1)}; closures {sorted(counts)}")
         if not (dq <= CLOSURE_GRAPH_ATOL and dt <= CLOSURE_GRAPH_ATOL):
             failed.append(f"{name}: replay and eager poses differ")
         if gates != {(True, accept)} or counts != {int(accept)}:
             failed.append(f"{name}: gates {gates}, closures {counts}")
-        if len(k2) != 1 or 0 in k2:
-            failed.append(f"{name}: K2 launches {k2}")
+        if len(h1) != 1 or 0 in h1:
+            failed.append(f"{name}: H1 launches {h1}")
         if not accept and not all(torch.equal(a, b) for r in g
                                   for a, b in zip(r["before"], r["after"])):
             failed.append("a replayed rejection moved a pose")
@@ -2805,6 +2900,9 @@ _KERNEL_ROWS = (
      "tools/probe_pallas_gather.py:120"),
     (kernels.POSE_COEFFS, "badslam_torch/csrc/pose_coeffs.cu",
      "none (the plain chain of badslam_torch/ba/pose_opt.py surfel_pose_coeffs_plain)"),
+    (kernels.TRACK_COEFFS, "badslam_torch/csrc/track_coeffs.cu",
+     "none (the plain chain of badslam_torch/tracking/pairwise.py "
+     "accumulate_pose_coeffs_plain)"),
 )
 
 

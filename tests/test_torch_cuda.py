@@ -1,7 +1,7 @@
 """badslam_torch on the card: the CUDA kernels (K1 bilateral filter, K2
-image gather, K3 one-hot gather, H2 BA's pose accumulation) against their
-plain PyTorch versions, and the CUDA path against the CPU path of the same
-modules.
+image gather, K3 one-hot gather, H1 the tracker's Gauss-Newton step, H2
+BA's pose accumulation) against their plain PyTorch versions, and the
+CUDA path against the CPU path of the same modules.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on a GPU machine without JAX it runs on its own:
@@ -22,6 +22,16 @@ Tolerances:
   * bundle adjustment on CUDA vs CPU: keyframe poses atol 1e-4, the same
     number of iterations, surfel counts within 1% (creation and deletion
     are threshold tests on float values).
+  * H1 (the tracker's Gauss-Newton step) vs its plain chain on the card,
+    at 640x480, 739x458 and their coarsest levels 40x30 and 46x28, for
+    depth and descriptor, depth, descriptor and gradient-magnitude
+    residuals: H and b within 1e-5 of each one's largest entry, counts
+    exact, the cost within 1e-5 relative (float32 both; the per-pixel
+    terms are the same operations, the sums run in another order), two
+    launches bit for bit; one whole step's q and t within 1e-6 and the same
+    convergence flag, in place the same bits; the duel's pick equal; the
+    coarse-to-fine tracker at 640x480 the same iterations per scale and
+    poses within 1e-5.
   * H2 (BA's pose accumulation) vs its plain version on the card, 640x480
     planes, 131,072 surfel rows 10% live: H and b rtol 1e-5 with atol 1e-5
     x the keyframe's largest entry (float32 both; the per-surfel terms are
@@ -84,6 +94,7 @@ from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import kernels
 from badslam_torch.ops.preprocess import bilateral_filter_and_cutoff, preprocess_frame
 from badslam_torch.ops.pyramid import build_pyramid
+from badslam_torch.tracking import pairwise
 from badslam_torch.tracking.pairwise import track_frame_pairwise
 
 
@@ -448,6 +459,148 @@ def test_optimize_keyframe_poses_kernel_matches_plain(cuda, monkeypatch, max_ite
     torch.testing.assert_close(kernel.t, plain.t, atol=atol, rtol=0)
     assert torch.equal(kernel.moved, plain.moved) and bool(kernel.moved[:6].all())
     assert torch.equal(kernel.q[6:], q[6:]) and torch.equal(kernel.t[6:], t[6:])
+
+
+# H1's cameras: 640x480 and the ETH3D SLAM camera's 739x458, each at its
+# finest level and its coarsest of five (40x30, 46x28); its residual sets
+# (use_depth, use_descriptor, use_gradmag).
+TRACK_CAMERAS = {
+    "640x480": synthetic.default_camera(640, 480),
+    "739x458": PinholeCamera(fx=726.3, fy=726.3, cx=355.1, cy=187.0, width=739, height=458),
+}
+TRACK_LEVELS = [pytest.param("640x480", 0, id="640x480"), pytest.param("640x480", 4, id="40x30"),
+                pytest.param("739x458", 0, id="739x458"), pytest.param("739x458", 4, id="46x28")]
+TRACK_RESIDUALS = {"depth+descriptor": (True, True, False), "depth": (True, False, False),
+                   "descriptor": (False, True, False), "gradmag": (True, False, True)}
+
+
+def _track_case(device, camera, level, residuals):
+    """The rendered pair's level on `device` with an estimate off the true
+    motion, as a Gauss-Newton step starts from: the arguments of
+    pairwise.accumulate_pose_coeffs."""
+    use_depth, use_descriptor, use_gradmag = TRACK_RESIDUALS[residuals]
+    cams, base, tracked, (q, t) = synthetic.tracking_pair(
+        TRACK_CAMERAS[camera], 3, device, gradmag=use_gradmag)
+    q = q + torch.tensor([0.0, 0.001, -0.0015, 0.0005], device=device)
+    q = q / torch.linalg.vector_norm(q)
+    t = t + torch.tensor([0.004, 0.003, -0.005], device=device)
+    return (cams[level], base[level], tracked[level], q, t, float(2 ** level), 40.0,
+            use_depth, use_descriptor, use_gradmag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", list(TRACK_RESIDUALS))
+@pytest.mark.parametrize("camera, level", TRACK_LEVELS)
+def test_track_coeffs_kernel_matches_plain(cuda, camera, level, residuals):
+    """H1's coefficient and cost modes against the plain chain on the card:
+    counts exact, H and b within 1e-5 of each one's largest entry, the cost
+    within 1e-5 relative (float32 both; the per-pixel terms are the same
+    operations, the sums run in another order), the same bits on every
+    launch, one launch counted per call."""
+    args = _track_case(cuda, camera, level, residuals)
+    before = kernels.launch_counts[kernels.TRACK_COEFFS]
+    H, b, count = pairwise.accumulate_pose_coeffs(*args)
+    cost, n = pairwise.compute_cost_and_count(*args)
+    assert kernels.launch_counts[kernels.TRACK_COEFFS] == before + 2
+    H_p, b_p, count_p = pairwise.accumulate_pose_coeffs_plain(*args)
+    cost_p, n_p = pairwise.compute_cost_and_count_plain(*args)
+    assert torch.equal(count, count_p) and int(count) > (200 if level else 20_000)
+    assert torch.equal(n, n_p) and int(n) > 0
+    for got, want in ((H, H_p), (b, b_p)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(H, H.T)
+    assert abs(float(cost) - float(cost_p)) <= 1e-5 * abs(float(cost_p))
+    for x, y in zip((H, b, count, cost, n), (*pairwise.accumulate_pose_coeffs(*args),
+                                             *pairwise.compute_cost_and_count(*args))):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", ["depth+descriptor", "gradmag"])
+@pytest.mark.parametrize("camera, level", TRACK_LEVELS)
+def test_track_step_kernel_matches_plain(cuda, camera, level, residuals):
+    """One whole Gauss-Newton step with H1 (both kernels) against the plain
+    _gn_step: q and t within 1e-6, the same convergence flag; the step in
+    place with the WHILE body's loop state gives the same bits, one
+    iteration and the condition."""
+    cam, base, tracked, q, t, s, bfx, use_depth, use_desc, use_gradmag = _track_case(
+        cuda, camera, level, residuals)
+    step = (cam, base, tracked, q, t, s, 0.5, bfx, use_depth, use_desc, use_gradmag)
+    q_k, t_k, done_k = pairwise._gn_step(*step)
+    q_p, t_p, done_p = pairwise._gn_step_plain(*step)
+    torch.testing.assert_close(q_k, q_p, atol=1e-6, rtol=0)
+    torch.testing.assert_close(t_k, t_p, atol=1e-6, rtol=0)
+    assert bool(done_k) == bool(done_p)
+    assert float((t_k - t).abs().max()) > 1e-4  # the step moved the pose
+    q_i, t_i = q.clone(), t.clone()
+    done = torch.zeros((), dtype=torch.bool, device=cuda)
+    i = torch.zeros((), dtype=torch.int64, device=cuda)
+    flag = torch.ones((), dtype=torch.bool, device=cuda)
+    kernels.track_step_cuda(cam, base, tracked, q_i, t_i, s, 0.5, pairwise._converge_below(s),
+                            bfx, use_depth, use_desc, use_gradmag, q_i, t_i, done,
+                            iterations=i, flag=flag, bound=2)
+    assert torch.equal(q_i, q_k) and torch.equal(t_i, t_k) and torch.equal(done, done_k)
+    assert int(i) == 1 and bool(flag) == (not bool(done_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera, level", TRACK_LEVELS)
+def test_track_duel_kernel_picks_as_plain(cuda, camera, level):
+    """The duel over two poses in one H1 launch picks the pose the plain
+    _duel picks, for pairs that differ by a little, by much, and in count."""
+    cam, base, tracked, q, t, s, bfx, *flags = _track_case(
+        cuda, camera, level, "depth+descriptor")
+    true_q, true_t = synthetic.tracking_pair(TRACK_CAMERAS[camera], 3, cuda)[3]
+    near = (q, t)
+    truth = (true_q, true_t)
+    far = (true_q, true_t + torch.tensor([0.2, -0.1, 0.05], device=cuda))
+    for a, b in ((truth, near), (near, truth), (truth, far), (far, near), (near, near)):
+        before = kernels.launch_counts[kernels.TRACK_COEFFS]
+        got = pairwise._duel(cam, base, tracked, *a, *b, s, bfx, *flags)
+        assert kernels.launch_counts[kernels.TRACK_COEFFS] == before + 1
+        want = pairwise._duel_plain(cam, base, tracked, *a, *b, s, bfx, *flags)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_track_loop_kernel_matches_plain(cuda, monkeypatch):
+    """The coarse-to-fine tracker at 640x480 (five scales, duels, the host
+    loop) with H1 and with the plain chains on the card: the same
+    Gauss-Newton iterations per scale and poses within 1e-5."""
+    cams, base, tracked, (q, t) = synthetic.tracking_pair(TRACK_CAMERAS["640x480"], 3, cuda)
+    start = (q, t + torch.tensor([0.01, -0.01, 0.005], device=cuda))
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(pairwise, "_gn_step", pairwise._gn_step_plain)
+            monkeypatch.setattr(pairwise, "_duel", pairwise._duel_plain)
+            monkeypatch.setattr(pairwise, "compute_cost_and_count",
+                                pairwise.compute_cost_and_count_plain)
+        runs[name] = pairwise.track_frame_pairwise(cams, base, tracked, *start, *start)
+    k, p = runs["kernel"], runs["plain"]
+    assert k.iterations == p.iterations and sum(k.iterations) > 5
+    torch.testing.assert_close(k.q, p.q, atol=1e-5, rtol=0)
+    torch.testing.assert_close(k.t, p.t, atol=1e-5, rtol=0)
+    assert int(k.residual_count) == int(p.residual_count)
+    assert float((k.t - t).abs().max()) < 1e-3  # it tracked
+
+
+@pytest.mark.cuda
+def test_track_kernel_rejects_what_it_does_not_take(cuda):
+    cam, base, tracked, q, t, s, bfx, *flags = _track_case(cuda, "640x480", 4, "depth")
+    wrong_inputs = [
+        (base._replace(nx=base.nx.t().contiguous().t()), tracked, q, t),  # not contiguous
+        (base, tracked._replace(depth=tracked.depth.cpu()), q, t),        # another device
+        (base, tracked._replace(intensity=tracked.intensity[:, :-1].contiguous()), q, t),
+        (base, tracked, q.double(), t),
+        (base, tracked, q, t[:2]),
+    ]
+    for b_, tr, q_, t_ in wrong_inputs:
+        with pytest.raises(ValueError):
+            kernels.track_coeffs_cuda(cam, b_, tr, q_, t_, s, bfx, *flags)
+    with pytest.raises(ValueError):
+        kernels.track_step_cuda(cam, base, tracked, q, t, s, 1.0, 1e-8, bfx, *flags, q, t,
+                                torch.zeros((), dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.cuda
@@ -956,8 +1109,8 @@ def test_steady_graph_replay_matches_eager_call(cuda, tmp_path, camera, frames):
     graphs (chunks of 5 frames and the keyframe frames, parallel BA),
     against the eager call of the same function with the host-read loop:
     equal poses, equal Gauss-Newton iterations and exact launch counts (K1
-    once per frame, K2 as often as the eager run); the preprocessing stamp
-    runs once per replay."""
+    once per frame, K2 and H1 as often as the eager run); the preprocessing
+    stamp runs once per replay."""
     from badslam_torch.utils.timing import Timing
 
     path = _steady_sequence(tmp_path, frames, camera)
@@ -979,6 +1132,7 @@ def test_steady_graph_replay_matches_eager_call(cuda, tmp_path, camera, frames):
     torch.testing.assert_close(g.traj_t, e.traj_t, atol=1e-6, rtol=0)
     assert lg[kernels.BILATERAL] == le[kernels.BILATERAL] == frames
     assert lg[kernels.GATHER] == le[kernels.GATHER] > 0
+    assert lg[kernels.TRACK_COEFFS] == le[kernels.TRACK_COEFFS] > 0
     assert g.steady_gn_iterations() == e.steady_gn_iterations() > 0
     caps = g.steady_graph.captures
     assert [c["test_two"] for c in caps] == [False, True]
@@ -1262,8 +1416,9 @@ def _closure_attempt(slam, saved, accept, sync_check=False):
 def test_closure_graph_replay_equals_the_eager_call(cuda, tmp_path, accept):
     """A closure attempt as a replay of its captured graph against the eager
     call of the same function with the host loop, on one state: poses and
-    trajectory max |dq|, |dt| <= 1e-6, the same gates, the same K2
-    launches; a rejected replay leaves every pose bit-identical."""
+    trajectory max |dq|, |dt| <= 1e-6, the same gates, the same H1 and K2
+    launches (H1 in the refinements); a rejected replay leaves every pose
+    bit-identical."""
     slam, saved = _closure_state(cuda, tmp_path)
     graph, out = slam.closure_graph, {}
     for name in ("replay", "eager"):
@@ -1273,11 +1428,12 @@ def test_closure_graph_replay_equals_the_eager_call(cuda, tmp_path, accept):
         before, after = _closure_attempt(slam, saved, accept)
         kernels.flush_launch_counts()
         out[name] = (after, slam.closure_attempts[-1], slam.loop_closure_count,
-                     kernels.launch_counts[kernels.GATHER])
+                     (kernels.launch_counts[kernels.TRACK_COEFFS],
+                      kernels.launch_counts[kernels.GATHER]))
     (g, ga, gn, gk), (e, ea, en, ek) = out["replay"], out["eager"]
     assert graph.replays == 1 and len(graph.captures) == 1
     assert graph.captures[0]["while_nodes"] == 2 * 3
-    assert ga == ea and gn == en == int(accept) and gk == ek > 0
+    assert ga == ea and gn == en == int(accept) and gk == ek and gk[0] > 0
     for a, b in zip(g, e):
         assert float((a - b).abs().max()) <= 1e-6
     if not accept:

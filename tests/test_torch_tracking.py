@@ -12,6 +12,12 @@ Tolerances:
   * counts: exact; cost: rtol 1e-4, a float32 sum like H.
   * tracked pose: atol 1e-4 on q and t; Gauss-Newton converges to the same
     minimum from the same start, and the sums' rounding moves it by less.
+
+On a CUDA tensor the tracker's step, cost and duel are H1
+(csrc/track_coeffs.cu; tests/test_torch_cuda.py holds it to the plain
+chain on the card). Here: CPU tensors take the plain chain, bit for bit and
+with no kernel loaded or counted, and H1's launchers refuse what they do
+not take before they load the library.
 """
 
 import jax.numpy as jnp
@@ -24,7 +30,10 @@ from badslam_tpu.geometry import se3 as jse3
 from badslam_tpu.geometry.camera import PinholeCamera
 from badslam_tpu.ops.pyramid import build_pyramid
 from badslam_tpu.tracking import pairwise as jpw
+from badslam_torch import synthetic as tsyn
 from badslam_torch.convert import camera_from_numpy, pose_from_numpy, pyramid_from_numpy
+from badslam_torch.ops import kernels
+from badslam_torch.ops.conditional import HOST, loop
 from badslam_torch.tracking import pairwise as tpw
 
 torch.set_num_threads(1)
@@ -148,3 +157,83 @@ def test_tracking_empty_frames_returns_initial():
     np.testing.assert_allclose(res.t.numpy(), np.asarray(init.t))
     assert torch.all(torch.isfinite(res.q))
     assert int(res.residual_count) == 0
+
+
+def _port_pair(gradmag=False):
+    """A rendered 64x48 pair on the CPU (badslam_torch.synthetic) and an
+    estimate off its motion: the arguments of accumulate_pose_coeffs at
+    level 1."""
+    cams, base, tracked, (q, t) = tsyn.tracking_pair(
+        tsyn.default_camera(64, 48), 5, "cpu", num_scales=3, gradmag=gradmag)
+    q = q + torch.tensor([0.0, 0.001, -0.0015, 0.0005])
+    q = q / torch.linalg.vector_norm(q)
+    t = t + torch.tensor([0.004, 0.003, -0.005])
+    return (cams[1], base[1], tracked[1], q, t, 2.0, 40.0, True, not gradmag, gradmag)
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Fails any test that loads a kernel library."""
+    def refuse(source):
+        raise AssertionError(f"{source} was loaded")
+    monkeypatch.setattr(kernels, "_library", refuse)
+
+
+@pytest.mark.parametrize("gradmag", [False, True], ids=["depth+descriptor", "gradmag"])
+def test_cpu_tensors_take_the_plain_chain(no_library, gradmag):
+    """On CPU tensors the dispatching entry points are the plain chains, bit
+    for bit, and count no H1 launch."""
+    args = _port_pair(gradmag)
+    cam, base, tracked, q, t, s, bfx, *flags = args
+    before = dict(kernels.launch_counts)
+    for got, want in (
+            (tpw.accumulate_pose_coeffs(*args), tpw.accumulate_pose_coeffs_plain(*args)),
+            (tpw.compute_cost_and_count(*args), tpw.compute_cost_and_count_plain(*args)),
+            (tpw._gn_step(cam, base, tracked, q, t, s, 0.5, bfx, *flags),
+             tpw._gn_step_plain(cam, base, tracked, q, t, s, 0.5, bfx, *flags)),
+            (tpw._duel(cam, base, tracked, q, t, q, t + 0.01, s, bfx, *flags),
+             tpw._duel_plain(cam, base, tracked, q, t, q, t + 0.01, s, bfx, *flags))):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert int(tpw.accumulate_pose_coeffs(*args)[2]) > 100
+    assert kernels.launch_counts == before
+
+
+def _bad_inputs(case):
+    """H1 launcher arguments with one fault each (CPU tensors everywhere)."""
+    cam, base, tracked, q, t, s, bfx, *flags = _port_pair()
+    if case == "float64 plane":
+        base = base._replace(ny=base.ny.double())
+    elif case == "plane shapes differ":
+        tracked = tracked._replace(depth=tracked.depth[:-1])
+    elif case == "quaternion of 3":
+        q = q[:3]
+    elif case == "batched planes":
+        base = base._replace(depth=base.depth[None])
+    return cam, base, tracked, q, t, s, bfx, flags
+
+
+@pytest.mark.parametrize("case", ["cpu tensors", "float64 plane", "plane shapes differ",
+                                  "quaternion of 3", "batched planes"])
+def test_track_launchers_refuse_before_loading(no_library, case):
+    """Each H1 launcher raises ValueError on CPU tensors, another dtype, planes
+    of two shapes or a pose of the wrong size, before it loads the
+    library (as gather_cuda does)."""
+    cam, base, tracked, q, t, s, bfx, flags = _bad_inputs(case)
+    match = {"cpu tensors": "CUDA", "batched planes": r"\[H, W\]"}.get(case, "float32")
+    with pytest.raises(ValueError, match=match):
+        kernels.track_coeffs_cuda(cam, base, tracked, q, t, s, bfx, *flags)
+    with pytest.raises(ValueError, match=match):
+        kernels.track_cost_cuda(cam, base, tracked, [(q, t), (q, t)], s, bfx, *flags)
+    with pytest.raises(ValueError, match=match):
+        kernels.track_step_cuda(cam, base, tracked, q, t, s, 1.0, 1e-8, bfx, *flags, q, t,
+                                torch.zeros((), dtype=torch.bool))
+
+
+def test_loop_refuses_step_in_place_with_a_limit():
+    """The tracker's in-place WHILE body takes the host bound `most`: the
+    shared loop refuses it beside a device `limit` rather than run the
+    generic body in its stead."""
+    state = (torch.zeros(()),)
+    with pytest.raises(ValueError, match="step_in_place"):
+        loop(HOST, state, lambda s: s[0] < 1, lambda s: (s[0] + 1,), most=3,
+             limit=torch.tensor(2), step_in_place=lambda *a: None)
