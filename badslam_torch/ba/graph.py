@@ -45,20 +45,13 @@ the replay; with every shard on one card the blocks are views of the
 store, so nothing is copied. A mesh over several cards is not captured
 (``run`` raises): the front end runs such a call eagerly.
 
-Captured on a side stream with ``capture_error_mode="thread_local"``. A
-capture or instantiation failure raises; nothing falls back to the eager
-call (``BadSlam.ba_graph = None`` asks for the eager call).
-
-Counts: the K2 launches of one replay outside the WHILE bodies are added
-on the host per replay, and those of each body per run of it from a
-device counter (``kernels.count_on_device``), so ``kernels.launch_counts``
-stay exact with no read per call, per shard tag too (``launch_tags``: the
-tag of a launch is recorded at the capture). Each replay's iteration count is copied
-on the card and read with ``DirectBA.iterations_run`` (a report).
-``captures`` holds one record per capture: its key's kind and buckets,
-capture and instantiate seconds, node counts (all; kernel nodes; kernel
-nodes outside the bodies and per body), WHILE nodes, the memory its pools
-reserved, its replays and why it was captured (``capture_reason``).
+Captured and replayed as ``ops.conditional.GraphOwner`` does it (a
+capture failure raises; ``BadSlam.ba_graph = None`` asks for the eager
+call), with the launches' shard tags (``kernels.launch_tags``) recorded at
+the capture. Each replay's iteration count is copied on the card and read
+with ``DirectBA.iterations_run`` (a report). A record of ``captures`` also
+holds its key's kind and buckets and why it was captured
+(``capture_reason``).
 
 Timers (``utils.timing``): each replay is stamped on the card from its
 first node to its last ("BA call [graph]", with a ring entry), each WHILE
@@ -72,19 +65,14 @@ the surfel bucket, its rows and live surfels ("BA surfel rows [graph]",
 
 from __future__ import annotations
 
-import time
-from collections import Counter
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from badslam_torch.ba.scheme import DirectBA, FusedCall
 from badslam_torch.mapping import surfels as sf
 from badslam_torch.mapping.keyframes import KEYFRAME_BATCH
-from badslam_torch.ops import kernels
-from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
-from badslam_torch.utils.timing import Timing, stamped
+from badslam_torch.ops.conditional import GraphOwner
 
 
 def _bodies(keyframes: int, shards: int) -> int:
@@ -131,36 +119,19 @@ def capture_reason(key: BAKey, replaced: Optional[BAKey]) -> str:
     return "+".join(parts) or "same key"
 
 
-class _Captured(NamedTuple):
-    graph: torch.cuda.CUDAGraph
-    nodes: WhileNodes          # keeps the bodies' memory pool alive
-    iterations: torch.Tensor   # the replay's iteration count (graph memory)
-    launches: Counter          # kernel launches of one replay outside the bodies
-    record: dict               # its entry of BAGraph.captures
-
-
-class BAGraph:
+class BAGraph(GraphOwner):
     """The fused BA calls of one DirectBA on a CUDA device as CUDA graphs
     (module docstring)."""
 
     def __init__(self, device: torch.device):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError(f"BAGraph runs on a CUDA device, not {device}")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
-        self._graphs: Dict[BAKey, _Captured] = {}
+        super().__init__(device)
 
         def scalar():
-            return torch.zeros((), dtype=torch.int64, device=device)
+            return torch.zeros((), dtype=torch.int64, device=self.device)
 
         self.limit, self.ba_iter, self.min_obs = scalar(), scalar(), scalar()
         # Per keyframe bucket size: (slot list, device tensor).
         self._sel: Dict[int, tuple] = {}
-        self.captures: List[dict] = []
-        self.replays = 0
-        Timing.stamp_table(device)
 
     def _slots(self, sel: List[int]) -> torch.Tensor:
         """The static slot list of a bucket of len(sel) slots, holding sel
@@ -214,77 +185,21 @@ class BAGraph:
                            key.storage, key.cam, key.mesh)]
             for old in evicted:
                 del self._graphs[old]
-            reason = capture_reason(key, (evicted or held or [None])[-1])
-            captured = self._graphs[key] = self._capture(ba, sel_t, bucket, call, key,
-                                                         reason)
-        kernels.add_launches(captured.launches)
-        captured.graph.replay()
-        captured.record["replays"] += 1
-        self.replays += 1
-        return captured.iterations.clone()
+            shards = 1 if ba.mesh is None else ba.mesh.size
+            # Library state made before the capture: the cuBLAS handle and the
+            # workspaces of the capture's streams (one small product each).
+            ones = torch.ones((2, 2), device=self.device)
 
-    def _capture(self, ba: DirectBA, sel_t, bucket: int, call: FusedCall,
-                 key: BAKey, reason: str) -> _Captured:
-        device = self.device
-        current = torch.cuda.current_stream(device)
-        stream = torch.cuda.Stream(device)
-        nodes = WhileNodes(device, depth=2)
-        # Library state made before the capture: the cuBLAS handle and the
-        # workspaces of the capture's streams (one small product each).
-        ones = torch.ones((2, 2), device=device)
-        for s in (stream, *nodes.streams):
-            s.wait_stream(current)
-            with torch.cuda.stream(s):
-                ones @ ones
-            current.wait_stream(s)
-        units = torch.zeros(_bodies(key.keyframe_bucket,
-                                    1 if ba.mesh is None else ba.mesh.size),
-                            dtype=torch.int64, device=device)
-        control = DeviceControl(nodes, units, scope="BA call")
-        launches: Counter = Counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        reserved = torch.cuda.memory_reserved(device)
-        stream.wait_stream(current)
-        t0 = time.perf_counter()
-        try:
-            with record_function("capture/ba_graph"), torch.cuda.stream(stream), \
-                    kernels.count_into(launches):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    with stamped("BA call", device, ring=True):
-                        iterations = ba._fused_program(
-                            sf.prefix(ba.surfels, bucket), sel_t, self.limit,
-                            self.ba_iter, self.min_obs, call, control)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
-            t1 = time.perf_counter()
-            graph.instantiate()
-        except Exception as e:
-            raise RuntimeError(f"badslam_torch: capturing the BA call as a CUDA graph "
-                               f"failed: {type(e).__name__}: {e}") from e
-        t2 = time.perf_counter()
-        current.wait_stream(stream)
-        top, top_kernels = node_counts(graph.raw_cuda_graph())
-        bodies = [node_counts(b) for b in control.body_graphs]
-        body_kernels: Dict[str, List[int]] = {}
-        for name, (_, k) in zip(control.body_names, bodies):
-            body_kernels.setdefault(name, []).append(k)
-        record = dict(
-            reason=reason, end_first=call.end_first, end_last=call.end_last,
-            shards=1 if ba.mesh is None else ba.mesh.size, streamed=ba._streaming,
-            keyframe_bucket=key.keyframe_bucket, surfel_bucket=bucket,
-            capture_s=t1 - t0, instantiate_s=t2 - t1,
-            nodes=top + sum(b[0] for b in bodies),
-            kernel_nodes=top_kernels + sum(b[1] for b in bodies),
-            top_kernel_nodes=top_kernels, body_kernel_nodes=body_kernels,
-            while_nodes=nodes.count,
-            reserved_mib=(torch.cuda.memory_reserved(device) - reserved) / 2**20,
-            replays=0)
-        kernels.count_on_device(graph, units, control.body_launches)
-        self.captures.append(record)
-        return _Captured(graph, nodes, iterations, launches, record)
+            def work(control):
+                return ba._fused_program(sf.prefix(ba.surfels, bucket), sel_t, self.limit,
+                                         self.ba_iter, self.min_obs, call, control)
+
+            captured = self._graphs[key] = self._capture(
+                "BA call", "ba_graph", _bodies(key.keyframe_bucket, shards), work, depth=2,
+                warm_up=lambda: ones @ ones,
+                reason=capture_reason(key, (evicted or held or [None])[-1]),
+                end_first=call.end_first, end_last=call.end_last, shards=shards,
+                streamed=ba._streaming, keyframe_bucket=key.keyframe_bucket,
+                surfel_bucket=bucket)
+        self._replay(captured)
+        return captured.outputs.clone()

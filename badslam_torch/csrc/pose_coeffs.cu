@@ -48,18 +48,18 @@
 // TF32, no lower precision). Nothing is allocated or synchronized, so the
 // launches capture into CUDA graphs (the BA graph's WHILE bodies). Each
 // launcher returns cudaGetLastError() for the caller to check.
+// The code H1 and H2 share (per-sample arithmetic, the block and partial
+// reductions) is in gn_sums.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gn_sums.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiles = 512;
-constexpr int kHSums = 21;            // H's upper triangle, row by row
-constexpr int kSums = kHSums + 6 + 1; // then b, then the count
 constexpr int kConstants = 15;
 
 // Host-side scalars, in the order of kernels.pose_coeffs_cuda's table:
@@ -95,32 +95,12 @@ struct Inputs {
 
 // ---- The per-row arithmetic (each line the plain version's operations).
 
-// torch.clamp_min / torch.clamp: NaN passes through.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return v < lo ? lo : v;
-}
-
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ long long clamp_index(long long v, long long hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
-
 // rotate3: ((r0 x + r1 y) + r2 z) per output component.
 __device__ __forceinline__ void rotate(const float* r, float x, float y, float z,
                                        float* out) {
   out[0] = r[0] * x + r[1] * y + r[2] * z;
   out[1] = r[3] * x + r[4] * y + r[5] * z;
   out[2] = r[6] * x + r[7] * y + r[8] * z;
-}
-
-// torch.linalg.cross(a, b).
-__device__ __forceinline__ void cross(const float* a, const float* b, float* out) {
-  out[0] = a[1] * b[2] - a[2] * b[1];
-  out[1] = a[2] * b[0] - a[0] * b[2];
-  out[2] = a[0] * b[1] - a[1] * b[0];
 }
 
 // tangent_projections: a tangent vector scaled to twice the surfel radius.
@@ -131,85 +111,6 @@ __device__ __forceinline__ void scale_tangent(float* t, float radius2) {
   t[0] = t[0] * s;
   t[1] = t[1] * s;
   t[2] = t[2] * s;
-}
-
-struct Sample {
-  float value, dx, dy;
-};
-
-// interp.bilinear_and_gradient at corner-convention (x, y): quad_texels'
-// indices (floor, then a saturating conversion to int64, then the clamp to
-// the image, as the card's plain version) and gather_quad's four reads.
-__device__ __forceinline__ Sample bilinear_and_gradient(const float* img, int height,
-                                                        int width, float x, float y) {
-  const float fx = clamp_min(x - 0.5f, 0.0f);
-  const float fy = clamp_min(y - 0.5f, 0.0f);
-  const float ixf = floorf(fx);
-  const float iyf = floorf(fy);
-  const float tx = clamp(fx - ixf, 0.0f, 1.0f);
-  const float ty = clamp(fy - iyf, 0.0f, 1.0f);
-  const long long ix = static_cast<long long>(ixf);
-  const long long iy = static_cast<long long>(iyf);
-  // ix + 1 in int64 as a tensor adds it: wrapping, never undefined.
-  const long long ix1 = static_cast<long long>(static_cast<unsigned long long>(ix) + 1ull);
-  const long long iy1 = static_cast<long long>(static_cast<unsigned long long>(iy) + 1ull);
-  const long long x0 = clamp_index(ix, width - 1), x1 = clamp_index(ix1, width - 1);
-  const long long y0 = clamp_index(iy, height - 1), y1 = clamp_index(iy1, height - 1);
-  const float tl = __ldg(img + y0 * width + x0);
-  const float tr = __ldg(img + y0 * width + x1);
-  const float bl = __ldg(img + y1 * width + x0);
-  const float br = __ldg(img + y1 * width + x1);
-  const float top = tl + tx * (tr - tl);
-  const float bottom = bl + tx * (br - bl);
-  Sample s;
-  s.value = top + ty * (bottom - top);
-  s.dx = (br - bl) * ty + (tr - tl) * (1.0f - ty);
-  s.dy = (br - tr) * tx + (bl - tl) * (1.0f - tx);
-  return s;
-}
-
-// Adds one Jacobian-residual row with its weight: H += (J w) J^T (upper
-// triangle), b += (J w) r.
-__device__ __forceinline__ void accumulate(float* acc, const float* jac, float r,
-                                           float w) {
-  int k = 0;
-#pragma unroll
-  for (int a = 0; a < 6; ++a) {
-    const float wa = jac[a] * w;
-#pragma unroll
-    for (int b = a; b < 6; ++b) {
-      acc[k] = __fmaf_rn(wa, jac[b], acc[k]);
-      ++k;
-    }
-    acc[kHSums + a] = __fmaf_rn(wa, r, acc[kHSums + a]);
-  }
-}
-
-// The descriptor term's Jacobian for one tangent sample's gradient.
-__device__ __forceinline__ void descriptor_jacobian(const Constants& k, const Sample& t,
-                                                    const Sample& center, float lx,
-                                                    float ly, float lz, float inv_z,
-                                                    float* jac) {
-  const float inv_z_sq = inv_z * inv_z;
-  const float z_sq = lz * lz;
-  const float xy = lx * ly;
-  const float gx = ((t.dx - center.dx) * 180.0f) * k.fx;
-  const float gy = ((t.dy - center.dy) * 180.0f) * k.fy;
-  jac[0] = -gx * inv_z;
-  jac[1] = -gy * inv_z;
-  jac[2] = (lx * gx + ly * gy) * inv_z_sq;
-  jac[3] = ((ly * ly + z_sq) * gy + xy * gx) * inv_z_sq;
-  jac[4] = -((lx * lx + z_sq) * gx + xy * gy) * inv_z_sq;
-  jac[5] = -(lx * gy - ly * gx) * inv_z;
-}
-
-// robust.descriptor_residual_weight: the Huber weight, param / |r| taken as
-// reciprocal(|r|) * param (Python's scalar / tensor).
-__device__ __forceinline__ float descriptor_weight(const Constants& k, float r) {
-  const float abs_r = fabsf(r);
-  const float huber =
-      abs_r < k.huber_param ? 1.0f : (1.0f / clamp_min(abs_r, 1e-30f)) * k.huber_param;
-  return huber * k.descriptor_weight;
 }
 
 // One surfel row against one keyframe: adds its terms to acc and returns
@@ -299,10 +200,12 @@ __device__ __forceinline__ bool accumulate_row(const Inputs& in, const Constants
       const float r2d = (s2.value - c.value) * 180.0f - __ldg(in.desc + 2 * i + 1);
       const float inv_z = 1.0f / lz;
       float jac[6];
-      descriptor_jacobian(k, s1, c, lx, ly, lz, inv_z, jac);
-      accumulate(acc, jac, r1, descriptor_weight(k, r1));
-      descriptor_jacobian(k, s2, c, lx, ly, lz, inv_z, jac);
-      accumulate(acc, jac, r2d, descriptor_weight(k, r2d));
+      photometric_jacobian(((s1.dx - c.dx) * 180.0f) * k.fx, ((s1.dy - c.dy) * 180.0f) * k.fy,
+                           lx, ly, lz, inv_z, jac);
+      accumulate(acc, jac, r1, huber_weight(r1, k.huber_param, k.descriptor_weight));
+      photometric_jacobian(((s2.dx - c.dx) * 180.0f) * k.fx, ((s2.dy - c.dy) * 180.0f) * k.fy,
+                           lx, ly, lz, inv_z, jac);
+      accumulate(acc, jac, r2d, huber_weight(r2d, k.huber_param, k.descriptor_weight));
     }
   }
   return true;
@@ -337,64 +240,16 @@ __global__ void __launch_bounds__(kThreads)
     count += accumulate_row<kDepth, kDescriptor>(in, k, rot, trans, plane, i, acc);
   }
 
-  __shared__ float warp_sums[kWarps][kSums];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < kSums - 1; ++j) {
-    float v = acc[j];
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) warp_sums[warp][j] = v;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) count += __shfl_down_sync(0xffffffffu, count, o);
-  if (lane == 0) warp_sums[warp][kSums - 1] = __uint_as_float(count);
-  __syncthreads();
-  if (threadIdx.x < kSums - 1) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
-    out[threadIdx.x] = s;
-  } else if (threadIdx.x == kSums - 1) {
-    unsigned int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += __float_as_uint(warp_sums[w][kSums - 1]);
-    out[threadIdx.x] = __uint_as_float(s);
-  }
+  reduce_block<kSums>(acc, count, out);
 }
 
-// The (row, column) of each of H's upper-triangle sums.
-__constant__ unsigned char kPairs[kHSums][2] = {
-    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 1}, {1, 2}, {1, 3}, {1, 4}, {1, 5},
-    {2, 2}, {2, 3}, {2, 4}, {2, 5}, {3, 3}, {3, 4}, {3, 5}, {4, 4}, {4, 5}, {5, 5}};
-
-// One block per keyframe, one warp per sum: lane l adds the partials of
-// tiles l, l + 32, ..., then the warp's shuffle tree; a fixed order.
+// One block per keyframe: its H [6, 6], b [6] and count from its partials.
 __global__ void pose_coeffs_finish(const float* __restrict__ partial, int tiles,
                                    float* __restrict__ h, float* __restrict__ b,
                                    long long* __restrict__ count) {
-  const int c = blockIdx.x, j = threadIdx.y, lane = threadIdx.x;
-  const float* base = partial + static_cast<long long>(c) * tiles * kSums + j;
-  if (j < kSums - 1) {
-    float s = 0.0f;
-    for (int t = lane; t < tiles; t += 32) s += base[static_cast<long long>(t) * kSums];
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane != 0) return;
-    if (j < kHSums) {
-      const int r = kPairs[j][0], col = kPairs[j][1];
-      h[36 * c + 6 * r + col] = s;
-      h[36 * c + 6 * col + r] = s;
-    } else {
-      b[6 * c + j - kHSums] = s;
-    }
-  } else {
-    long long s = 0;
-    for (int t = lane; t < tiles; t += 32) {
-      s += __float_as_uint(base[static_cast<long long>(t) * kSums]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) count[c] = s;
-  }
+  const int c = blockIdx.x;
+  finish_coeffs(partial + static_cast<long long>(c) * tiles * kSums, tiles, h + 36 * c,
+                b + 6 * c, count + c);
 }
 
 int tiles_for(long long n) {

@@ -60,18 +60,18 @@
 // or synchronized, so the launches capture into CUDA graphs (the steady
 // frame's and the closure attempt's WHILE bodies). Each launcher returns
 // cudaGetLastError() for the caller to check.
+// The code H1 and H2 share (per-sample arithmetic, the block and partial
+// reductions) is in gn_sums.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gn_sums.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiles = 256;
-constexpr int kHSums = 21;             // H's upper triangle, row by row
-constexpr int kSums = kHSums + 6 + 1;  // then b, then the count
 constexpr int kCostSums = 3;           // depth cost, photometric cost, count
 constexpr int kConstants = 18;
 
@@ -111,24 +111,6 @@ struct Pose {
 };
 
 // ---- The per-pixel arithmetic (each line the plain version's operations).
-
-// torch.clamp_min / torch.clamp: NaN passes through.
-__device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
-
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ long long clamp_index(long long v, long long hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
-
-// torch.linalg.cross(a, b).
-__device__ __forceinline__ void cross(const float* a, const float* b, float* out) {
-  out[0] = a[1] * b[2] - a[2] * b[1];
-  out[1] = a[2] * b[0] - a[0] * b[2];
-  out[2] = a[0] * b[1] - a[1] * b[0];
-}
 
 // se3.quat_rotate: v + 2 qv x (qv x v + qw v).
 __device__ __forceinline__ void quat_rotate(const float* q, const float* v, float* out) {
@@ -192,82 +174,6 @@ __device__ __forceinline__ void rotate(const Pose& p, float x, float y, float z,
   out[0] = p.r[0] * x + p.r[1] * y + p.r[2] * z;
   out[1] = p.r[3] * x + p.r[4] * y + p.r[5] * z;
   out[2] = p.r[6] * x + p.r[7] * y + p.r[8] * z;
-}
-
-struct Sample {
-  float value, dx, dy;
-};
-
-// interp.bilinear_and_gradient at corner-convention (x, y): quad_texels'
-// indices (floor, then a saturating conversion to int64, then the clamp to
-// the image, as the card's plain version) and gather_quad's four reads.
-__device__ __forceinline__ Sample bilinear_and_gradient(const float* __restrict__ img,
-                                                        int height, int width, float x,
-                                                        float y) {
-  const float fx = clamp_min(x - 0.5f, 0.0f);
-  const float fy = clamp_min(y - 0.5f, 0.0f);
-  const float ixf = floorf(fx);
-  const float iyf = floorf(fy);
-  const float tx = clamp(fx - ixf, 0.0f, 1.0f);
-  const float ty = clamp(fy - iyf, 0.0f, 1.0f);
-  const long long ix = static_cast<long long>(ixf);
-  const long long iy = static_cast<long long>(iyf);
-  // ix + 1 in int64 as a tensor adds it: wrapping, never undefined.
-  const long long ix1 = static_cast<long long>(static_cast<unsigned long long>(ix) + 1ull);
-  const long long iy1 = static_cast<long long>(static_cast<unsigned long long>(iy) + 1ull);
-  const long long x0 = clamp_index(ix, width - 1), x1 = clamp_index(ix1, width - 1);
-  const long long y0 = clamp_index(iy, height - 1), y1 = clamp_index(iy1, height - 1);
-  const float tl = __ldg(img + y0 * width + x0);
-  const float tr = __ldg(img + y0 * width + x1);
-  const float bl = __ldg(img + y1 * width + x0);
-  const float br = __ldg(img + y1 * width + x1);
-  const float top = tl + tx * (tr - tl);
-  const float bottom = bl + tx * (br - bl);
-  Sample s;
-  s.value = top + ty * (bottom - top);
-  s.dx = (br - bl) * ty + (tr - tl) * (1.0f - ty);
-  s.dy = (br - tr) * tx + (bl - tl) * (1.0f - tx);
-  return s;
-}
-
-// Adds one Jacobian-residual row with its weight: H += (J w) J^T (upper
-// triangle), b += (J w) r.
-__device__ __forceinline__ void accumulate(float* acc, const float* jac, float r, float w) {
-  int k = 0;
-#pragma unroll
-  for (int a = 0; a < 6; ++a) {
-    const float wa = jac[a] * w;
-#pragma unroll
-    for (int b = a; b < 6; ++b) {
-      acc[k] = __fmaf_rn(wa, jac[b], acc[k]);
-      ++k;
-    }
-    acc[kHSums + a] = __fmaf_rn(wa, r, acc[kHSums + a]);
-  }
-}
-
-// The photometric Jacobian of an image gradient (gx, gy) at the tracked
-// point (desc_jac of _image_residuals, and the gradient-magnitude one).
-__device__ __forceinline__ void photometric_jacobian(float gx, float gy, float lx, float ly,
-                                                     float lz, float inv_z, float* jac) {
-  const float inv_z_sq = inv_z * inv_z;
-  const float z_sq = lz * lz;
-  const float xy = lx * ly;
-  jac[0] = -gx * inv_z;
-  jac[1] = -gy * inv_z;
-  jac[2] = (lx * gx + ly * gy) * inv_z_sq;
-  jac[3] = ((ly * ly + z_sq) * gy + xy * gx) * inv_z_sq;
-  jac[4] = -((lx * lx + z_sq) * gx + xy * gy) * inv_z_sq;
-  jac[5] = -(lx * gy - ly * gx) * inv_z;
-}
-
-// robust.descriptor_residual_weight: the Huber weight, param / |r| taken as
-// reciprocal(|r|) * param (Python's scalar / tensor).
-__device__ __forceinline__ float descriptor_weight(const Constants& k, float r) {
-  const float abs_r = fabsf(r);
-  const float huber =
-      abs_r < k.huber_param ? 1.0f : (1.0f / clamp_min(abs_r, 1e-30f)) * k.huber_param;
-  return k.descriptor_weight * huber;
 }
 
 // robust.weighted_descriptor_residual: the Huber cost.
@@ -406,10 +312,10 @@ __device__ __forceinline__ bool accumulate_pixel(const Planes& in, const Constan
       float jac[6];
       photometric_jacobian((180.0f * (s1.dx - c.dx)) * k.fx, (180.0f * (s1.dy - c.dy)) * k.fy,
                            lx, ly, lz, inv_z, jac);
-      accumulate(acc, jac, r1, descriptor_weight(k, r1));
+      accumulate(acc, jac, r1, huber_weight(r1, k.huber_param, k.descriptor_weight));
       photometric_jacobian((180.0f * (s2.dx - c.dx)) * k.fx, (180.0f * (s2.dy - c.dy)) * k.fy,
                            lx, ly, lz, inv_z, jac);
-      accumulate(acc, jac, r2, descriptor_weight(k, r2));
+      accumulate(acc, jac, r2, huber_weight(r2, k.huber_param, k.descriptor_weight));
     } else {
       acc[1] += descriptor_cost(k, r1) + descriptor_cost(k, r2);
     }
@@ -423,41 +329,12 @@ __device__ __forceinline__ bool accumulate_pixel(const Planes& in, const Constan
       float jac[6];
       photometric_jacobian((255.0f * g.dx) * k.fx, (255.0f * g.dy) * k.fy, lx, ly, lz,
                            1.0f / lz, jac);
-      accumulate(acc, jac, r, descriptor_weight(k, r));
+      accumulate(acc, jac, r, huber_weight(r, k.huber_param, k.descriptor_weight));
     } else {
       acc[1] += descriptor_cost(k, r);
     }
   }
   return true;
-}
-
-// Reduces each thread's kN - 1 float sums and its count over the block into
-// out[0 .. kN - 1] (the count as the bits of an unsigned int).
-template <int kN>
-__device__ __forceinline__ void reduce_block(const float* acc, unsigned int count,
-                                             float* __restrict__ out) {
-  __shared__ float warp_sums[kWarps][kN];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < kN - 1; ++j) {
-    float v = acc[j];
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) warp_sums[warp][j] = v;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) count += __shfl_down_sync(0xffffffffu, count, o);
-  if (lane == 0) warp_sums[warp][kN - 1] = __uint_as_float(count);
-  __syncthreads();
-  if (threadIdx.x < kN - 1) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
-    out[threadIdx.x] = s;
-  } else if (threadIdx.x == kN - 1) {
-    unsigned int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += __float_as_uint(warp_sums[w][kN - 1]);
-    out[threadIdx.x] = __uint_as_float(s);
-  }
 }
 
 // ---- The kernels.
@@ -508,53 +385,11 @@ __global__ void __launch_bounds__(kThreads)
       partial + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * kCostSums);
 }
 
-// Warp threadIdx.y of a one-block kernel sums entry threadIdx.y of the
-// partials [tiles, n] (lane l over tiles l, l + 32, ..., then the shuffle
-// tree: a fixed order) into sums[threadIdx.y]; the last entry is a count.
-__device__ __forceinline__ void reduce_partials(const float* __restrict__ partial, int tiles,
-                                                int n, float* sums,
-                                                unsigned long long* count) {
-  const int j = threadIdx.y, lane = threadIdx.x;
-  if (j < n - 1) {
-    float s = 0.0f;
-    for (int t = lane; t < tiles; t += 32) s += partial[static_cast<long long>(t) * n + j];
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) sums[j] = s;
-  } else {
-    unsigned long long s = 0;
-    for (int t = lane; t < tiles; t += 32) {
-      s += __float_as_uint(partial[static_cast<long long>(t) * n + j]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) *count = s;
-  }
-}
-
-// The (row, column) of each of H's upper-triangle sums.
-__constant__ unsigned char kPairs[kHSums][2] = {
-    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 1}, {1, 2}, {1, 3}, {1, 4}, {1, 5},
-    {2, 2}, {2, 3}, {2, 4}, {2, 5}, {3, 3}, {3, 4}, {3, 5}, {4, 4}, {4, 5}, {5, 5}};
-
 // H, b and the count: symmetric H [6, 6], b [6], count int64.
 __global__ void track_coeffs_finish(const float* __restrict__ partial, int tiles,
                                     float* __restrict__ h, float* __restrict__ b,
                                     long long* __restrict__ count) {
-  __shared__ float sums[kSums];
-  __shared__ unsigned long long n;
-  reduce_partials(partial, tiles, kSums, sums, &n);
-  __syncthreads();
-  const int j = threadIdx.y * 32 + threadIdx.x;
-  if (j < kHSums) {
-    const int r = kPairs[j][0], c = kPairs[j][1];
-    h[6 * r + c] = sums[j];
-    h[6 * c + r] = sums[j];
-  } else if (j < kSums - 1) {
-    b[j - kHSums] = sums[j];
-  } else if (j == kSums - 1) {
-    *count = static_cast<long long>(n);
-  }
+  finish_coeffs(partial, tiles, h, b, count);
 }
 
 // One Gauss-Newton step (pairwise._gn_step_plain) from the summed
@@ -671,7 +506,7 @@ __global__ void track_step_finish(const float* __restrict__ partial, int tiles,
                                   bool* flag, long long bound) {
   __shared__ float sums[kSums];
   __shared__ unsigned long long n;
-  reduce_partials(partial, tiles, kSums, sums, &n);
+  reduce_partials(partial, tiles, kSums, threadIdx.y, sums, &n);
   __syncthreads();
   if (threadIdx.x != 0 || threadIdx.y != 0) return;
   const bool done =
@@ -693,27 +528,10 @@ __global__ void track_cost_finish(const float* __restrict__ partial, int tiles, 
                                   float* q_out, float* t_out) {
   __shared__ float sums[2][kCostSums];
   __shared__ unsigned long long n[2];
+  // Each warp reduces one entry of one pose.
   const int pose = threadIdx.y / kCostSums;
-  {
-    // Each warp reduces one entry of one pose.
-    const int j = threadIdx.y % kCostSums, lane = threadIdx.x;
-    const float* base = partial + static_cast<long long>(pose) * tiles * kCostSums;
-    if (j < kCostSums - 1) {
-      float s = 0.0f;
-      for (int t = lane; t < tiles; t += 32) s += base[static_cast<long long>(t) * kCostSums + j];
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-      if (lane == 0) sums[pose][j] = s;
-    } else {
-      unsigned long long s = 0;
-      for (int t = lane; t < tiles; t += 32) {
-        s += __float_as_uint(base[static_cast<long long>(t) * kCostSums + j]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
-      if (lane == 0) n[pose] = s;
-    }
-  }
+  reduce_partials(partial + static_cast<long long>(pose) * tiles * kCostSums, tiles, kCostSums,
+                  threadIdx.y % kCostSums, sums[pose], &n[pose]);
   __syncthreads();
   if (threadIdx.x != 0 || threadIdx.y != 0) return;
   // cost = 0 + depth cost + photometric cost, as the plain version adds them.

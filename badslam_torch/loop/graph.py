@@ -25,19 +25,12 @@ from a held graph's frees that graph and its pools.
 The pose graph's dense solve is ``torch.linalg.solve_ex`` on cuSOLVER
 (``getrf``/``getrs``), which is selected around the capture: a probe on
 the H100 showed it captures and replays with no sync, where the MAGMA path
-syncs and invalidates the capture. Captured on a side stream with
-``capture_error_mode="thread_local"``. A capture or instantiation failure
-raises; nothing falls back to the eager call (``BadSlam.closure_graph =
-None`` asks for the eager call).
-
-Counts: the K2 launches of a replay outside the WHILE bodies are added on
-the host per replay, and those of each body per run of it from a device
-counter (``kernels.count_on_device``), so ``kernels.launch_counts`` stay
-exact with no read. ``captures`` holds one record per capture: its bucket
-and refinements, capture and instantiate seconds, node counts (all; kernel
-nodes; kernel nodes outside the bodies and per body), WHILE nodes, the
-memory its pools reserved and its replays; ``replay_launches`` the launches
-of each replay (a device read, for reports).
+syncs and invalidates the capture. Captured and replayed as
+``ops.conditional.GraphOwner`` does it (a capture failure raises;
+``BadSlam.closure_graph = None`` asks for the eager call). A record of
+``captures`` also holds its order bucket and refinements;
+``replay_launches`` gives the launches of each replay (a device read, for
+reports).
 
 Timers (``utils.timing``): each replay is stamped on the card from its
 first node to its last ("closure attempt [graph]", with a ring entry) and
@@ -48,49 +41,25 @@ are left out.
 
 from __future__ import annotations
 
-import time
 from collections import Counter
-from typing import Dict, List, NamedTuple
+from typing import List
 
 import torch
-from torch.profiler import record_function
 
 from badslam_torch.loop import closure
 from badslam_torch.loop.closure import ClosureInputs, ClosureKey, ClosureResult
-from badslam_torch.ops import kernels
-from badslam_torch.ops.conditional import DeviceControl, WhileNodes, node_counts
-from badslam_torch.utils.timing import Timing, stamped
+from badslam_torch.ops.conditional import GraphOwner
 
 
-class _Captured(NamedTuple):
-    graph: torch.cuda.CUDAGraph
-    nodes: WhileNodes        # keeps the bodies' memory pool alive
-    inputs: ClosureInputs    # the static inputs
-    result: ClosureResult    # the gates' outcomes (graph memory)
-    units: torch.Tensor      # runs of each WHILE body since the capture
-    body_launches: list      # kernel launches of one run of each body
-    launches: Counter        # kernel launches of one replay outside the bodies
-    record: dict             # its entry of ClosureGraph.captures
-
-
-class ClosureGraph:
+class ClosureGraph(GraphOwner):
     """The loop-closure attempts of one front end on a CUDA device as CUDA
     graphs (module docstring)."""
 
     def __init__(self, device: torch.device):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError(f"ClosureGraph runs on a CUDA device, not {device}")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
-        self._graphs: Dict[tuple, _Captured] = {}
-        self.captures: List[dict] = []
-        self.replays = 0
+        super().__init__(device)
         # Per replay: its graph's recorded launches and the device count of
         # its body runs before and after it.
         self._log: List[tuple] = []
-        Timing.stamp_table(device)
 
     @staticmethod
     def _storage(ks, traj_q, traj_t, count) -> tuple:
@@ -111,85 +80,37 @@ class ClosureGraph:
             for old in [k for k in self._graphs if k[1:] != gkey[1:]]:
                 del self._graphs[old]
             inputs = closure.upload(host, self.device)
-            captured = self._graphs[gkey] = self._capture(key, cams, cam, ks, traj_q,
-                                                          traj_t, count, inputs)
-        else:
-            closure.upload(host, self.device, out=captured.inputs)
-        before = captured.units.clone()
-        kernels.add_launches(captured.launches)
-        captured.graph.replay()
-        self._log.append((captured.launches, captured.body_launches, before,
-                          captured.units.clone()))
-        captured.record["replays"] += 1
-        self.replays += 1
-        return ClosureResult(*(x.clone() for x in captured.result))
 
-    def _capture(self, key: ClosureKey, cams, cam, ks, traj_q, traj_t, count,
-                 inputs: ClosureInputs) -> _Captured:
-        device = self.device
-        current = torch.cuda.current_stream(device)
-        stream = torch.cuda.Stream(device)
-        nodes = WhileNodes(device)
-        units = torch.zeros(key.refinements * key.num_scales, dtype=torch.int64,
-                            device=device)
-        control = DeviceControl(nodes, units, scope="closure attempt")
-        launches: Counter = Counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        reserved = torch.cuda.memory_reserved(device)
-        library = torch.backends.cuda.preferred_linalg_library()
-        torch.backends.cuda.preferred_linalg_library("cusolver")
-        try:
-            # Library state made before the capture, on each capture stream:
-            # the cuBLAS handle and workspace (one small product) and the
-            # cuSOLVER handle (one small solve).
-            ones = torch.eye(2, device=device)
-            for s in (stream, *nodes.streams):
-                s.wait_stream(current)
-                with torch.cuda.stream(s):
+            def work(control):  # the graph's outputs: its static inputs and the gates
+                return inputs, closure.attempt_closure(key, cams, cam, ks, traj_q, traj_t,
+                                                       count, inputs, loop=control)
+
+            library = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            try:
+                # Library state made before the capture, on each capture
+                # stream: the cuBLAS handle and workspace (one small product)
+                # and the cuSOLVER handle (one small solve).
+                ones = torch.eye(2, device=self.device)
+
+                def warm_up():
                     ones @ ones
                     torch.linalg.solve_ex(ones, ones[0], check_errors=False)
-                current.wait_stream(s)
-            stream.wait_stream(current)
-            t0 = time.perf_counter()
-            with record_function("capture/closure_graph"), torch.cuda.stream(stream), \
-                    kernels.count_into(launches):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    with stamped("closure attempt", device, ring=True):
-                        result = closure.attempt_closure(key, cams, cam, ks, traj_q,
-                                                         traj_t, count, inputs,
-                                                         loop=control)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
-            t1 = time.perf_counter()
-            graph.instantiate()
-        except Exception as e:
-            raise RuntimeError(f"badslam_torch: capturing the loop-closure attempt as a "
-                               f"CUDA graph failed: {type(e).__name__}: {e}") from e
-        finally:
-            torch.backends.cuda.preferred_linalg_library(library)
-        t2 = time.perf_counter()
-        current.wait_stream(stream)
-        top, top_kernels = node_counts(graph.raw_cuda_graph())
-        bodies = [node_counts(b) for b in control.body_graphs]
-        record = dict(
-            order_bucket=len(inputs.order), refinements=key.refinements,
-            capture_s=t1 - t0, instantiate_s=t2 - t1,
-            nodes=top + sum(b[0] for b in bodies),
-            kernel_nodes=top_kernels + sum(b[1] for b in bodies),
-            top_kernel_nodes=top_kernels, body_kernel_nodes=[b[1] for b in bodies],
-            while_nodes=nodes.count,
-            reserved_mib=(torch.cuda.memory_reserved(device) - reserved) / 2**20,
-            replays=0)
-        kernels.count_on_device(graph, units, control.body_launches)
-        self.captures.append(record)
-        return _Captured(graph, nodes, inputs, result, units, control.body_launches,
-                         launches, record)
+
+                captured = self._graphs[gkey] = self._capture(
+                    "closure attempt", "closure_graph", key.refinements * key.num_scales,
+                    work, warm_up=warm_up, order_bucket=len(inputs.order),
+                    refinements=key.refinements)
+            finally:
+                torch.backends.cuda.preferred_linalg_library(library)
+        else:
+            closure.upload(host, self.device, out=captured.outputs[0])
+        units = captured.control.units
+        before = units.clone()
+        self._replay(captured)
+        self._log.append((captured.launches, captured.control.body_launches, before,
+                          units.clone()))
+        return ClosureResult(*(x.clone() for x in captured.outputs[1]))
 
     def replay_launches(self) -> List[Counter]:
         """The kernel launches of each replay so far, by (name, shape, tag)

@@ -38,6 +38,10 @@ body takes the next set slot from a device cursor, so it runs once per set
 slot and not at all for an empty mask. It is the counterpart of the JAX
 package's scan over the slots with a ``lax.cond`` on each slot's mask.
 
+``GraphOwner`` is the one way the port captures, counts, stamps, records
+and replays a CUDA graph of such loops; the steady frame, the BA call and
+the closure attempt each own their graphs through it.
+
 The same source holds the device stamps' kernels (``stamp``,
 ``clock_pair``; ``utils.timing`` captures them): a
 ``DeviceControl`` stamps each WHILE node it adds.
@@ -47,10 +51,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import time
 from collections import Counter
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.profiler import record_function
 
 from badslam_torch.ops import kernels
 from badslam_torch.utils.timing import Timing, stamped
@@ -359,3 +365,126 @@ def for_each_slot(control: Control, mask: torch.Tensor, state: Sequence[torch.Te
     cursor = torch.zeros((), dtype=torch.int64, device=mask.device)
     out, _ = loop(control, (*state, cursor), cond, advance, most=k, name=name)
     return out[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Graph owners
+# ---------------------------------------------------------------------------
+
+class Captured(NamedTuple):
+    """One graph of a ``GraphOwner`` and what a replay of it needs."""
+    graph: torch.cuda.CUDAGraph
+    control: DeviceControl   # its bodies and WHILE nodes (which keep the bodies'
+                             # memory pool alive); control.units[j]: runs of body j
+    launches: Counter        # kernel launches of one replay outside the bodies
+    outputs: Any             # what the captured work returned (graph memory)
+    record: dict             # its entry of the owner's ``captures``
+
+
+class GraphOwner:
+    """What the port's CUDA-graph owners (``steady.SteadyFrameGraph``,
+    ``ba.graph.BAGraph``, ``loop.graph.ClosureGraph``) share: one CUDA
+    device, their graphs by key (``_graphs``), a record per capture
+    (``captures``), the replays (``replays``), and how a graph is captured
+    and replayed.
+
+    A capture runs on a side stream with ``capture_error_mode=
+    "thread_local"``, its loops as WHILE nodes of one ``DeviceControl``
+    (scope: the owner's stamp prefix), inside the profiler range
+    "capture/<name>" and a ring-stamped region named after the scope. A
+    capture or instantiation failure raises RuntimeError; nothing falls back
+    to an eager call. Its launches are counted as ``kernels`` says: those
+    outside the bodies per replay on the host, those of each body per run
+    from ``control.units`` (``kernels.count_on_device``). Each record holds
+    the owner's own fields, then the capture and instantiate seconds, node
+    counts (all; kernel nodes; kernel nodes outside the bodies; per body,
+    in capture order, (body name, kernel nodes)), the WHILE nodes, the
+    memory the capture's pools reserved and the replays."""
+
+    # A host timer around each replay's launch (``Timing.time``), or None.
+    launch_timer: Optional[str] = None
+
+    def __init__(self, device: torch.device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"{type(self).__name__} runs on a CUDA device, not {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self._graphs: Dict[Any, Captured] = {}
+        self.captures: List[dict] = []
+        self.replays = 0
+        Timing.stamp_table(device)
+
+    def _capture(self, scope: str, name: str, bodies: int,
+                 work: Callable[[DeviceControl], Any], depth: int = 1,
+                 warm_up: Optional[Callable[[], None]] = None,
+                 frame: Optional[torch.Tensor] = None, **fields) -> Captured:
+        """Capture ``work(control)`` as one graph: `bodies` WHILE bodies at
+        most, nested `depth` deep; `warm_up`, when given, runs first on each
+        capture stream (library state: handles and workspaces), outside the
+        timed span; `frame` goes to the ring stamp. The record starts with
+        `fields`."""
+        device = self.device
+        current = torch.cuda.current_stream(device)
+        stream = torch.cuda.Stream(device)
+        nodes = WhileNodes(device, depth)
+        if warm_up is not None:
+            for s in (stream, *nodes.streams):
+                s.wait_stream(current)
+                with torch.cuda.stream(s):
+                    warm_up()
+                current.wait_stream(s)
+        units = torch.zeros(bodies, dtype=torch.int64, device=device)
+        control = DeviceControl(nodes, units, scope=scope)
+        launches: Counter = Counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        reserved = torch.cuda.memory_reserved(device)
+        stream.wait_stream(current)
+        t0 = time.perf_counter()
+        try:
+            with record_function(f"capture/{name}"), torch.cuda.stream(stream), \
+                    kernels.count_into(launches):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    with stamped(scope, device, ring=True, frame=frame):
+                        outputs = work(control)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+            t1 = time.perf_counter()
+            graph.instantiate()
+        except Exception as e:
+            raise RuntimeError(f"badslam_torch: capturing the {scope} as a CUDA graph "
+                               f"failed: {type(e).__name__}: {e}") from e
+        t2 = time.perf_counter()
+        current.wait_stream(stream)
+        top, top_kernels = node_counts(graph.raw_cuda_graph())
+        counts = [node_counts(b) for b in control.body_graphs]
+        record = dict(
+            fields, capture_s=t1 - t0, instantiate_s=t2 - t1,
+            nodes=top + sum(n for n, _ in counts),
+            kernel_nodes=top_kernels + sum(k for _, k in counts),
+            top_kernel_nodes=top_kernels,
+            body_kernel_nodes=[(body, k) for body, (_, k) in zip(control.body_names, counts)],
+            while_nodes=nodes.count,
+            reserved_mib=(torch.cuda.memory_reserved(device) - reserved) / 2**20,
+            replays=0)
+        kernels.count_on_device(graph, units, control.body_launches)
+        self.captures.append(record)
+        return Captured(graph, control, launches, outputs, record)
+
+    def _replay(self, captured: Captured) -> None:
+        """Replay a graph of this owner and count it (its launches outside
+        the bodies on the host; the bodies' on the card)."""
+        kernels.add_launches(captured.launches)
+        with (Timing.time(self.launch_timer) if self.launch_timer
+              else contextlib.nullcontext()):
+            captured.graph.replay()
+        captured.record["replays"] += 1
+        self.replays += 1
+

@@ -19,9 +19,10 @@
 
 * Build: at first use, ``nvcc`` compiles the source in this checkout into a
   shared library with a plain C interface under ``badslam_torch/_build/``
-  (listed in ``.gitignore``). The library name carries a hash of the source
-  and the flags, so an edited source is rebuilt. Nothing is compiled or
-  loaded when this module is imported.
+  (listed in ``.gitignore``). The library name carries a hash of the
+  source, the headers it includes from ``csrc/`` and the flags
+  (``_digest``), so an edited source or header is rebuilt. Nothing is
+  compiled or loaded when this module is imported.
 * Binding: ``ctypes``, with ``c_void_p`` for device pointers and the CUDA
   stream (PyTorch's current stream).
 * Dispatch (``bilateral_filter`` here, ``gather_nearest`` and
@@ -60,6 +61,7 @@ import ctypes
 import hashlib
 import logging
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -240,6 +242,29 @@ def _nvcc() -> str:
         "are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _digest(source: str) -> str:
+    """The hash in a library's name: of the source, of every header under
+    csrc/ that it includes with ``#include "..."`` (and those include), and
+    of its flags, so that an edit to any of them builds the library anew."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop(0)
+        path = os.path.join(_CSRC_DIR, name)
+        if name in seen or not os.path.isfile(path):
+            continue
+        seen.add(name)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(text)
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(source, ())).encode())
+    return h.hexdigest()[:16]
+
+
 def _library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the shared library of one .cu source."""
     with _source_locks[source]:
@@ -247,11 +272,8 @@ def _library(source: str) -> ctypes.CDLL:
             return _libs[source]
         src_path = os.path.join(_CSRC_DIR, source)
         flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
-        with open(src_path, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(flags).encode()).hexdigest()[:16]
         stem = os.path.splitext(source)[0]
-        lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+        lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{_digest(source)}.so")
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -591,6 +613,24 @@ def gather_onehot_cuda(img: torch.Tensor, px: torch.Tensor,
     return out
 
 
+def _check_tensors(what: str, named) -> None:
+    """Check a hand kernel's tensors before anything is loaded: each
+    (name, tensor, dtype, shape) of `named` has that dtype and shape, the
+    first is on a CUDA device, and all are on its device and contiguous."""
+    for name, x, dtype, shape in named:
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{what}: {name} must be {dtype} {list(shape)}, got "
+                             f"{x.dtype} {list(x.shape)}")
+    first, ref = named[0][:2]
+    if not ref.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors")
+    for name, x, _, _ in named:
+        if x.device != ref.device:
+            raise ValueError(f"{what}: {name} is on {x.device}, {first} on {ref.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
 def _pose_coeffs_fns():
     lib = _library("pose_coeffs.cu")
     tiles = lib.badslam_pose_coeffs_tiles
@@ -637,28 +677,18 @@ def pose_coeffs_cuda(pos, normal, radius2, desc, valid, rot, trans, depth, f_nx,
     c = 1 if single else rot.shape[0]
     batch = () if single else (c,)
     n = pos.shape[0]
-    floats = {"pos": (pos, (n, 3)), "normal": (normal, (n, 3)),
-              "radius2": (radius2, (n,)), "desc": (desc, (n, 2)),
-              "rot": (rot, batch + (3, 3)), "trans": (trans, batch + (3,))}
     h, w = depth.shape[-2:]
-    for name, plane in (("depth", depth), ("f_nx", f_nx), ("f_ny", f_ny),
-                        ("intensity", intensity)):
-        floats[name] = (plane, batch + (h, w))
-    bools = {"valid": (valid, (n,))}
+    f32 = torch.float32
+    named = [("pos", pos, f32, (n, 3)), ("normal", normal, f32, (n, 3)),
+             ("radius2", radius2, f32, (n,)), ("desc", desc, f32, (n, 2)),
+             ("rot", rot, f32, batch + (3, 3)), ("trans", trans, f32, batch + (3,))]
+    named += [(name, plane, f32, batch + (h, w)) for name, plane in
+              (("depth", depth), ("f_nx", f_nx), ("f_ny", f_ny), ("intensity", intensity))]
+    named.append(("valid", valid, torch.bool, (n,)))
     if running is not None:
-        bools["running"] = (running, batch)
+        named.append(("running", running, torch.bool, batch))
+    _check_tensors(what, named)
     device = pos.device
-    if not pos.is_cuda:
-        raise ValueError(f"{what} needs CUDA tensors")
-    for group, dtype in ((floats, torch.float32), (bools, torch.bool)):
-        for name, (x, shape) in group.items():
-            if x.device != device:
-                raise ValueError(f"{what}: {name} is on {x.device}, pos on {device}")
-            if x.dtype != dtype or tuple(x.shape) != shape:
-                raise ValueError(f"{what}: {name} must be {dtype} {list(shape)}, got "
-                                 f"{x.dtype} {list(x.shape)}")
-            if not x.is_contiguous():
-                raise ValueError(f"{what}: {name} must be contiguous")
     if not 0 < c <= 65535:
         raise ValueError(f"{what}: {c} keyframes; the kernel takes 1 to 65535")
     tiles_fn, fn = _pose_coeffs_fns()
@@ -731,22 +761,12 @@ def _track_inputs(base, tracked, poses, what: str):
     shape = tuple(depth.shape)
     if min(shape) < 1:
         raise ValueError(f"{what}: empty planes {list(shape)}")
-    named = [(f"base.{f}", x, shape) for f, x in zip(base._fields, base)]
-    named += [(f"tracked.{f}", x, shape) for f, x in zip(tracked._fields, tracked)]
+    named = [(f"base.{f}", x, torch.float32, shape) for f, x in zip(base._fields, base)]
+    named += [(f"tracked.{f}", x, torch.float32, shape)
+              for f, x in zip(tracked._fields, tracked)]
     for i, (q, t) in enumerate(poses):
-        named += [(f"q{i}", q, (4,)), (f"t{i}", t, (3,))]
-    for name, x, want in named:
-        if x.dtype != torch.float32 or tuple(x.shape) != want:
-            raise ValueError(f"{what}: {name} must be float32 {list(want)}, got "
-                             f"{x.dtype} {list(x.shape)}")
-    if not depth.is_cuda:
-        raise ValueError(f"{what} needs CUDA tensors")
-    for name, x, _ in named:
-        if x.device != depth.device:
-            raise ValueError(f"{what}: {name} is on {x.device}, base.depth on "
-                             f"{depth.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+        named += [(f"q{i}", q, torch.float32, (4,)), (f"t{i}", t, torch.float32, (3,))]
+    _check_tensors(what, named)
     return shape
 
 

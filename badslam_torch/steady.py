@@ -49,28 +49,19 @@ is the range "capture/steady_graph".
 
 from __future__ import annotations
 
-import time
-from collections import Counter
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from badslam_torch.config import BadSlamConfig
 from badslam_torch.geometry import se3
 from badslam_torch.ops import kernels
-from badslam_torch.ops.conditional import (
-    HOST,
-    Control,
-    DeviceControl,
-    WhileNodes,
-    node_counts,
-)
+from badslam_torch.ops.conditional import HOST, Control, DeviceControl, GraphOwner
 from badslam_torch.ops.preprocess import ProcessedFrame, preprocess_frame
 from badslam_torch.ops.pyramid import FramePyramidLevel, build_pyramid
 from badslam_torch.tracking.pairwise import track_frame_pairwise
-from badslam_torch.utils.timing import Timing, stamped, trace_range
+from badslam_torch.utils.timing import stamped, trace_range
 
 
 class SteadyKey(NamedTuple):
@@ -195,40 +186,24 @@ def capture_reason(key: _GraphKey, last: Optional[_GraphKey]) -> str:
     return "+".join(parts) or "same key"
 
 
-class _Captured(NamedTuple):
-    graph: torch.cuda.CUDAGraph
-    nodes: WhileNodes    # its WHILE nodes (keeps the bodies' memory pool alive)
-    outputs: SteadyOutputs
-    launches: Counter    # kernel launches of one replay outside the bodies
-    record: dict         # its entry of SteadyFrameGraph.captures
-
-
-class SteadyFrameGraph:
+class SteadyFrameGraph(GraphOwner):
     """The steady frame as one CUDA graph per frame on one CUDA device, for
     one front end (module docstring). ``captures`` holds one record per
-    capture: its key's test_two, capture and instantiate seconds, node
-    counts (all; kernel nodes; kernel nodes outside the WHILE bodies and in
-    the body of each scale), the WHILE nodes, the memory its pools reserved,
-    its replays and why it was captured (``capture_reason``)."""
+    capture (``GraphOwner``), with its key's test_two and why it was
+    captured (``capture_reason``); its bodies are the scales' Gauss-Newton
+    loops, coarsest first."""
+
+    launch_timer = "steady frame launch [host]"
 
     def __init__(self, device: torch.device):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError(f"SteadyFrameGraph runs on a CUDA device, not {device}")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
-        self._graphs: Dict[tuple, _Captured] = {}
+        super().__init__(device)
         self._static: Dict[str, torch.Tensor] = {}
         self.base_pyr: Optional[Tuple[FramePyramidLevel, ...]] = None
-        self.idx = torch.zeros(1, dtype=torch.int64, device=device)
-        self.captures: List[dict] = []
-        self.replays = 0
+        self.idx = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._last_key: Optional[_GraphKey] = None
         # Each capture's device count of Gauss-Newton bodies run per scale,
         # coarsest first.
         self._iterations: List[torch.Tensor] = []
-        Timing.stamp_table(device)
 
     # -- static inputs ---------------------------------------------------
 
@@ -301,74 +276,24 @@ class SteadyFrameGraph:
         if captured is None:
             reason = capture_reason(gkey, self._last_key)
             self._last_key = gkey
-            captured = self._graphs[gkey] = self._capture(key, cam, cams, undistort_map,
-                                                          test_two, reason)
-        kernels.add_launches(captured.launches)
-        with Timing.time("steady frame launch [host]"):
-            captured.graph.replay()
-        captured.record["replays"] += 1
-        self.replays += 1
-        return captured.outputs
+            st = self._static
 
-    def _capture(self, key: SteadyKey, cam, cams, undistort_map, test_two: bool,
-                 reason: str) -> _Captured:
-        st = self._static
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        nodes = WhileNodes(self.device)
-        # The frame calls no library that keeps state (its tracker is H1),
-        # and its kernels are not run ahead: that would launch each once
-        # more per capture than the frames need.
-        # One WHILE body per scale, captured coarsest first; each run of
-        # body j adds one to units[j].
-        units = torch.zeros(key.num_scales, dtype=torch.int64, device=self.device)
-        control = DeviceControl(nodes, units, scope="steady frame")
-        launches: Counter = Counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        reserved = torch.cuda.memory_reserved(self.device)
-        stream.wait_stream(current)
-        t0 = time.perf_counter()
-        try:
-            with record_function("capture/steady_graph"), torch.cuda.stream(stream), \
-                    kernels.count_into(launches):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    with stamped("steady frame", self.device, ring=True, frame=self.idx):
-                        outputs = steady_frame(
-                            key, cam, cams, self.base_pyr, st["depth_raw"], st["rgb"],
-                            undistort_map, st["a"], st["cfactor"], st["base_q"],
-                            st["base_t"], st["traj_q"], st["traj_t"], st["hist_q"],
-                            st["hist_t"], self.idx, test_two=test_two, loop=control)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
-            t1 = time.perf_counter()
-            graph.instantiate()
-        except Exception as e:
-            raise RuntimeError(f"badslam_torch: capturing the steady frame as a CUDA "
-                               f"graph failed: {type(e).__name__}: {e}") from e
-        t2 = time.perf_counter()
-        current.wait_stream(stream)
-        top, top_kernels = node_counts(graph.raw_cuda_graph())
-        # Per scale, finest first.
-        bodies = [node_counts(b) for b in reversed(control.body_graphs)]
-        record = dict(
-            test_two=test_two, reason=reason, capture_s=t1 - t0, instantiate_s=t2 - t1,
-            nodes=top + sum(b[0] for b in bodies),
-            kernel_nodes=top_kernels + sum(b[1] for b in bodies),
-            top_kernel_nodes=top_kernels, body_kernel_nodes=[b[1] for b in bodies],
-            while_nodes=nodes.count,
-            reserved_mib=(torch.cuda.memory_reserved(self.device) - reserved) / 2**20,
-            replays=0)
-        captured = _Captured(graph, nodes, outputs, launches, record)
-        kernels.count_on_device(graph, units, control.body_launches)
-        self.captures.append(record)
-        self._iterations.append(units)
-        return captured
+            def work(control: DeviceControl) -> SteadyOutputs:
+                return steady_frame(
+                    key, cam, cams, self.base_pyr, st["depth_raw"], st["rgb"], undistort_map,
+                    st["a"], st["cfactor"], st["base_q"], st["base_t"], st["traj_q"],
+                    st["traj_t"], st["hist_q"], st["hist_t"], self.idx, test_two=test_two,
+                    loop=control)
+
+            # The frame calls no library that keeps state (its tracker is H1),
+            # and its kernels are not run ahead: that would launch each once
+            # more per capture than the frames need. One WHILE body per scale.
+            captured = self._graphs[gkey] = self._capture(
+                "steady frame", "steady_graph", key.num_scales, work, frame=self.idx,
+                test_two=test_two, reason=reason)
+            self._iterations.append(captured.control.units)
+        self._replay(captured)
+        return captured.outputs
 
     def gn_iterations(self) -> int:
         """Gauss-Newton iterations run on the card by this front end's
@@ -382,5 +307,5 @@ class SteadyFrameGraph:
         total = 0
         for record, units in zip(self.captures, self._iterations):
             total += record["replays"] * record["top_kernel_nodes"] + sum(
-                n * k for n, k in zip(reversed(units.tolist()), record["body_kernel_nodes"]))
+                n * k for n, (_, k) in zip(units.tolist(), record["body_kernel_nodes"]))
         return total

@@ -1074,7 +1074,7 @@ def phase_steady(data: str) -> None:
         print(f"  graph (test_two {c['test_two']}): capture {c['capture_s']:.3f} s, "
               f"instantiate {c['instantiate_s']:.3f} s, {c['nodes']} nodes "
               f"({c['kernel_nodes']} kernel nodes: {c['top_kernel_nodes']} outside the "
-              f"bodies of its {c['while_nodes']} WHILE nodes, per body by scale "
+              f"bodies of its {c['while_nodes']} WHILE nodes, per body in capture order "
               f"{c['body_kernel_nodes']}), {c['replays']} replays, pools "
               f"{c['reserved_mib']:.1f} MiB")
     checks = {

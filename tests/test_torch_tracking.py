@@ -237,3 +237,23 @@ def test_loop_refuses_step_in_place_with_a_limit():
     with pytest.raises(ValueError, match="step_in_place"):
         loop(HOST, state, lambda s: s[0] < 1, lambda s: (s[0] + 1,), most=3,
              limit=torch.tensor(2), step_in_place=lambda *a: None)
+
+
+def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library's name hashes the headers its source includes from
+    csrc/ (H1 and H2 share gn_sums.cuh): an edit to a header alone, nested
+    ones too, names a new library, so no stale build is loaded; an
+    unrelated file changes nothing."""
+    monkeypatch.setattr(kernels, "_CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "a.cuh"\nint f();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("constexpr int kN = 1;\n")
+    (tmp_path / "c.cuh").write_text("constexpr int kM = 1;\n")
+    first = kernels._digest("k.cu")
+    (tmp_path / "c.cuh").write_text("constexpr int kM = 2;\n")
+    assert kernels._digest("k.cu") == first
+    (tmp_path / "b.cuh").write_text("constexpr int kN = 2;\n")
+    second = kernels._digest("k.cu")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert kernels._digest("k.cu") not in (first, second)
