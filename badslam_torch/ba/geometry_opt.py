@@ -12,10 +12,18 @@ kernel_opt_geometry.cc:80-201). Two sub-steps per BA iteration:
       Cholesky solve per surfel.
 
 Keyframes are taken in fixed blocks of ``KEYFRAME_BATCH`` slots
-(``static_blocks``; [C, N] fields) with the operation's mask carried
-along: a keyframe outside the mask contributes exact zeros, as in the JAX
-package's fixed chunks, and no pass reads the mask back to the host.
-Averaged normals are re-normalized to unit length, as there.
+(``static_blocks``) with the operation's mask carried along: a keyframe
+outside the mask contributes exact zeros, as in the JAX package's fixed
+chunks, and no pass reads the mask back to the host. Averaged normals are
+re-normalized to unit length, as there.
+
+Each pass is an accumulation per block (``*_chunk``) into a per-row carry
+and a per-row finish, dispatched by the map's device: on a CUDA tensor
+they launch H3 (``csrc/geometry_coeffs.cu`` through ``ops.kernels``: one
+thread per live surfel row loops over the block's slots, with no [C, N]
+field in memory; the carry is added into in place), on a CPU tensor they
+run the plain chain (``*_plain``: [C, N] fields over every row), which the
+``*_plain`` passes also run on any device.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from badslam_torch.mapping.association import (
     tangent_projections,
 )
 from badslam_torch.mapping.keyframes import KeyframeStack, static_blocks
-from badslam_torch.ops import robust
+from badslam_torch.ops import kernels, robust
 from badslam_torch.ops.interp import bilinear_and_gradient, gather_nearest
 from badslam_torch.ops.preprocess import normal_z
 
@@ -49,6 +57,20 @@ def _measured_normals(q, nx, ny, a):
     mny = gather_nearest(ny, a.px, a.py)
     n_local = torch.stack([mnx, mny, normal_z(mnx, mny)], dim=-1)
     return rotate3(se3.quat_to_matrix(q), n_local)
+
+
+def _on_card(smap) -> bool:
+    """Whether a pass over `smap` launches H3 (a CUDA map) or runs the
+    plain chain (a CPU map); raises on any other device."""
+    if smap.pos.is_cuda:
+        return True
+    if smap.pos.device.type != "cpu":
+        raise ValueError(f"no geometry pass for device {smap.pos.device}")
+    return False
+
+
+def _c(x):
+    return None if x is None else x.contiguous()
 
 
 def _renormalized(normal, nsum, cnt, use):
@@ -80,6 +102,20 @@ def _act_normals_chunk(carry, b: KeyframeStack, active_strict, participating,
                        smap, cam, baseline_fx, update_normals):
     """One batch of keyframes `b` with their strictly-active and
     participating flags: carry = (active, normal sum, observation count)."""
+    if not _on_card(smap):
+        return _act_normals_chunk_plain(carry, b, active_strict, participating,
+                                        smap, cam, baseline_fx, update_normals)
+    act, nsum, cnt = carry
+    kernels.geometry_normals_cuda(
+        *(_c(x) for x in (smap.pos, smap.normal, smap.valid, smap.active, b.q, b.t,
+                          b.depth, b.nx, b.ny)),
+        cam, baseline_fx, (act, nsum, cnt) if update_normals else (act, None, None),
+        act_mask=_c(active_strict), normal_mask=_c(participating))
+    return carry
+
+
+def _act_normals_chunk_plain(carry, b: KeyframeStack, active_strict, participating,
+                             smap, cam, baseline_fx, update_normals):
     act, nsum, cnt = carry
     _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid, b.q, b.t,
                         b.depth, b.nx, b.ny, baseline_fx)
@@ -93,12 +129,33 @@ def _act_normals_chunk(carry, b: KeyframeStack, active_strict, participating,
 
 
 def _act_normals_finish(smap, carry, update_normals):
+    if not _on_card(smap):
+        return _act_normals_finish_plain(smap, carry, update_normals)
+    # H3 marks valid rows alone: the carry's flags are act & valid.
+    act, nsum, cnt = carry
+    smap = smap._replace(active=act)
+    if not update_normals:
+        return smap
+    return smap._replace(normal=kernels.geometry_normals_finish_cuda(
+        _c(smap.normal), _c(smap.valid), act, carry))
+
+
+def _act_normals_finish_plain(smap, carry, update_normals):
     act, nsum, cnt = carry
     act = act & smap.valid
     smap = smap._replace(active=act)
     if not update_normals:
         return smap
     return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, act))
+
+
+def _activation_and_normals(chunk, finish, smap, cam, kstack, active_strict,
+                            participating, baseline_fx, update_normals):
+    carry = _act_normals_init(smap)
+    for s in static_blocks(kstack.q.shape[0]):
+        carry = chunk(carry, kstack.rows(s), active_strict[s], participating[s], smap,
+                      cam, baseline_fx, update_normals)
+    return finish(smap, carry, update_normals)
 
 
 def update_activation_and_normals(smap, cam, kstack: KeyframeStack,
@@ -110,18 +167,37 @@ def update_activation_and_normals(smap, cam, kstack: KeyframeStack,
     with an ACTIVE keyframe) and normal averaging over the participating
     keyframes, from one association pass. Associations use the validity
     mask alone, which is exact: a surfel's association does not depend on
-    its active flag."""
-    carry = _act_normals_init(smap)
-    for s in static_blocks(kstack.q.shape[0]):
-        carry = _act_normals_chunk(carry, kstack.rows(s), active_strict[s],
-                                   participating[s], smap, cam, baseline_fx,
+    its active flag. H3 on a CUDA map, the plain chain on a CPU map."""
+    return _activation_and_normals(_act_normals_chunk, _act_normals_finish, smap, cam,
+                                   kstack, active_strict, participating, baseline_fx,
                                    update_normals)
-    return _act_normals_finish(smap, carry, update_normals)
+
+
+def update_activation_and_normals_plain(smap, cam, kstack: KeyframeStack,
+                                        active_strict: torch.Tensor,
+                                        participating: torch.Tensor,
+                                        baseline_fx: float,
+                                        update_normals: bool = True):
+    """The plain chain of update_activation_and_normals, on any device."""
+    return _activation_and_normals(_act_normals_chunk_plain, _act_normals_finish_plain,
+                                   smap, cam, kstack, active_strict, participating,
+                                   baseline_fx, update_normals)
 
 
 def _normals_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
     """One batch of the normal averaging over the active surfels:
     carry = (normal sum, observation count)."""
+    if not _on_card(smap):
+        return _normals_chunk_plain(carry, b, smap, cam, baseline_fx)
+    nsum, cnt = carry
+    kernels.geometry_normals_cuda(
+        *(_c(x) for x in (smap.pos, smap.normal, smap.valid, smap.active, b.q, b.t,
+                          b.depth, b.nx, b.ny)),
+        cam, baseline_fx, (None, nsum, cnt), normal_mask=_c(b.mask))
+    return carry
+
+
+def _normals_chunk_plain(carry, b: KeyframeStack, smap, cam, baseline_fx):
     nsum, cnt = carry
     _, a = _assoc_batch(cam, smap.pos, smap.normal, smap.valid & smap.active,
                         b.q, b.t, b.depth, b.nx, b.ny, baseline_fx)
@@ -132,18 +208,36 @@ def _normals_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx):
 
 
 def _normals_finish(smap, carry):
+    if not _on_card(smap):
+        return _normals_finish_plain(smap, carry)
+    return smap._replace(normal=kernels.geometry_normals_finish_cuda(
+        _c(smap.normal), _c(smap.valid), _c(smap.active), (None, *carry)))
+
+
+def _normals_finish_plain(smap, carry):
     nsum, cnt = carry
     return smap._replace(normal=_renormalized(smap.normal, nsum, cnt, smap.valid))
 
 
-def update_surfel_normals(smap, cam, kstack: KeyframeStack, baseline_fx: float):
-    """Step (a) alone: re-estimate the active surfels' normals from the
-    keyframes of kstack.mask."""
+def _surfel_normals(chunk, finish, smap, cam, kstack, baseline_fx):
     _, nsum, cnt = _act_normals_init(smap)
     carry = (nsum, cnt)
     for s in static_blocks(kstack.q.shape[0]):
-        carry = _normals_chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
-    return _normals_finish(smap, carry)
+        carry = chunk(carry, kstack.rows(s), smap, cam, baseline_fx)
+    return finish(smap, carry)
+
+
+def update_surfel_normals(smap, cam, kstack: KeyframeStack, baseline_fx: float):
+    """Step (a) alone: re-estimate the active surfels' normals from the
+    keyframes of kstack.mask. H3 on a CUDA map, the plain chain on a CPU
+    map."""
+    return _surfel_normals(_normals_chunk, _normals_finish, smap, cam, kstack, baseline_fx)
+
+
+def update_surfel_normals_plain(smap, cam, kstack: KeyframeStack, baseline_fx: float):
+    """The plain chain of update_surfel_normals, on any device."""
+    return _surfel_normals(_normals_chunk_plain, _normals_finish_plain, smap, cam, kstack,
+                           baseline_fx)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +259,15 @@ def _depth_residual(cam, a, dtype):
 
 def _pos_init(smap, use_descriptor):
     """Zeroed accumulators: (H, b) along the normal, or the 9 entries of
-    the joint position + descriptor system."""
+    the joint position + descriptor system; on a CUDA map one [2, N] or
+    [8, N] tensor (kernels.geometry_position_sums: H12 is never summed)."""
+    if _on_card(smap):
+        return kernels.geometry_position_sums(smap.capacity, use_descriptor,
+                                              smap.pos.device)
+    return _pos_init_plain(smap, use_descriptor)
+
+
+def _pos_init_plain(smap, use_descriptor):
     def z():
         return torch.zeros(smap.capacity, dtype=smap.pos.dtype, device=smap.pos.device)
 
@@ -240,30 +342,6 @@ def _pos3d_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth):
     return H00, H01, H02, H11, H12, H22, b0, b1, b2
 
 
-def _pos_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth,
-               use_descriptor):
-    if use_descriptor:
-        return _pos3d_chunk(carry, b, smap, cam, baseline_fx, use_depth)
-    return _pos1d_chunk(carry, b, smap, cam, baseline_fx)
-
-
-def _pos_finish(smap, carry, use_descriptor):
-    if use_descriptor:
-        return _pos3d_finish(smap, carry)
-    return _pos1d_finish(smap, carry)
-
-
-def _position_step(smap, cam, kstack: KeyframeStack, baseline_fx: float,
-                   use_depth: bool, use_descriptor: bool):
-    """Sum the per-surfel position (+descriptor) Gauss-Newton system over
-    the masked keyframes and solve it."""
-    carry = _pos_init(smap, use_descriptor)
-    for s in static_blocks(kstack.q.shape[0]):
-        carry = _pos_chunk(carry, kstack.rows(s), smap, cam, baseline_fx,
-                           use_depth, use_descriptor)
-    return _pos_finish(smap, carry, use_descriptor)
-
-
 def _pos3d_finish(smap, carry):
     H00, H01, H02, H11, H12, H22, b0, b1, b2 = carry
     upd_mask = smap.valid & smap.active
@@ -293,6 +371,65 @@ def _pos3d_finish(smap, carry):
     return smap._replace(
         pos=smap.pos - x0[:, None] * smap.normal,
         desc=torch.clamp(smap.desc - torch.stack([x1, x2], dim=-1), -180.0, 180.0))
+
+
+def _pos_chunk(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth,
+               use_descriptor):
+    if not _on_card(smap):
+        return _pos_chunk_plain(carry, b, smap, cam, baseline_fx, use_depth,
+                                use_descriptor)
+    kernels.geometry_position_cuda(
+        *(_c(x) for x in (smap.pos, smap.normal, smap.radius2, smap.desc, smap.valid,
+                          smap.active, b.q, b.t, b.depth, b.nx, b.ny, b.intensity, b.mask)),
+        cam, baseline_fx, use_depth, use_descriptor, carry)
+    return carry
+
+
+def _pos_chunk_plain(carry, b: KeyframeStack, smap, cam, baseline_fx, use_depth,
+                     use_descriptor):
+    if use_descriptor:
+        return _pos3d_chunk(carry, b, smap, cam, baseline_fx, use_depth)
+    return _pos1d_chunk(carry, b, smap, cam, baseline_fx)
+
+
+def _pos_finish(smap, carry, use_descriptor):
+    if not _on_card(smap):
+        return _pos_finish_plain(smap, carry, use_descriptor)
+    pos, desc = kernels.geometry_position_finish_cuda(
+        *(_c(x) for x in (smap.pos, smap.normal, smap.desc, smap.valid, smap.active)),
+        carry, use_descriptor)
+    return smap._replace(pos=pos, desc=desc)
+
+
+def _pos_finish_plain(smap, carry, use_descriptor):
+    if use_descriptor:
+        return _pos3d_finish(smap, carry)
+    return _pos1d_finish(smap, carry)
+
+
+def _positions(init, chunk, finish, smap, cam, kstack, baseline_fx, use_depth,
+               use_descriptor):
+    carry = init(smap, use_descriptor)
+    for s in static_blocks(kstack.q.shape[0]):
+        carry = chunk(carry, kstack.rows(s), smap, cam, baseline_fx, use_depth,
+                      use_descriptor)
+    return finish(smap, carry, use_descriptor)
+
+
+def _position_step(smap, cam, kstack: KeyframeStack, baseline_fx: float,
+                   use_depth: bool, use_descriptor: bool):
+    """Sum the per-surfel position (+descriptor) Gauss-Newton system over
+    the masked keyframes and solve it. H3 on a CUDA map, the plain chain on
+    a CPU map."""
+    return _positions(_pos_init, _pos_chunk, _pos_finish, smap, cam, kstack, baseline_fx,
+                      use_depth, use_descriptor)
+
+
+def _position_step_plain(smap, cam, kstack: KeyframeStack, baseline_fx: float,
+                         use_depth: bool, use_descriptor: bool):
+    """The plain chain of _position_step, on any device."""
+    return _positions(_pos_init_plain, _pos_chunk_plain, _pos_finish_plain, smap, cam,
+                      kstack, baseline_fx, use_depth, use_descriptor)
 
 
 def optimize_geometry_iteration(smap, cam, kstack: KeyframeStack,

@@ -1,7 +1,8 @@
 // Device code shared by the hand-written Gauss-Newton kernels, H1
-// (track_coeffs.cu, the tracker's step) and H2 (pose_coeffs.cu, BA's pose
-// pass): the per-sample arithmetic they have in common and the two
-// fixed-order reductions of their [H | b | count] sums.
+// (track_coeffs.cu, the tracker's step), H2 (pose_coeffs.cu, BA's pose
+// pass) and H3 (geometry_coeffs.cu, BA's geometry pass): the pose and
+// per-sample arithmetic they have in common and the two fixed-order
+// reductions of H1's and H2's [H | b | count] sums.
 //
 // Each function repeats the plain PyTorch version's operations one rounding
 // at a time, so an includer must be built with -fmad=false
@@ -34,11 +35,60 @@ __device__ __forceinline__ long long clamp_index(long long v, long long hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
-// torch.linalg.cross(a, b).
+// torch.linalg.cross(a, b). With kCard as PyTorch's CUDA kernel rounds it,
+// each component one fused multiply-add (a1 b2 - a2 b1 as fma(a1, b2,
+// -(a2 b1))); else two products and a difference (H1's and H2's order).
+template <bool kCard = false>
 __device__ __forceinline__ void cross(const float* a, const float* b, float* out) {
-  out[0] = a[1] * b[2] - a[2] * b[1];
-  out[1] = a[2] * b[0] - a[0] * b[2];
-  out[2] = a[0] * b[1] - a[1] * b[0];
+  if (kCard) {
+    out[0] = __fmaf_rn(a[1], b[2], -(a[2] * b[1]));
+    out[1] = __fmaf_rn(a[2], b[0], -(a[0] * b[2]));
+    out[2] = __fmaf_rn(a[0], b[1], -(a[1] * b[0]));
+  } else {
+    out[0] = a[1] * b[2] - a[2] * b[1];
+    out[1] = a[2] * b[0] - a[0] * b[2];
+    out[2] = a[0] * b[1] - a[1] * b[0];
+  }
+}
+
+// se3.quat_rotate: v + 2 qv x (qv x v + qw v) (kCard: cross's).
+template <bool kCard = false>
+__device__ __forceinline__ void quat_rotate(const float* q, const float* v, float* out) {
+  const float qv[3] = {q[1], q[2], q[3]};
+  float uv[3], w[3], uuv[3];
+  cross<kCard>(qv, v, uv);
+  for (int i = 0; i < 3; ++i) w[i] = uv[i] + q[0] * v[i];
+  cross<kCard>(qv, w, uuv);
+  for (int i = 0; i < 3; ++i) out[i] = v[i] + 2.0f * uuv[i];
+}
+
+// se3.quat_to_matrix: the row-major [3, 3] rotation of a unit quaternion (wxyz).
+__device__ __forceinline__ void quat_to_matrix(const float* q, float* r) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  r[0] = 1.0f - 2.0f * (yy + zz);
+  r[1] = 2.0f * (xy - wz);
+  r[2] = 2.0f * (xz + wy);
+  r[3] = 2.0f * (xy + wz);
+  r[4] = 1.0f - 2.0f * (xx + zz);
+  r[5] = 2.0f * (yz - wx);
+  r[6] = 2.0f * (xz - wy);
+  r[7] = 2.0f * (yz + wx);
+  r[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+// se3.inverse of the pose (q, t), then se3.quat_to_matrix of its rotation:
+// the inverse as a rotation matrix r and a translation t_inv (kCard: cross's).
+template <bool kCard = false>
+__device__ __forceinline__ void inverse_matrix(const float* q, const float* t, float* r,
+                                               float* t_inv) {
+  const float qi[4] = {q[0], -q[1], -q[2], -q[3]};
+  float rot[3];
+  quat_rotate<kCard>(qi, t, rot);
+  for (int i = 0; i < 3; ++i) t_inv[i] = -rot[i];
+  quat_to_matrix(qi, r);
 }
 
 struct Sample {

@@ -48,33 +48,19 @@
 // TF32, no lower precision). Nothing is allocated or synchronized, so the
 // launches capture into CUDA graphs (the BA graph's WHILE bodies). Each
 // launcher returns cudaGetLastError() for the caller to check.
-// The code H1 and H2 share (per-sample arithmetic, the block and partial
-// reductions) is in gn_sums.cuh.
+// The code H1, H2 and H3 share (pose and per-sample arithmetic, the block
+// and partial reductions) is in gn_sums.cuh; the per-row association and
+// tangent projections that H2 and H3 share are in association.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "gn_sums.cuh"
+#include "association.cuh"
 
 namespace {
 
 constexpr int kMaxTiles = 512;
-constexpr int kConstants = 15;
-
-// Host-side scalars, in the order of kernels.pose_coeffs_cuda's table:
-// each is the float32 the plain version's PyTorch operation uses.
-struct Constants {
-  float fx, fy, cx, cy;             // camera (pixel-corner convention)
-  float fx_inv, fy_inv, cx_inv, cy_inv;
-  float inv_baseline_fx;            // 1 / baseline_fx, as x / scalar on the card
-  float uncertainty_factor;         // DEPTH_UNCERTAINTY_EMPIRICAL_FACTOR
-  float tukey_param, inv_tukey_param;
-  float cos_normal_threshold;       // COS_NORMAL_COMPATIBILITY_THRESHOLD
-  float descriptor_weight;          // DESCRIPTOR_RESIDUAL_WEIGHT
-  float huber_param;
-};
-
 struct Inputs {
   const float* pos;               // [N, 3] global
   const float* normal;            // [N, 3] global
@@ -95,24 +81,6 @@ struct Inputs {
 
 // ---- The per-row arithmetic (each line the plain version's operations).
 
-// rotate3: ((r0 x + r1 y) + r2 z) per output component.
-__device__ __forceinline__ void rotate(const float* r, float x, float y, float z,
-                                       float* out) {
-  out[0] = r[0] * x + r[1] * y + r[2] * z;
-  out[1] = r[3] * x + r[4] * y + r[5] * z;
-  out[2] = r[6] * x + r[7] * y + r[8] * z;
-}
-
-// tangent_projections: a tangent vector scaled to twice the surfel radius.
-__device__ __forceinline__ void scale_tangent(float* t, float radius2) {
-  const float s =
-      sqrtf(radius2 / clamp_min(t[0] * t[0] + t[1] * t[1] + t[2] * t[2], 1e-12f)) *
-      2.0f;
-  t[0] = t[0] * s;
-  t[1] = t[1] * s;
-  t[2] = t[2] * s;
-}
-
 // One surfel row against one keyframe: adds its terms to acc and returns
 // whether it is associated (counted).
 template <bool kDepth, bool kDescriptor>
@@ -121,45 +89,22 @@ __device__ __forceinline__ bool accumulate_row(const Inputs& in, const Constants
                                                long long plane, long long i,
                                                float* acc) {
   const int height = in.height, width = in.width;
-  const float px = __ldg(in.pos + 3 * i), py = __ldg(in.pos + 3 * i + 1),
-              pz = __ldg(in.pos + 3 * i + 2);
-  float l[3];
-  rotate(rot, px, py, pz, l);
-  const float lx = l[0] + trans[0], ly = l[1] + trans[1], lz = l[2] + trans[2];
-  if (!(lz > 0.0f)) return false;
-  const float pxy_x = k.fx * lx / lz + k.cx;
-  const float pxy_y = k.fy * ly / lz + k.cy;
-  const float pxf = floorf(pxy_x), pyf = floorf(pxy_y);
-  if (!(pxy_x >= 0.0f && pxy_y >= 0.0f && pxf < static_cast<float>(width) &&
-        pyf < static_cast<float>(height) && pxf >= 0.0f && pyf >= 0.0f)) {
-    return false;
-  }
-  const int ix = static_cast<int>(pxf), iy = static_cast<int>(pyf);
-  const long long at = plane + static_cast<long long>(iy) * width + ix;
-  const float d = __ldg(in.depth + at);
-  if (!(d > 0.0f)) return false;
-
+  const float p[3] = {__ldg(in.pos + 3 * i), __ldg(in.pos + 3 * i + 1),
+                      __ldg(in.pos + 3 * i + 2)};
   const float n[3] = {__ldg(in.normal + 3 * i), __ldg(in.normal + 3 * i + 1),
                       __ldg(in.normal + 3 * i + 2)};
-  float nl[3];
-  rotate(rot, n[0], n[1], n[2], nl);
-  const float un_x = static_cast<float>(ix) * k.fx_inv + k.cx_inv;
-  const float un_y = static_cast<float>(iy) * k.fy_inv + k.cy_inv;
-  const float stddev =
-      ((fabsf(nl[0] * un_x + nl[1] * un_y + nl[2]) * k.uncertainty_factor) * (d * d)) *
-      k.inv_baseline_fx;
-  const float gap = d - lz;
-  if (!(fabsf(gap) <= stddev * k.tukey_param)) return false;
-  if (!(lx * nl[0] + ly * nl[1] + lz * nl[2] <= 0.0f)) return false;
-  const float m_nx = __ldg(in.f_nx + at), m_ny = __ldg(in.f_ny + at);
-  const float m_nz = -sqrtf(clamp_min(1.0f - m_nx * m_nx - m_ny * m_ny, 0.0f));
-  if (!(nl[0] * m_nx + nl[1] * m_ny + nl[2] * m_nz >= k.cos_normal_threshold)) {
+  Association a;
+  if (!associate(k, rot, trans, in.depth + plane, in.f_nx + plane, in.f_ny + plane, height,
+                 width, p, n, a)) {
     return false;
   }
+  const float lx = a.lx, ly = a.ly, lz = a.lz;
+  const float* nl = a.nl;
 
   if (kDepth) {
-    const float inv_stddev = 1.0f / clamp_min(stddev, 1e-30f);
-    const float ux = d * un_x, uy = d * un_y, uz = d;
+    const float d = a.d;
+    const float inv_stddev = 1.0f / clamp_min(a.stddev, 1e-30f);
+    const float ux = d * a.un_x, uy = d * a.un_y, uz = d;
     const float r =
         inv_stddev * (nl[0] * (ux - lx) + nl[1] * (uy - ly) + nl[2] * (uz - lz));
     const float quot = r * k.inv_tukey_param;
@@ -175,36 +120,19 @@ __device__ __forceinline__ bool accumulate_row(const Inputs& in, const Constants
   }
 
   if (kDescriptor) {
-    const float r2 = __ldg(in.radius2 + i);
-    const float ref[3] = {fabsf(n[0]) > 0.9f ? 0.0f : 1.0f,
-                          fabsf(n[0]) > 0.9f ? 1.0f : 0.0f, 0.0f};
-    float t1[3], t2[3];
-    cross(n, ref, t1);
-    scale_tangent(t1, r2);
-    cross(n, t1, t2);
-    scale_tangent(t2, r2);
     float p1[3], p2[3];
-    rotate(rot, px + t1[0], py + t1[1], pz + t1[2], p1);
-    rotate(rot, px + t2[0], py + t2[1], pz + t2[2], p2);
-    const float z1 = p1[2] + trans[2], z2 = p2[2] + trans[2];
-    if (z1 > 0.0f && z2 > 0.0f) {
-      const float* img = in.intensity + plane;
-      const Sample c = bilinear_and_gradient(img, height, width, pxy_x, pxy_y);
-      const Sample s1 = bilinear_and_gradient(
-          img, height, width, k.fx * (p1[0] + trans[0]) / z1 + k.cx,
-          k.fy * (p1[1] + trans[1]) / z1 + k.cy);
-      const Sample s2 = bilinear_and_gradient(
-          img, height, width, k.fx * (p2[0] + trans[0]) / z2 + k.cx,
-          k.fy * (p2[1] + trans[1]) / z2 + k.cy);
-      const float r1 = (s1.value - c.value) * 180.0f - __ldg(in.desc + 2 * i);
-      const float r2d = (s2.value - c.value) * 180.0f - __ldg(in.desc + 2 * i + 1);
+    tangent_points(p, n, __ldg(in.radius2 + i), p1, p2);
+    DescriptorSamples s;
+    if (project_and_sample(k, rot, trans, in.intensity + plane, height, width, a, p1, p2, s)) {
+      const float r1 = (s.s1.value - s.c.value) * 180.0f - __ldg(in.desc + 2 * i);
+      const float r2d = (s.s2.value - s.c.value) * 180.0f - __ldg(in.desc + 2 * i + 1);
       const float inv_z = 1.0f / lz;
       float jac[6];
-      photometric_jacobian(((s1.dx - c.dx) * 180.0f) * k.fx, ((s1.dy - c.dy) * 180.0f) * k.fy,
-                           lx, ly, lz, inv_z, jac);
+      photometric_jacobian(((s.s1.dx - s.c.dx) * 180.0f) * k.fx,
+                           ((s.s1.dy - s.c.dy) * 180.0f) * k.fy, lx, ly, lz, inv_z, jac);
       accumulate(acc, jac, r1, huber_weight(r1, k.huber_param, k.descriptor_weight));
-      photometric_jacobian(((s2.dx - c.dx) * 180.0f) * k.fx, ((s2.dy - c.dy) * 180.0f) * k.fy,
-                           lx, ly, lz, inv_z, jac);
+      photometric_jacobian(((s.s2.dx - s.c.dx) * 180.0f) * k.fx,
+                           ((s.s2.dy - s.c.dy) * 180.0f) * k.fy, lx, ly, lz, inv_z, jac);
       accumulate(acc, jac, r2d, huber_weight(r2d, k.huber_param, k.descriptor_weight));
     }
   }
@@ -270,13 +198,9 @@ extern "C" int badslam_pose_coeffs(
     const float* f_ny, const float* intensity, int height, int width,
     const float* constants, int use_depth, int use_descriptor, float* partial,
     float* h, float* b, long long* count, void* stream) {
-  static_assert(sizeof(Constants) == kConstants * sizeof(float), "constant table");
   Inputs in{pos,  normal, radius2, desc,      valid,   rot, trans, depth,
             f_nx, f_ny,   intensity, running, n,       height, width};
-  Constants k;
-  const float* src = constants;
-  float* dst = reinterpret_cast<float*>(&k);
-  for (int j = 0; j < kConstants; ++j) dst[j] = src[j];
+  const Constants k = load_constants(constants);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = tiles_for(n);
   const dim3 grid(tiles, batch);

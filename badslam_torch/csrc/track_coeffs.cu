@@ -60,8 +60,8 @@
 // or synchronized, so the launches capture into CUDA graphs (the steady
 // frame's and the closure attempt's WHILE bodies). Each launcher returns
 // cudaGetLastError() for the caller to check.
-// The code H1 and H2 share (per-sample arithmetic, the block and partial
-// reductions) is in gn_sums.cuh.
+// The code H1, H2 and H3 share (pose and per-sample arithmetic, the block
+// and partial reductions) is in gn_sums.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,16 +112,6 @@ struct Pose {
 
 // ---- The per-pixel arithmetic (each line the plain version's operations).
 
-// se3.quat_rotate: v + 2 qv x (qv x v + qw v).
-__device__ __forceinline__ void quat_rotate(const float* q, const float* v, float* out) {
-  const float qv[3] = {q[1], q[2], q[3]};
-  float uv[3], w[3], uuv[3];
-  cross(qv, v, uv);
-  for (int i = 0; i < 3; ++i) w[i] = uv[i] + q[0] * v[i];
-  cross(qv, w, uuv);
-  for (int i = 0; i < 3; ++i) out[i] = v[i] + 2.0f * uuv[i];
-}
-
 // se3.quat_mul.
 __device__ __forceinline__ void quat_mul(const float* a, const float* b, float* out) {
   out[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
@@ -139,25 +129,10 @@ __device__ __forceinline__ void quat_normalize(float* q) {
 // se3.inverse of base_T_frame, then se3.quat_to_matrix: frame_T_base.
 __device__ __forceinline__ Pose frame_T_base(const float* __restrict__ q_in,
                                              const float* __restrict__ t_in) {
-  const float qi[4] = {__ldg(q_in), -__ldg(q_in + 1), -__ldg(q_in + 2), -__ldg(q_in + 3)};
+  const float q[4] = {__ldg(q_in), __ldg(q_in + 1), __ldg(q_in + 2), __ldg(q_in + 3)};
   const float t[3] = {__ldg(t_in), __ldg(t_in + 1), __ldg(t_in + 2)};
   Pose p;
-  float rot[3];
-  quat_rotate(qi, t, rot);
-  for (int i = 0; i < 3; ++i) p.t[i] = -rot[i];
-  const float w = qi[0], x = qi[1], y = qi[2], z = qi[3];
-  const float xx = x * x, yy = y * y, zz = z * z;
-  const float wx = w * x, wy = w * y, wz = w * z;
-  const float xy = x * y, xz = x * z, yz = y * z;
-  p.r[0] = 1.0f - 2.0f * (yy + zz);
-  p.r[1] = 2.0f * (xy - wz);
-  p.r[2] = 2.0f * (xz + wy);
-  p.r[3] = 2.0f * (xy + wz);
-  p.r[4] = 1.0f - 2.0f * (xx + zz);
-  p.r[5] = 2.0f * (yz - wx);
-  p.r[6] = 2.0f * (xz - wy);
-  p.r[7] = 2.0f * (yz + wx);
-  p.r[8] = 1.0f - 2.0f * (xx + yy);
+  inverse_matrix(q, t, p.r, p.t);
   return p;
 }
 

@@ -16,6 +16,11 @@
   no TPU kernel: on a CUDA tensor it is ``tracking.pairwise``'s
   ``accumulate_pose_coeffs``, ``compute_cost_and_count``, one Gauss-Newton
   step and the duel, in place of their plain chains (``*_plain``).
+* H3, keyframe BA's geometry pass (``csrc/geometry_coeffs.cu``), replaces
+  no TPU kernel: on a CUDA tensor it is ``ba.geometry_opt``'s per-block
+  accumulations and per-row finishes of activation and normals
+  (``geometry_normals``) and of positions and descriptors
+  (``geometry_position``), in place of their plain chains (``*_plain``).
 
 * Build: at first use, ``nvcc`` compiles the source in this checkout into a
   shared library with a plain C interface under ``badslam_torch/_build/``
@@ -85,21 +90,26 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source on top of NVCC_FLAGS: H1 and H2 round every operation
-# as the plain version's PyTorch operations do (no contraction into fused
-# multiply-adds), so their association gates are the plain version's.
-SOURCE_FLAGS = {"pose_coeffs.cu": ("-fmad=false",), "track_coeffs.cu": ("-fmad=false",)}
+# Flags of one source on top of NVCC_FLAGS: H1-H3 round every operation as
+# the plain version's PyTorch operations do (no contraction into fused
+# multiply-adds but where PyTorch's kernel fuses), so their association
+# gates are the plain version's.
+SOURCE_FLAGS = {"pose_coeffs.cu": ("-fmad=false",), "track_coeffs.cu": ("-fmad=false",),
+                "geometry_coeffs.cu": ("-fmad=false",)}
 
 BILATERAL = "bilateral_filter_and_cutoff"
 GATHER = "gather"
 GATHER_ONEHOT = "gather_onehot"
 POSE_COEFFS = "pose_coeffs"
 TRACK_COEFFS = "track_coeffs"
+GEOMETRY_NORMALS = "geometry_normals"
+GEOMETRY_POSITION = "geometry_position"
 
 # The CUDA source of each kernel, under csrc/.
 SOURCES = {BILATERAL: "bilateral.cu", GATHER: "gather.cu",
            GATHER_ONEHOT: "gather.cu", POSE_COEFFS: "pose_coeffs.cu",
-           TRACK_COEFFS: "track_coeffs.cu"}
+           TRACK_COEFFS: "track_coeffs.cu", GEOMETRY_NORMALS: "geometry_coeffs.cu",
+           GEOMETRY_POSITION: "geometry_coeffs.cu"}
 # Every source built into a library: the kernels' and the CUDA-graph IF
 # nodes' (ops/conditional.py).
 LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
@@ -107,7 +117,8 @@ LIBRARY_SOURCES = sorted(set(SOURCES.values()) | {"conditional.cu"})
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 # The same launches, per image shape ((H, W, tile) for K1, (B, H, W) for
-# K2, (H, W) for K3, (C, H, W) for H2, (H, W) of the level for H1).
+# K2, (H, W) for K3, (C, H, W) for H2, (H, W) of the level for H1, (C, H,
+# W) of a block and (N,) of a finish for H3).
 launch_shapes: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 # The same launches, per tag (the launching thread's launch_tag).
 launch_tags: Dict[str, Counter] = {name: Counter() for name in SOURCES}
@@ -245,22 +256,29 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
-def _digest(source: str) -> str:
-    """The hash in a library's name: of the source, of every header under
-    csrc/ that it includes with ``#include "..."`` (and those include), and
-    of its flags, so that an edit to any of them builds the library anew."""
-    h = hashlib.sha256()
-    seen, todo = set(), [source]
+def _sources_hashed(source: str) -> List[str]:
+    """The source and every header under csrc/ that it includes with
+    ``#include "..."`` (and those include), in the order _digest hashes
+    them."""
+    seen, todo = [], [source]
     while todo:
         name = todo.pop(0)
-        path = os.path.join(_CSRC_DIR, name)
-        if name in seen or not os.path.isfile(path):
+        if name in seen or not os.path.isfile(os.path.join(_CSRC_DIR, name)):
             continue
-        seen.add(name)
-        with open(path, "rb") as f:
-            text = f.read()
-        h.update(text)
-        todo += [m.decode() for m in _INCLUDE.findall(text)]
+        seen.append(name)
+        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
+def _digest(source: str) -> str:
+    """The hash in a library's name: of the files _sources_hashed names and
+    of the source's flags, so that an edit to any of them builds the
+    library anew."""
+    h = hashlib.sha256()
+    for name in _sources_hashed(source):
+        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(source, ())).encode())
     return h.hexdigest()[:16]
 
@@ -645,10 +663,11 @@ def _pose_coeffs_fns():
     return tiles, fn
 
 
-def _pose_coeffs_constants(cam, baseline_fx: float):
-    """H2's scalar table (csrc/pose_coeffs.cu's Constants): each the float32
-    that the plain version's PyTorch operation takes, a division by a
-    Python scalar on the card being a product with its float32 inverse."""
+def _surfel_constants(cam, baseline_fx: float):
+    """H2's and H3's scalar table (csrc/association.cuh's Constants): each
+    the float32 that the plain version's PyTorch operation takes, a division
+    by a Python scalar on the card being a product with its float32
+    inverse."""
     f32 = np.float32
     values = (cam.fx, cam.fy, cam.cx, cam.cy, cam.fx_inv, cam.fy_inv, cam.cx_inv,
               cam.cy_inv, f32(1.0) / f32(baseline_fx),
@@ -703,7 +722,7 @@ def pose_coeffs_cuda(pos, normal, radius2, desc, valid, rot, trans, depth, f_nx,
                  valid.data_ptr(), n, rot.data_ptr(), trans.data_ptr(),
                  None if running is None else running.data_ptr(), c, depth.data_ptr(),
                  f_nx.data_ptr(), f_ny.data_ptr(), intensity.data_ptr(), h, w,
-                 _pose_coeffs_constants(cam, baseline_fx), int(use_depth),
+                 _surfel_constants(cam, baseline_fx), int(use_depth),
                  int(use_descriptor), partial.data_ptr(), H.data_ptr(), b.data_ptr(),
                  count.data_ptr(), stream)
     if err != 0:
@@ -712,6 +731,204 @@ def pose_coeffs_cuda(pos, normal, radius2, desc, valid, rot, trans, depth, f_nx,
     if single:
         return H[0], b[0], count[0]
     return H, b, count
+
+
+def _geometry_fns():
+    lib = _library("geometry_coeffs.cu")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    consts = ctypes.POINTER(ctypes.c_float)
+    sig = {
+        "badslam_geometry_max_slots": [],
+        "badslam_geometry_normals": [ptr] * 4 + [i64] + [ptr] * 4 + [i32] + [ptr] * 3
+        + [i32] * 2 + [consts] + [ptr] * 4,
+        "badslam_geometry_normals_finish": [ptr] * 5 + [i64] + [ptr] * 2,
+        "badslam_geometry_position": [ptr] * 6 + [i64] + [ptr] * 3 + [i32] + [ptr] * 4
+        + [i32] * 2 + [consts] + [i32] * 2 + [ptr] * 2,
+        "badslam_geometry_position_finish": [ptr] * 5 + [i64] + [ptr] + [i32] + [ptr] * 3,
+    }
+    fns = {}
+    for name, argtypes in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name[len("badslam_geometry_"):]] = fn
+    return fns
+
+
+def _geometry_block(what, rows, q, t, planes, masks):
+    """Check one H3 launch's tensors before anything is loaded: `rows` and
+    the planes as (name, tensor, dtype, shape), q [C, 4] and t [C, 3]
+    float32, planes [C, H, W] float32 and masks [C] bool (None skipped).
+    Returns (C, H, W)."""
+    c = q.shape[0] if q.ndim == 2 else 0
+    h, w = planes[0][1].shape[-2:]
+    f32 = torch.float32
+    named = list(rows) + [("q", q, f32, (c, 4)), ("t", t, f32, (c, 3))]
+    named += [(name, x, f32, (c, h, w)) for name, x in planes]
+    named += [(name, m, torch.bool, (c,)) for name, m in masks if m is not None]
+    _check_tensors(what, named)
+    most = _geometry_fns()["max_slots"]()
+    if not 0 < c <= most:
+        raise ValueError(f"{what}: {c} keyframes; the kernel takes 1 to {most} a launch")
+    return c, h, w
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def geometry_normals_cuda(pos, normal, valid, active, q, t, depth, f_nx, f_ny, cam,
+                          baseline_fx: float, carry, act_mask=None,
+                          normal_mask=None) -> None:
+    """Launch H3's activation-and-normals accumulation over one block of C
+    keyframes (C at most KEYFRAME_BATCH): the surfel rows (pos, normal [N,
+    3] float32, valid, active [N] bool) against the keyframes
+    global_T_frame (q [C, 4], t [C, 3]) with their planes (depth, f_nx,
+    f_ny [C, H, W] float32). `carry` = (act [N] bool, nsum [N, 3] float32,
+    count [N] int64), each None where not summed, as
+    ba.geometry_opt._act_normals_init makes it, added into in place: with
+    `act_mask` ([C] bool) the rows are the valid ones and a row associated
+    with a keyframe of act_mask becomes active; without it the rows are the
+    valid and active ones. With nsum the measured normals (rotated to
+    world) of the keyframes of `normal_mask` ([C] bool, None for all) are
+    summed and counted. All contiguous on one CUDA device; the values of
+    _act_normals_chunk_plain / _normals_chunk_plain, a row's keyframes
+    summed in slot order, the same bits on every launch. Raises on any
+    other input."""
+    what = "geometry_normals_cuda"
+    act, nsum, count = carry
+    n = pos.shape[0]
+    f32, i64, b = torch.float32, torch.int64, torch.bool
+    rows = [("pos", pos, f32, (n, 3)), ("normal", normal, f32, (n, 3)),
+            ("valid", valid, b, (n,)), ("active", active, b, (n,))]
+    if (act_mask is None) != (act is None):
+        raise ValueError(f"{what}: act_mask and the carry's act go together")
+    if act_mask is None and nsum is None:
+        raise ValueError(f"{what}: neither activation nor normals to compute")
+    if (nsum is None) != (count is None):
+        raise ValueError(f"{what}: the carry's nsum and count go together")
+    for name, x, dtype, shape in (("act", act, b, (n,)), ("nsum", nsum, f32, (n, 3)),
+                                  ("count", count, i64, (n,))):
+        if x is not None:
+            rows.append((name, x, dtype, shape))
+    c, h, w = _geometry_block(what, rows, q, t, [("depth", depth), ("f_nx", f_nx),
+                                                 ("f_ny", f_ny)],
+                              [("act_mask", act_mask), ("normal_mask", normal_mask)])
+    fn = _geometry_fns()["normals"]
+    with torch.cuda.device(pos.device):
+        err = fn(pos.data_ptr(), normal.data_ptr(), valid.data_ptr(), active.data_ptr(), n,
+                 q.data_ptr(), t.data_ptr(), _ptr(act_mask), _ptr(normal_mask), c,
+                 depth.data_ptr(), f_nx.data_ptr(), f_ny.data_ptr(), h, w,
+                 _surfel_constants(cam, baseline_fx), _ptr(act), _ptr(nsum), _ptr(count),
+                 _stream(pos))
+    if err != 0:
+        raise RuntimeError(f"geometry normals kernel launch failed: CUDA error {err}")
+    _count(GEOMETRY_NORMALS, (c, h, w))
+
+
+def geometry_normals_finish_cuda(normal, valid, active, carry) -> torch.Tensor:
+    """Launch H3's normal finish (_renormalized) on a carry of
+    geometry_normals_cuda: the averaged, re-normalized normals of the rows
+    the carry's act marks (with activation) or of the valid and active rows
+    (without: carry[0] None), the others' as `normal`. Returns a new [N, 3]
+    float32 tensor. Raises on what it does not take."""
+    what = "geometry_normals_finish_cuda"
+    act, nsum, count = carry
+    n = normal.shape[0]
+    f32, b = torch.float32, torch.bool
+    named = [("normal", normal, f32, (n, 3)), ("valid", valid, b, (n,)),
+             ("active", active, b, (n,)), ("nsum", nsum, f32, (n, 3)),
+             ("count", count, torch.int64, (n,))]
+    if act is not None:
+        named.append(("act", act, b, (n,)))
+    _check_tensors(what, named)
+    out = normal.clone()
+    fn = _geometry_fns()["normals_finish"]
+    with torch.cuda.device(normal.device):
+        err = fn(valid.data_ptr(), active.data_ptr(), _ptr(act), nsum.data_ptr(),
+                 count.data_ptr(), n, out.data_ptr(), _stream(normal))
+    if err != 0:
+        raise RuntimeError(f"geometry normals finish launch failed: CUDA error {err}")
+    _count(GEOMETRY_NORMALS, (n,))
+    return out
+
+
+def geometry_position_sums(n: int, use_descriptor: bool, device) -> torch.Tensor:
+    """The zeroed carry of geometry_position_cuda for n rows: [8, N] float32
+    (H00 H01 H02 H11 H22 b0 b1 b2) with descriptors, else [2, N] (H, b)."""
+    return torch.zeros((8 if use_descriptor else 2, n), dtype=torch.float32, device=device)
+
+
+def geometry_position_cuda(pos, normal, radius2, desc, valid, active, q, t, depth, f_nx,
+                           f_ny, intensity, mask, cam, baseline_fx: float, use_depth: bool,
+                           use_descriptor: bool, sums) -> None:
+    """Launch H3's position accumulation over one block of C keyframes (C
+    at most KEYFRAME_BATCH): the valid and active surfel rows (pos, normal
+    [N, 3], radius2 [N], desc [N, 2] float32, valid, active [N] bool)
+    against the keyframes of `mask` ([C] bool, None for all), global_T_frame
+    (q [C, 4], t [C, 3]) with their planes (depth, f_nx, f_ny and, with
+    descriptors, intensity [C, H, W] float32). Adds each row's Gauss-Newton
+    sums into `sums` (geometry_position_sums) in place: the depth residual
+    alone without descriptors (whatever use_depth says, as
+    _pos1d_chunk_plain), else the descriptor residuals and, with use_depth,
+    the depth residual (_pos3d_chunk_plain). All contiguous on one CUDA
+    device; a row's keyframes summed in slot order, the same bits on every
+    launch. Raises on any other input."""
+    what = "geometry_position_cuda"
+    n = pos.shape[0]
+    f32, b = torch.float32, torch.bool
+    rows = [("pos", pos, f32, (n, 3)), ("normal", normal, f32, (n, 3)),
+            ("radius2", radius2, f32, (n,)), ("desc", desc, f32, (n, 2)),
+            ("valid", valid, b, (n,)), ("active", active, b, (n,)),
+            ("sums", sums, f32, (8 if use_descriptor else 2, n))]
+    planes = [("depth", depth), ("f_nx", f_nx), ("f_ny", f_ny)]
+    if use_descriptor:
+        if intensity is None:
+            raise ValueError(f"{what}: the descriptor residuals need the intensity planes")
+        planes.append(("intensity", intensity))
+    c, h, w = _geometry_block(what, rows, q, t, planes, [("mask", mask)])
+    fn = _geometry_fns()["position"]
+    with torch.cuda.device(pos.device):
+        err = fn(pos.data_ptr(), normal.data_ptr(), radius2.data_ptr(), desc.data_ptr(),
+                 valid.data_ptr(), active.data_ptr(), n, q.data_ptr(), t.data_ptr(),
+                 _ptr(mask), c, depth.data_ptr(), f_nx.data_ptr(), f_ny.data_ptr(),
+                 _ptr(intensity) if use_descriptor else None, h, w,
+                 _surfel_constants(cam, baseline_fx), int(use_depth), int(use_descriptor),
+                 sums.data_ptr(), _stream(pos))
+    if err != 0:
+        raise RuntimeError(f"geometry position kernel launch failed: CUDA error {err}")
+    _count(GEOMETRY_POSITION, (c, h, w))
+
+
+def geometry_position_finish_cuda(pos, normal, desc, valid, active, sums,
+                                  use_descriptor: bool):
+    """Launch H3's position finish (_pos1d_finish / _pos3d_finish) on the
+    sums of geometry_position_cuda: the valid and active rows' solved
+    steps. Returns new (pos [N, 3], desc [N, 2]) float32 tensors, the other
+    rows' as the inputs (desc itself without descriptors). Raises on what
+    it does not take."""
+    what = "geometry_position_finish_cuda"
+    n = pos.shape[0]
+    f32, b = torch.float32, torch.bool
+    _check_tensors(what, [("pos", pos, f32, (n, 3)), ("normal", normal, f32, (n, 3)),
+                          ("desc", desc, f32, (n, 2)), ("valid", valid, b, (n,)),
+                          ("active", active, b, (n,)),
+                          ("sums", sums, f32, (8 if use_descriptor else 2, n))])
+    pos_out = pos.clone()
+    desc_out = desc.clone() if use_descriptor else desc
+    fn = _geometry_fns()["position_finish"]
+    with torch.cuda.device(pos.device):
+        err = fn(pos.data_ptr(), normal.data_ptr(), desc.data_ptr(), valid.data_ptr(),
+                 active.data_ptr(), n, sums.data_ptr(), int(use_descriptor),
+                 pos_out.data_ptr(), desc_out.data_ptr(), _stream(pos))
+    if err != 0:
+        raise RuntimeError(f"geometry position finish launch failed: CUDA error {err}")
+    _count(GEOMETRY_POSITION, (n,))
+    return pos_out, desc_out
 
 
 def _track_fns():

@@ -204,7 +204,8 @@ failure, so any failure exits non-zero before the last line is printed):
    of 2 iterations over the mesh as replays of their graph against the
    eager call of the same function (host loops), alternating from one
    restored state for 3 rounds: poses max |dq|, |dt| <= 1e-6, the same
-   iterations, surfels and K2 launches per shard; then a replayed drain
+   iterations, surfels and K2, H2 and H3 launches per shard (both shards
+   launching); then a replayed drain
    under set_sync_debug_mode("error"); prints device ms per replay and per
    eager call (CUDA events).
 23. The card against the CPU on the mesh (cpu_multi): phase 7's 160x120,
@@ -269,6 +270,7 @@ import numpy as np
 import torch
 
 from badslam_torch import cli, probe_gather, synthetic
+from badslam_torch.ba import geometry_opt as geo
 from badslam_torch.ba import pose_opt
 from badslam_torch.ba.pcg import PCGSystem
 from badslam_torch.config import BadSlamConfig
@@ -286,6 +288,7 @@ from badslam_torch.io.dataset import (
 )
 from badslam_torch.io.state import load_calibration
 from badslam_torch.loop.thread import LoopDetectionThread
+from badslam_torch.mapping.keyframes import KeyframeStack
 from badslam_torch.ops import autotune as tuner
 from badslam_torch.ops import interp, kernels
 from badslam_torch.parallel import make_mesh
@@ -293,6 +296,7 @@ from badslam_torch.parallel.dryrun import dryrun_multichip
 from badslam_torch.tools import evaluate_ate
 from badslam_torch.ops.interp import gather_nearest_plain, gather_onehot_plain
 from badslam_torch.tracking import pairwise
+from badslam_torch.utils.timing import Timing
 from badslam_torch.ops.preprocess import (
     bilateral_filter_and_cutoff,
     median_filter_and_densify,
@@ -741,6 +745,144 @@ def _h2() -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "step_ms": step_ms, **t_, **b}
 
 
+# H3 at the benchmark's scale: a keyframe bucket of 32 slots (4 blocks) of
+# 640x480 planes against a surfel bucket of 1,048,576 rows, 10% live.
+H3_KEYFRAMES, H3_ROWS = 32, 1 << 20
+# Bytes a live row moves in one block's launch beside the valid byte (and
+# the position pass's active byte): the normals pass reads position and
+# normal (24) and reads and writes its carry (flag, normal sum, count: 2 x
+# 21); the position pass reads position, normal, squared radius and
+# descriptor (36) and reads and writes its 8 sums (2 x 32).
+H3_NORMALS_ROW_BYTES, H3_POSITION_ROW_BYTES = 66.0, 100.0
+# The finishes: a live row's carry read and its normal written (32), or its
+# position, normal, descriptor and 8 sums read and position and descriptor
+# written (84); a dead row's output copied (the caller's clone: 24 bytes of
+# normal, 40 of position and descriptor).
+H3_NORMALS_FINISH_BYTES, H3_POSITION_FINISH_BYTES = 32.0, 84.0
+# Float operations per (live row, slot): association ~60; the position
+# pass's depth term ~20, tangents, three bilinear samples and the two
+# descriptor terms ~200 more.
+H3_OPS_ASSOCIATION, H3_OPS_POSITION = 60.0, 280.0
+
+
+def _h3_equal(what: str, got, want) -> None:
+    """Bit for bit, or the phase fails naming the rows that differ."""
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            rows = int((g != w).reshape(g.shape[0] if g.ndim else 1, -1).any(dim=1).sum())
+            raise AssertionError(f"H3 {what}: {rows} rows differ from the plain chain")
+
+
+def _h3() -> dict:
+    """H3 against its plain chain at the benchmark's scale, bit for bit:
+    each kind's launch over one block of 8 slots (activation, normal sums
+    and counts; the position sums; two launches alike), then the whole
+    geometry stage (DirectBA._geometry: activation and normals, then
+    positions and descriptors over the 32 slots) against the same stage on
+    the plain chain; device ms in a graph of each launch, each finish, the
+    stage and the plain chain, and their byte bounds. Any mismatch fails
+    the phase."""
+    from badslam_torch.ba import scheme
+    from badslam_torch.ba.scheme import DirectBA
+
+    state = synthetic.pose_pass_state(13, H3_KEYFRAMES, H3_ROWS, 0.1, WIDTH, HEIGHT)
+    smap, q, t, depth, nx, ny, inten = synthetic.pose_pass_inputs(state, "cuda")
+    cam = state.cam
+    slot = torch.arange(H3_KEYFRAMES, device="cuda")
+    participating = slot % 8 != 7
+    strict = participating & (slot % 3 != 1)
+    stack = KeyframeStack(depth, nx, ny, None, inten, q, t, participating)
+    block = stack.rows(slice(0, 8))
+    live = int(smap.valid.sum())
+    n = smap.valid.numel()
+    plane = 4.0 * HEIGHT * WIDTH
+
+    # One block of each kind, both kinds' flags.
+    def normals(chunk):
+        return chunk(geo._act_normals_init(smap), block, strict[:8], participating[:8], smap,
+                     cam, 40.0, True)
+
+    got = normals(geo._act_normals_chunk)
+    ref = normals(geo._act_normals_chunk_plain)
+    _h3_equal("normals", got, ref)
+    _h3_equal("normals, a second launch", normals(geo._act_normals_chunk), got)
+    pairs = float(ref[2].sum())
+    t_n = _timings(lambda: normals(geo._act_normals_chunk),
+                   lambda: normals(geo._act_normals_chunk_plain))
+    b_n = _bound(n + H3_NORMALS_ROW_BYTES * live + 3 * plane * 8,
+                 H3_OPS_ASSOCIATION * live * 8)
+
+    def position(chunk, init):
+        return chunk(init(smap, True), block, smap, cam, 40.0, True, True)
+
+    got = position(geo._pos_chunk, geo._pos_init)
+    ref = position(geo._pos_chunk_plain, geo._pos_init_plain)
+    _h3_equal("position sums", got, torch.stack(ref[:4] + ref[5:]))
+    _h3_equal("position sums, a second launch", position(geo._pos_chunk, geo._pos_init), got)
+    t_p = _timings(lambda: position(geo._pos_chunk, geo._pos_init),
+                   lambda: position(geo._pos_chunk_plain, geo._pos_init_plain))
+    b_p = _bound(2 * n + H3_POSITION_ROW_BYTES * live + 4 * plane * 8,
+                 H3_OPS_POSITION * live * 8)
+    carry = normals(geo._act_normals_chunk)
+    finish_ms = {"normals": device_ms(lambda: geo._act_normals_finish(smap, carry, True)),
+                 "position": device_ms(lambda: geo._pos_finish(smap, got, True))}
+    b_f = _bound(2 * n + (H3_NORMALS_FINISH_BYTES + H3_POSITION_FINISH_BYTES) * live
+                 + 64.0 * n, 0.0)
+
+    # The whole stage, as BA runs it, and on the plain chain; its stamps
+    # and row counters, captured with it, need the card's stamp table.
+    ba = DirectBA(cam, BadSlamConfig(max_surfel_count=H3_ROWS), surfel_capacity=256,
+                  device="cuda")
+    Timing.stamp_table(ba.device)
+
+    def stage():
+        return ba._geometry(smap, None, stack, strict, participating, True)
+
+    def plain_stage():
+        kernel_fns = scheme.update_activation_and_normals, scheme._position_step
+        scheme.update_activation_and_normals = geo.update_activation_and_normals_plain
+        scheme._position_step = geo._position_step_plain
+        try:
+            return stage()
+        finally:
+            scheme.update_activation_and_normals, scheme._position_step = kernel_fns
+
+    before = {k: kernels.launch_counts[k] for k in (kernels.GEOMETRY_NORMALS,
+                                                    kernels.GEOMETRY_POSITION)}
+    out, ref = stage(), plain_stage()
+    launches = {k: kernels.launch_counts[k] - v for k, v in before.items()}
+    _h3_equal("stage", out, ref)
+    moved = int((ref.pos != smap.pos).any(dim=1).sum())
+    stage_ms = device_ms(stage, runs=10, repeats=3)
+    plain_stage_ms = device_ms(plain_stage, runs=2, repeats=3)
+    blocks = H3_KEYFRAMES // 8
+    b_s = _bound(blocks * (3 * n + (H3_NORMALS_ROW_BYTES + H3_POSITION_ROW_BYTES) * live
+                           + 7 * plane * 8)
+                 + 2 * n + (H3_NORMALS_FINISH_BYTES + H3_POSITION_FINISH_BYTES) * live
+                 + 64.0 * n, 0.0)
+    print(f"H3 geometry_normals (activation and normals) 8 x 480x640 against {H3_ROWS} rows "
+          f"({live} live, {int(pairs)} associated): bit for bit the plain chain, two launches "
+          f"alike; device ms kernel {t_n['ms']:.4f}, plain {t_n['plain_ms']:.4f}; eager kernel "
+          f"{t_n['call_ms']:.4f}, plain {t_n['plain_call_ms']:.4f}; bound "
+          f"{b_n['bound_ms']:.5f} ms ({b_n['bound_by']}); {SMI}")
+    print(f"H3 geometry_position (depth and descriptors) 8 x 480x640 against {H3_ROWS} rows: "
+          f"bit for bit the plain chain, two launches alike; device ms kernel "
+          f"{t_p['ms']:.4f}, plain {t_p['plain_ms']:.4f}; eager kernel {t_p['call_ms']:.4f}, "
+          f"plain {t_p['plain_call_ms']:.4f}; bound {b_p['bound_ms']:.5f} ms "
+          f"({b_p['bound_by']}); finishes (with the outputs' copies) normals "
+          f"{finish_ms['normals']:.4f}, position {finish_ms['position']:.4f} ms, bound "
+          f"together {b_f['bound_ms']:.5f} ms")
+    print(f"H3 geometry stage (DirectBA._geometry, {H3_KEYFRAMES} slots of 480x640, "
+          f"{H3_ROWS} rows): launches {launches}; activation, normals, positions and "
+          f"descriptors bit for bit the plain chain's ({moved} rows moved); device ms stage "
+          f"{stage_ms:.4f}, plain stage {plain_stage_ms:.4f}; bound {b_s['bound_ms']:.5f} ms "
+          f"({b_s['bound_by']}); {SMI}")
+    common = {"max_abs_err": 0.0, "library_ms": None, "stage_ms": stage_ms,
+              "plain_stage_ms": plain_stage_ms}
+    return {kernels.GEOMETRY_NORMALS: {**t_n, **b_n, **common},
+            kernels.GEOMETRY_POSITION: {**t_p, **b_p, **common}}
+
+
 # H1 (the tracker's Gauss-Newton step) at the finest and the coarsest of
 # the five levels at VGA.
 H1_LEVELS = (0, 4)
@@ -831,7 +973,7 @@ def phase_kernels(input_data: str) -> dict:
     _, umap, depth, rgb = _input_frame(input_data)
     return {kernels.BILATERAL: _k1(_undistorted_frame(input_data)),
             kernels.GATHER: _k2(umap, depth, rgb), kernels.GATHER_ONEHOT: _k3(),
-            kernels.POSE_COEFFS: _h2(), kernels.TRACK_COEFFS: _h1()}
+            kernels.POSE_COEFFS: _h2(), kernels.TRACK_COEFFS: _h1(), **_h3()}
 
 
 def phase_probe() -> dict:
@@ -2455,10 +2597,17 @@ def _restore_ba_state(ba, saved) -> None:
     ba.last_ba_iteration_count = last
 
 
+# The hand kernels of a BA call's shard work: K2 (creation, merge,
+# deletion), H2 (poses) and H3 (geometry, which reads its planes itself).
+MESH_KERNELS = (kernels.GATHER, kernels.POSE_COEFFS, kernels.GEOMETRY_NORMALS,
+                kernels.GEOMETRY_POSITION)
+
+
 def _mesh_drain(slam, graph: bool) -> dict:
     """One drain call of 2 iterations over the mesh: a replay of its graph
     or the eager call of the same function (host loops). Device ms between
-    CUDA events, iterations, K2 launches per shard, poses."""
+    CUDA events, iterations, the BA hand kernels' launches per shard (K2,
+    H2, H3: each shard's work), poses."""
     ba = slam.direct_ba
     kernels.reset_launch_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2470,8 +2619,9 @@ def _mesh_drain(slam, graph: bool) -> dict:
     end.synchronize()
     kernels.flush_launch_counts()
     return dict(ms=start.elapsed_time(end), iterations=int(iterations),
-                k2={tag: n for tag, n in kernels.launch_tags[kernels.GATHER].items()
-                    if tag is not None},
+                shards={tag: sum(kernels.launch_tags[name][tag] for name in MESH_KERNELS)
+                        for tag in {t for name in MESH_KERNELS
+                                    for t in kernels.launch_tags[name] if t is not None}},
                 q=ba.keyframes.q.clone(), t=ba.keyframes.t.clone(),
                 surfels=ba.surfel_count)
 
@@ -2516,15 +2666,16 @@ def phase_mesh_graph(slams: dict) -> None:
               f"|dt| {dt:.3e} (atol {BA_GRAPH_ATOL}); iterations "
               f"{[g['iterations'] for g, _ in rounds]} / "
               f"{[e['iterations'] for _, e in rounds]}; "
-              f"K2 launches per shard {[g['k2'] for g, _ in rounds]} / "
-              f"{[e['k2'] for _, e in rounds]}; surfels {rounds[-1][0]['surfels']} / "
+              f"K2, H2 and H3 launches per shard {[g['shards'] for g, _ in rounds]} / "
+              f"{[e['shards'] for _, e in rounds]}; surfels {rounds[-1][0]['surfels']} / "
               f"{rounds[-1][1]['surfels']}; captures {len(bag.captures) - captures} new; then "
               f"a replayed drain under set_sync_debug_mode('error'): no sync")
         checks = {
             "replays equal the eager calls": dq <= BA_GRAPH_ATOL and dt <= BA_GRAPH_ATOL,
             "iterations equal": all(g["iterations"] == e["iterations"] for g, e in rounds),
-            "K2 launches per shard equal, on both shards": all(
-                g["k2"] == e["k2"] and all(g["k2"].get(i, 0) > 0 for i in range(MULTI_SHARDS))
+            "hand-kernel launches per shard equal, on both shards": all(
+                g["shards"] == e["shards"]
+                and all(g["shards"].get(i, 0) > 0 for i in range(MULTI_SHARDS))
                 for g, e in rounds),
             "surfel counts equal": all(g["surfels"] == e["surfels"] for g, e in rounds),
             "the rounds replayed": len(bag.captures) == captures,
@@ -2903,6 +3054,11 @@ _KERNEL_ROWS = (
     (kernels.TRACK_COEFFS, "badslam_torch/csrc/track_coeffs.cu",
      "none (the plain chain of badslam_torch/tracking/pairwise.py "
      "accumulate_pose_coeffs_plain)"),
+    (kernels.GEOMETRY_NORMALS, "badslam_torch/csrc/geometry_coeffs.cu",
+     "none (the plain chain of badslam_torch/ba/geometry_opt.py "
+     "_act_normals_chunk_plain)"),
+    (kernels.GEOMETRY_POSITION, "badslam_torch/csrc/geometry_coeffs.cu",
+     "none (the plain chain of badslam_torch/ba/geometry_opt.py _pos_chunk_plain)"),
 )
 
 
@@ -2971,9 +3127,10 @@ def main(argv=None) -> int:
           f"{timings_launches}")
     rows = []
     for kname, source, replaces in _KERNEL_ROWS:
-        # K1, K2 and H2 are on the SLAM path: their launches are those of
-        # the default main path's run (the loop phase, loop closure on). K3
-        # is only on the probe path: its launches are the probe's.
+        # K1, K2, H1, H2 and H3 are on the SLAM path: their launches are
+        # those of the default main path's run (the loop phase, loop
+        # closure on). K3 is only on the probe path: its launches are the
+        # probe's.
         launches = (probe_launches if kname == kernels.GATHER_ONEHOT
                     else loop_launches)[kname]
         m = measured[kname]

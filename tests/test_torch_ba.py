@@ -119,6 +119,34 @@ def test_pose_coeffs_kernel_refuses_cpu_tensors():
                                  inten[0], state.cam, 40.0, True, True)
 
 
+def test_geometry_kernels_refuse_cpu_tensors():
+    """H3's launchers take CUDA tensors only (the CPU path is the plain
+    chain, geometry_opt dispatching on the map's device), and the passes
+    refuse a map on any other device."""
+    from badslam_torch.mapping.keyframes import KeyframeStack
+
+    state = tsyn.pose_pass_state(4, 2, 256, 0.1, 32, 24)
+    smap, q, t, depth, nx, ny, inten = tsyn.pose_pass_inputs(state, DEV)
+    act, nsum, cnt = tgeo._act_normals_init(smap)
+    mask = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.geometry_normals_cuda(smap.pos, smap.normal, smap.valid, smap.active, q, t,
+                                      depth, nx, ny, state.cam, 40.0, (act, nsum, cnt),
+                                      act_mask=mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.geometry_position_cuda(smap.pos, smap.normal, smap.radius2, smap.desc,
+                                       smap.valid, smap.active, q, t, depth, nx, ny, inten,
+                                       mask, state.cam, 40.0, True, True,
+                                       torch.zeros((8, 256)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.geometry_position_finish_cuda(smap.pos, smap.normal, smap.desc, smap.valid,
+                                              smap.active, torch.zeros((2, 256)), False)
+    meta = smap._replace(**{f: getattr(smap, f).to("meta") for f in smap._fields})
+    stack = KeyframeStack(depth, nx, ny, None, inten, q, t, mask)
+    with pytest.raises(ValueError, match="meta"):
+        tgeo.update_surfel_normals(meta, state.cam, stack, 40.0)
+
+
 @pytest.mark.parametrize("use_desc", [False, True], ids=["geometric", "geo+photometric"])
 def test_optimize_keyframe_poses_matches_jax(use_desc):
     """Both packages recover the perturbed pose (test_ba.py's bound) and
@@ -202,6 +230,30 @@ def test_position_step_matches_jax(use_desc):
                                atol=GEOM_DESC_ATOL, rtol=0)
     err = np.linalg.norm(mt.pos.numpy()[valid] - original[valid], axis=-1)
     assert err.mean() < 1e-4, err.mean()
+
+
+def test_frozen_position_hook_reaches_the_geometry_stage():
+    """slam_bench's ba_frozen fault patches the module-level
+    scheme._position_step; DirectBA's geometry stage calls it by that name
+    after its activation and normals pass. Planted, the stage leaves every
+    position and descriptor as it was and still updates activation and
+    normals as without it; unplanted, the stage moves them."""
+    from slam_bench import faults
+
+    p, kf0, kf1 = two_keyframes(13)
+    ba = p.t
+    smap = ba._working_map(0)
+    smap = smap._replace(active=torch.zeros_like(smap.valid))
+    slots = ba._store_slots(ba.keyframes.count)
+    stack = slots.stack(slots.q, slots.t, slots.valid)
+    out = ba._geometry(smap, slots, stack, slots.valid, slots.valid, True)
+    live = out.valid & out.active
+    assert int(live.sum()) > 500
+    assert bool((out.pos != smap.pos)[live].any()) and bool((out.desc != smap.desc)[live].any())
+    with faults.planted("ba_frozen"):
+        frozen = ba._geometry(smap, slots, stack, slots.valid, slots.valid, True)
+    assert torch.equal(frozen.pos, smap.pos) and torch.equal(frozen.desc, smap.desc)
+    assert torch.equal(frozen.active, out.active) and torch.equal(frozen.normal, out.normal)
 
 
 def test_optimize_geometry_iteration_matches_jax():

@@ -1,7 +1,7 @@
 """badslam_torch on the card: the CUDA kernels (K1 bilateral filter, K2
 image gather, K3 one-hot gather, H1 the tracker's Gauss-Newton step, H2
-BA's pose accumulation) against their plain PyTorch versions, and the
-CUDA path against the CPU path of the same modules.
+BA's pose accumulation, H3 BA's geometry pass) against their plain PyTorch
+versions, and the CUDA path against the CPU path of the same modules.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on a GPU machine without JAX it runs on its own:
@@ -32,6 +32,16 @@ Tolerances:
     convergence flag, in place the same bits; the duel's pick equal; the
     coarse-to-fine tracker at 640x480 the same iterations per scale and
     poses within 1e-5.
+  * H3 (BA's geometry pass) vs its plain chain on the card, at 640x480 and
+    739x458, 131,072 rows 10% live, keyframe stacks of 1, 8 and 11 slots
+    with masks that leave some out: bit for bit (activation flags,
+    observation counts, normal sums, each row's position system after
+    every block, normals, positions, descriptors; the kernel repeats each
+    plain operation as PyTorch rounds it on the card, its sums over the
+    slots in torch.sum's order), the same bits on a repeated launch; the
+    sharded geometry step over 2 shards of the card against one device:
+    bit for bit. A BA call on the card runs neither H2's nor H3's plain
+    chain.
   * H2 (BA's pose accumulation) vs its plain version on the card, 640x480
     planes, 131,072 surfel rows 10% live: H and b rtol 1e-5 with atol 1e-5
     x the keyframe's largest entry (float32 both; the per-surfel terms are
@@ -81,6 +91,7 @@ Tolerances:
     clock; no stage range inside a capture's range.
 """
 
+import functools
 import json
 
 import numpy as np
@@ -343,18 +354,28 @@ def _bundle_adjustment(device, window=None, timings=None, **config):
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, (1, 1)], ids=["all", "window"])
 def test_bundle_adjustment_cuda_matches_cpu(cuda, window, monkeypatch):
+    from badslam_torch.ba import geometry_opt as geo
+
     plain = pose_opt.surfel_pose_coeffs_plain
+    assoc = geo._assoc_batch
 
     def cpu_only(smap, *args):  # the card's pose pass is H2, never the plain chain
         assert not smap.pos.is_cuda
         return plain(smap, *args)
+
+    def cpu_assoc(cam, pos, *args):  # nor is its geometry pass (H3)
+        assert not pos.is_cuda
+        return assoc(cam, pos, *args)
     monkeypatch.setattr(pose_opt, "surfel_pose_coeffs_plain", cpu_only)
+    monkeypatch.setattr(geo, "_assoc_batch", cpu_assoc)
     before = kernels.launch_counts[kernels.GATHER]
-    before_h2 = kernels.launch_counts[kernels.POSE_COEFFS]
+    before_h = {name: kernels.launch_counts[name] for name in
+                (kernels.POSE_COEFFS, kernels.GEOMETRY_NORMALS, kernels.GEOMETRY_POSITION)}
     on_card, iters_card = _bundle_adjustment(cuda, window)
     torch.cuda.synchronize()
     assert kernels.launch_counts[kernels.GATHER] > before
-    assert kernels.launch_counts[kernels.POSE_COEFFS] > before_h2
+    for name, n in before_h.items():
+        assert kernels.launch_counts[name] > n, name
     on_cpu, iters_cpu = _bundle_adjustment("cpu", window)
     assert iters_card == iters_cpu >= 1
     assert torch.equal(on_card.keyframes.activation[:2].cpu(), on_cpu.keyframes.activation[:2])
@@ -459,6 +480,187 @@ def test_optimize_keyframe_poses_kernel_matches_plain(cuda, monkeypatch, max_ite
     torch.testing.assert_close(kernel.t, plain.t, atol=atol, rtol=0)
     assert torch.equal(kernel.moved, plain.moved) and bool(kernel.moved[:6].all())
     assert torch.equal(kernel.q[6:], q[6:]) and torch.equal(kernel.t[6:], t[6:])
+
+
+# H3's cases: the two cameras, keyframe stacks of 1, 8 and 11 slots (one
+# block, a full block, a full block and a part), 131,072 rows 10% live.
+GEOMETRY_CAMERAS = {"640x480": (640, 480), "739x458": (739, 458)}
+GEOMETRY_NORMALS = {"activation": (True, False), "activation+normals": (True, True),
+                    "normals": (False, True)}
+GEOMETRY_TERMS = {"depth": (True, False), "descriptor": (False, True), "both": (True, True)}
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_state(camera, keyframes: int, rows: int):
+    return synthetic.pose_pass_state(9, keyframes, rows, 0.1, *GEOMETRY_CAMERAS[camera])
+
+
+def _geometry_pass(device, camera, keyframes: int, rows: int = 131_072):
+    """synthetic.pose_pass_state at `camera` on the device with a fifth of
+    the valid rows inactive and masks that leave slots out: (camera,
+    SurfelMap, KeyframeStack with the operation's mask, activation mask)."""
+    from badslam_torch.mapping.keyframes import KeyframeStack
+
+    state = _geometry_state(camera, keyframes, rows)
+    smap, q, t, depth, nx, ny, inten = synthetic.pose_pass_inputs(state, device)
+    rng = np.random.default_rng(keyframes)
+    smap = smap._replace(active=smap.valid & torch.from_numpy(
+        rng.uniform(size=rows) < 0.8).to(device))
+    slot = torch.arange(keyframes, device=device)
+    mask = (slot % 4 != 2) | (slot == 0)
+    strict = mask & ((slot % 3 != 1) | (slot == 0))
+    # No pass of the geometry step reads the keyframes' radii.
+    stack = KeyframeStack(depth, nx, ny, torch.zeros_like(depth), inten, q, t, mask)
+    return state.cam, smap, stack, strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keyframes", [1, 8, 11])
+@pytest.mark.parametrize("camera", list(GEOMETRY_CAMERAS))
+@pytest.mark.parametrize("kind", list(GEOMETRY_NORMALS))
+def test_geometry_normals_kernel_matches_plain(cuda, kind, camera, keyframes):
+    """H3's activation and normals against the plain chain on the card, bit
+    for bit: each block's carry (activation flags, normal sums, counts),
+    then the finished map (activation, normals); the same bits on a
+    repeated launch."""
+    from badslam_torch.ba import geometry_opt as geo
+    from badslam_torch.mapping.keyframes import static_blocks
+
+    cam, smap, stack, strict = _geometry_pass(cuda, camera, keyframes)
+    activation, normals = GEOMETRY_NORMALS[kind]
+    before = kernels.launch_counts[kernels.GEOMETRY_NORMALS]
+    carries = {}
+    for name, chunk in (("kernel", (geo._act_normals_chunk, geo._normals_chunk)),
+                        ("plain", (geo._act_normals_chunk_plain, geo._normals_chunk_plain))):
+        act, nsum, cnt = geo._act_normals_init(smap)
+        for s in static_blocks(keyframes):
+            if activation:
+                act, nsum, cnt = chunk[0]((act, nsum, cnt), stack.rows(s), strict[s],
+                                          stack.mask[s], smap, cam, 40.0, normals)
+            else:
+                nsum, cnt = chunk[1]((nsum, cnt), stack.rows(s), smap, cam, 40.0)
+            carries[name] = (act.clone(), nsum.clone(), cnt.clone())
+    blocks = len(static_blocks(keyframes))
+    assert kernels.launch_counts[kernels.GEOMETRY_NORMALS] == before + blocks
+    (k_act, k_sum, k_cnt), (p_act, p_sum, p_cnt) = carries["kernel"], carries["plain"]
+    assert torch.equal(k_act, p_act & smap.valid) and torch.equal(k_cnt, p_cnt)
+    assert torch.equal(k_sum, p_sum)
+    assert int(p_cnt.sum()) > 1000 or not normals
+    assert int(p_act.sum()) > 1000 or not activation
+
+    if activation:
+        args = (smap, cam, stack, strict, stack.mask, 40.0, normals)
+        got = geo.update_activation_and_normals(*args)
+        want = geo.update_activation_and_normals_plain(*args)
+        again = geo.update_activation_and_normals(*args)
+    else:
+        args = (smap, cam, stack, 40.0)
+        got = geo.update_surfel_normals(*args)
+        want = geo.update_surfel_normals_plain(*args)
+        again = geo.update_surfel_normals(*args)
+    assert torch.equal(got.active, want.active) and torch.equal(got.normal, want.normal)
+    assert normals == bool((want.normal != smap.normal).any())
+    assert torch.equal(got.normal, again.normal) and torch.equal(got.active, again.active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keyframes", [1, 8, 11])
+@pytest.mark.parametrize("camera", list(GEOMETRY_CAMERAS))
+@pytest.mark.parametrize("terms", list(GEOMETRY_TERMS))
+def test_geometry_position_kernel_matches_plain(cuda, terms, camera, keyframes):
+    """H3's position and descriptor step against the plain chain on the
+    card, bit for bit: each row's summed system after every block, then the
+    positions and descriptors; the same bits on a repeated launch."""
+    from badslam_torch.ba import geometry_opt as geo
+    from badslam_torch.mapping.keyframes import static_blocks
+
+    cam, smap, stack, _ = _geometry_pass(cuda, camera, keyframes)
+    use_depth, use_descriptor = GEOMETRY_TERMS[terms]
+    before = kernels.launch_counts[kernels.GEOMETRY_POSITION]
+    sums = geo._pos_init(smap, use_descriptor)
+    plain = geo._pos_init_plain(smap, use_descriptor)
+    for s in static_blocks(keyframes):
+        sums = geo._pos_chunk(sums, stack.rows(s), smap, cam, 40.0, use_depth, use_descriptor)
+        plain = geo._pos_chunk_plain(plain, stack.rows(s), smap, cam, 40.0, use_depth,
+                                     use_descriptor)
+        kept = plain
+        if use_descriptor:
+            assert not bool(plain[4].any())  # H12, which the kernel does not keep
+            kept = plain[:4] + plain[5:]
+        assert torch.equal(sums, torch.stack(kept))
+    assert kernels.launch_counts[kernels.GEOMETRY_POSITION] == \
+        before + len(static_blocks(keyframes))
+
+    args = (smap, cam, stack, 40.0, use_depth, use_descriptor)
+    got = geo._position_step(*args)
+    want = geo._position_step_plain(*args)
+    assert int((want.pos != smap.pos).any(dim=1).sum()) > 1000
+    assert torch.equal(got.pos, want.pos) and torch.equal(got.desc, want.desc)
+    again = geo._position_step(*args)
+    assert torch.equal(got.pos, again.pos) and torch.equal(got.desc, again.desc)
+
+
+@pytest.mark.cuda
+def test_geometry_kernels_reject_what_they_do_not_take(cuda):
+    from badslam_torch.ba import geometry_opt as geo
+
+    cam, smap, stack, strict = _geometry_pass(cuda, "640x480", 8, rows=4096)
+    act, nsum, cnt = geo._act_normals_init(smap)
+    head = [smap.pos, smap.normal, smap.valid, smap.active, stack.q, stack.t, stack.depth,
+            stack.nx, stack.ny, cam, 40.0, (act, nsum, cnt)]
+    kernels.geometry_normals_cuda(*head, act_mask=strict, normal_mask=stack.mask)
+    for i, bad in ((0, smap.pos.cpu()), (1, smap.normal.t().contiguous().t()),
+                   (2, smap.valid.to(torch.uint8)), (4, stack.q.double()),
+                   (6, stack.depth[:, :, :-1]), (11, (act, nsum, cnt.int())),
+                   (11, (None, None, None))):
+        wrong = list(head)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            kernels.geometry_normals_cuda(*wrong, act_mask=strict)
+    with pytest.raises(ValueError):  # more slots than a launch takes
+        big = [x.repeat(2, *([1] * (x.ndim - 1))) for x in head[4:9]]
+        kernels.geometry_normals_cuda(*head[:4], *big, *head[9:], act_mask=strict.repeat(2))
+    with pytest.raises(ValueError):  # activation without its carry
+        kernels.geometry_normals_cuda(*head[:11], (None, nsum, cnt), act_mask=strict)
+    with pytest.raises(ValueError):
+        kernels.geometry_normals_cuda(*head, act_mask=strict[:-1])
+    sums = geo._pos_init(smap, True)
+    pos_head = [smap.pos, smap.normal, smap.radius2, smap.desc, smap.valid, smap.active,
+                stack.q, stack.t, stack.depth, stack.nx, stack.ny, stack.intensity,
+                stack.mask, cam, 40.0, True, True, sums]
+    kernels.geometry_position_cuda(*pos_head)
+    for i, bad in ((3, smap.desc[:, :1].contiguous()), (5, smap.active.cpu()),
+                   (11, None), (12, stack.mask[:-1]), (17, geo._pos_init(smap, False))):
+        wrong = list(pos_head)
+        wrong[i] = bad
+        with pytest.raises(ValueError):
+            kernels.geometry_position_cuda(*wrong)
+    with pytest.raises(ValueError):
+        kernels.geometry_position_finish_cuda(smap.pos, smap.normal, smap.desc, smap.valid,
+                                              smap.active, sums[:2].contiguous(), True)
+    with pytest.raises(ValueError):
+        kernels.geometry_normals_finish_cuda(smap.normal, smap.valid, smap.active,
+                                             (None, nsum.double(), cnt))
+
+
+@pytest.mark.cuda
+def test_geometry_sharded_on_one_card_matches_one_device(cuda):
+    """parallel/sharded.py's geometry step over 2 shards of the card (its
+    chunk bodies, the planes streamed from their owners) against the one
+    device's: each row's arithmetic is its own, so bit for bit."""
+    from badslam_torch import parallel
+    from badslam_torch.ba import geometry_opt as geo
+
+    cam, smap, stack, _ = _geometry_pass(cuda, "640x480", 11, rows=65_536)
+    before = kernels.launch_counts[kernels.GEOMETRY_POSITION]
+    mesh = parallel.make_mesh(devices=[cuda, cuda])
+    got = parallel.optimize_geometry_sharded(mesh, smap, cam, stack)
+    want = geo.optimize_geometry_iteration(smap, cam, stack)
+    # Two blocks and a finish per shard, then the same on one device.
+    assert kernels.launch_counts[kernels.GEOMETRY_POSITION] == before + 2 * 3 + 3
+    assert int((want.pos != smap.pos).any(dim=1).sum()) > 1000
+    for name in ("pos", "normal", "desc", "valid", "active"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 # H1's cameras: 640x480 and the ETH3D SLAM camera's 739x458, each at its

@@ -241,7 +241,7 @@ def test_loop_refuses_step_in_place_with_a_limit():
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """A kernel library's name hashes the headers its source includes from
-    csrc/ (H1 and H2 share gn_sums.cuh): an edit to a header alone, nested
+    csrc/ (H1, H2 and H3 share gn_sums.cuh): an edit to a header alone, nested
     ones too, names a new library, so no stale build is loaded; an
     unrelated file changes nothing."""
     monkeypatch.setattr(kernels, "_CSRC_DIR", str(tmp_path))
@@ -257,3 +257,14 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
     assert kernels._digest("k.cu") not in (first, second)
+
+
+def test_library_digests_cover_the_shared_headers():
+    """H2 and H3 include association.cuh, which includes gn_sums.cuh (H1's
+    too): an edit to either names new libraries for its includers alone."""
+    assert kernels._sources_hashed("pose_coeffs.cu") == [
+        "pose_coeffs.cu", "association.cuh", "gn_sums.cuh"]
+    assert kernels._sources_hashed("geometry_coeffs.cu") == [
+        "geometry_coeffs.cu", "association.cuh", "gn_sums.cuh"]
+    assert kernels._sources_hashed("track_coeffs.cu") == ["track_coeffs.cu", "gn_sums.cuh"]
+    assert kernels._sources_hashed("gather.cu") == ["gather.cu"]
